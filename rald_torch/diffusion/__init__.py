@@ -1,0 +1,1 @@
+"""See the rald_tpu counterpart of this package."""

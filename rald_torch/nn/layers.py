@@ -1,0 +1,195 @@
+"""Shared layers in the reference's torch ``state_dict`` layout.
+
+Counterparts of ``rald_tpu/nn/layers.py``: :class:`PointEmbed` (:50),
+:class:`Attention` (:82), :class:`GEGLUFeedForward` (:137),
+:class:`AdaLayerNorm` (:187) and :class:`FourierTimeEmbedding` (:214).
+DropPath is the identity in eval and has no counterpart here.
+
+Compute dtype is the parameters' dtype (the engine casts a whole model to
+``system.compute_dtype`` once, which rounds each weight exactly as the JAX
+modules' per-use cast does); LayerNorm and softmax statistics and the
+point-embedding frequencies stay in f32.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def point_fourier_basis(hidden_dim: int) -> np.ndarray:
+    """Block-diagonal (3, hidden_dim//2) basis of 2^k * pi frequencies."""
+    assert hidden_dim % 6 == 0
+    k = hidden_dim // 6
+    e = (2.0 ** np.arange(k, dtype=np.float64)) * np.pi
+    basis = np.zeros((3, 3 * k), dtype=np.float32)
+    for axis in range(3):
+        basis[axis, axis * k:(axis + 1) * k] = e
+    return basis
+
+
+def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
+    """LayerNorm with f32 statistics, returned in ``x``'s dtype."""
+    w = None if weight is None else weight.float()
+    b = None if bias is None else bias.float()
+    return F.layer_norm(x.float(), (x.shape[-1],), w, b, eps).to(x.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` (weight/bias keys) computed with f32 statistics."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class PointEmbed(nn.Module):
+    """Fourier positional embedding of 3D points -> ``dim`` channels."""
+
+    def __init__(self, hidden_dim: int = 48, dim: int = 512):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.mlp = nn.Linear(hidden_dim + 3, dim)
+        # kept out of the module's buffers so a cast to bf16 leaves the
+        # 2^k*pi frequencies in f32 (they need the precision before sin)
+        self._basis = {}
+
+    def _basis_on(self, device) -> torch.Tensor:
+        basis = self._basis.get(device)
+        if basis is None:
+            basis = torch.from_numpy(point_fourier_basis(self.hidden_dim)).to(device)
+            self._basis[device] = basis
+        return basis
+
+    def forward(self, pts: torch.Tensor) -> torch.Tensor:
+        p = pts.float()
+        proj = torch.matmul(p, self._basis_on(p.device))
+        feats = torch.cat([torch.sin(proj), torch.cos(proj), p], dim=-1)
+        return self.mlp(feats.to(self.mlp.weight.dtype))
+
+
+class Attention(nn.Module):
+    """Multi-head softmax attention with optional cross-attention context.
+
+    ``fused_kv=True`` is the VAE layout (``to_kv``, ``to_out``);
+    ``fused_kv=False`` the DiT layout (``to_k``/``to_v``, ``to_out.0``).
+    Plain matmul -> f32 softmax -> matmul, as the JAX module leaves it to XLA.
+    """
+
+    def __init__(
+        self,
+        query_dim: int,
+        context_dim: Optional[int] = None,
+        heads: int = 8,
+        dim_head: int = 64,
+        out_dim: Optional[int] = None,
+        fused_kv: bool = True,
+    ):
+        super().__init__()
+        inner = heads * dim_head
+        context_dim = context_dim or query_dim
+        self.heads, self.dim_head, self.fused_kv = heads, dim_head, fused_kv
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        if fused_kv:
+            self.to_kv = nn.Linear(context_dim, 2 * inner, bias=False)
+        else:
+            self.to_k = nn.Linear(context_dim, inner, bias=False)
+            self.to_v = nn.Linear(context_dim, inner, bias=False)
+        out = nn.Linear(inner, out_dim or query_dim)
+        self.to_out = out if fused_kv else nn.Sequential(out, nn.Dropout(0.0))
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dt = self.to_q.weight.dtype
+        x = x.to(dt)
+        ctx = x if context is None else context.to(dt)
+        q = self.to_q(x)
+        if self.fused_kv:
+            k, v = self.to_kv(ctx).chunk(2, dim=-1)
+        else:
+            k, v = self.to_k(ctx), self.to_v(ctx)
+
+        def heads(t):
+            return t.reshape(*t.shape[:-1], self.heads, self.dim_head).transpose(-3, -2)
+
+        q, k, v = heads(q), heads(k), heads(v)
+        sim = torch.matmul(q, k.transpose(-1, -2)) * (self.dim_head ** -0.5)
+        attn = torch.softmax(sim.float(), dim=-1).to(dt)
+        out = torch.matmul(attn, v).transpose(-3, -2)
+        out = out.reshape(*out.shape[:-2], self.heads * self.dim_head)
+        return self.to_out(out)
+
+
+class _GEGLUProj(nn.Module):
+    """The DiT FF's ``net.0`` (a GEGLU holding its projection as ``proj``)."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, 2 * dim_out)
+
+
+class GEGLUFeedForward(nn.Module):
+    """Linear -> GEGLU (exact-erf GELU) -> Linear.
+
+    ``dit_style`` picks the key layout: ``net.0.proj`` / ``net.2`` (DiT) or
+    ``net.0`` / ``net.2`` (VAE). ``proj_in`` weight rows ``[:inner]`` are
+    the values, ``[inner:]`` the gates.
+    """
+
+    def __init__(self, dim: int, mult: int = 4, out_dim: Optional[int] = None, dit_style: bool = False):
+        super().__init__()
+        inner = dim * mult
+        first = _GEGLUProj(dim, inner) if dit_style else nn.Linear(dim, 2 * inner)
+        self.net = nn.Sequential(first, nn.Identity(), nn.Linear(inner, out_dim or dim))
+        self.dit_style = dit_style
+
+    @property
+    def proj_in(self) -> nn.Linear:
+        return self.net[0].proj if self.dit_style else self.net[0]
+
+    @property
+    def proj_out(self) -> nn.Linear:
+        return self.net[2]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gates = self.proj_in(x).chunk(2, dim=-1)
+        return self.proj_out(h * F.gelu(gates))
+
+
+class AdaLayerNorm(nn.Module):
+    """LayerNorm (no affine) modulated by the noise embedding; ``mod`` and
+    ``apply_mod`` are separate so the sampler can hoist the modulation."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.linear = nn.Linear(dim, 2 * dim)
+
+    def mod(self, t_emb: torch.Tensor):
+        scale, shift = self.linear(t_emb).chunk(2, dim=-1)
+        return scale, shift
+
+    def apply_mod(self, x, scale, shift):
+        return layer_norm(x, eps=1e-5) * (1 + scale) + shift
+
+    def forward(self, x, t_emb):
+        return self.apply_mod(x, *self.mod(t_emb))
+
+
+class FourierTimeEmbedding(nn.Module):
+    """EDM noise-level embedding ``concat([cos(t f), sin(t f)])``, cos first."""
+
+    def __init__(self, num_channels: int = 256, max_positions: int = 10000, endpoint: bool = False):
+        super().__init__()
+        self.num_channels, self.max_positions, self.endpoint = num_channels, max_positions, endpoint
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        half = self.num_channels // 2
+        freqs = torch.arange(half, dtype=torch.float32, device=t.device)
+        freqs = freqs / (half - (1 if self.endpoint else 0))
+        freqs = torch.pow(torch.tensor(1.0 / self.max_positions, dtype=torch.float32), freqs)
+        ang = t.float()[..., None] * freqs
+        return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)

@@ -1,0 +1,133 @@
+"""``fused_ln_geglu_residual``: the port's plain version against rald_tpu's
+Pallas kernel (interpret mode) on the CPU, the CPU dispatch, the wrapper's
+checks, and -- on the card only -- the CUDA kernel against its plain
+version.
+
+On the CPU both sides run float32: the plain version mirrors the kernel's
+rounding points, so they differ only in summation order (1e-5)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rald_torch.ops import geglu_kernel as tg
+from rald_tpu.ops.geglu_kernel import fused_ln_geglu_residual as j_fused
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def _highest_precision():
+    torch.set_float32_matmul_precision("highest")
+    with jax.default_matmul_precision("highest"):
+        yield
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run `python -m pytest -m gpu` on the card")
+    return torch.device("cuda")
+
+
+def _inputs(bsz, n, dim, inner, adaln, seed=0, row_per_batch=False):
+    """JAX-layout numpy operands: w1 (D, 2*inner), w2 (inner, D)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, std=1.0: (rng.standard_normal(s) * std).astype(np.float32)
+    x = f(bsz, n, dim, std=2.0) + 0.3
+    rows = bsz if row_per_batch else 1
+    if adaln:
+        s, b = f(rows, 1, dim, std=0.3), f(rows, 1, dim, std=0.3)
+    else:
+        s, b = 1.0 + f(rows, 1, dim, std=0.2), f(rows, 1, dim, std=0.2)
+    w1, b1 = f(dim, 2 * inner, std=dim ** -0.5), f(2 * inner, std=0.1)
+    w2, b2 = f(inner, dim, std=inner ** -0.5), f(dim, std=0.1)
+    return x, s, b, w1, b1, w2, b2
+
+
+def _torch_args(x, s, b, w1, b1, w2, b2):
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))
+    return t(x), t(s), t(b), t(w1.T), t(b1), t(w2.T), t(b2)
+
+
+def _jax(x, s, b, w1, b1, w2, b2, adaln, block):
+    out = j_fused(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), jnp.asarray(w1),
+                  jnp.asarray(b1), jnp.asarray(w2), jnp.asarray(b2),
+                  scale_shift_mod=adaln, block=block, interpret=True)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("adaln", [True, False])
+@pytest.mark.parametrize("n", [64, 50])  # 50: ragged against the 16-row block
+def test_plain_matches_pallas_tiny(adaln, n):
+    ops = _inputs(2, n, 32, 64, adaln, seed=n, row_per_batch=True)
+    want = _jax(*ops, adaln, block=16)
+    got = tg.fused_ln_geglu_residual_plain(*_torch_args(*ops), scale_shift_mod=adaln)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("adaln", [True, False])
+def test_plain_matches_pallas_full_width(adaln):
+    """D = 512, inner 2048, 512 tokens, batch 1: the product sublayer."""
+    ops = _inputs(1, 512, 512, 2048, adaln, seed=7)
+    want = _jax(*ops, adaln, block=256)
+    got = tg.fused_ln_geglu_residual_plain(*_torch_args(*ops), scale_shift_mod=adaln)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_cpu_tensor_takes_plain_path_without_counting():
+    from rald_torch.ops import reset_launch_counts
+
+    ops = _torch_args(*_inputs(2, 40, 32, 64, True, seed=3))
+    reset_launch_counts()
+    got = tg.fused_ln_geglu_residual(*ops, scale_shift_mod=True)
+    assert tg.fused_ln_geglu_residual.launches == 0
+    torch.testing.assert_close(got, tg.fused_ln_geglu_residual_plain(*ops), rtol=0, atol=0)
+
+
+def test_bf16_rounding_points_match_pallas():
+    """In bf16 the plain version rounds where the Pallas kernel rounds."""
+    x, s, b, w1, b1, w2, b2 = _inputs(1, 64, 64, 128, True, seed=11)
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+    ops = tuple(bf(a) for a in (x, s, b, w1, b1, w2, b2))
+    want = np.asarray(j_fused(*(jnp.asarray(a, jnp.bfloat16) for a in ops), block=64,
+                              interpret=True).astype(jnp.float32))
+    got = tg.fused_ln_geglu_residual_plain(*(a.to(torch.bfloat16) for a in _torch_args(*ops)))
+    assert got.dtype == torch.bfloat16
+    # one bf16 ulp at the output's magnitude: the f32 sums differ in order
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2 ** -8 * np.abs(want).max(), rtol=0)
+
+
+def test_wrapper_rejects_bad_modulation_rows():
+    x, s, b, w1, b1, w2, b2 = _torch_args(*_inputs(2, 8, 32, 64, True))
+    per_token = torch.zeros(2, 8, 32)
+    with pytest.raises(ValueError, match="broadcastable"):
+        tg.fused_ln_geglu_residual(x, per_token, b, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="do not match"):
+        tg.fused_ln_geglu_residual(x, s, b, w1[:, :16], b1, w2, b2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz,n,adaln", [(1, 512, True), (8, 512, True), (1, 512, False),
+                                         (8, 512, False), (3, 300, True), (2, 77, False)])
+def test_cuda_kernel_matches_plain(cuda, bsz, n, adaln):
+    """Main-path shapes in bf16; bf16 keeps ~3 significant digits over the
+    512/2048-term sums, so the bar is 2e-2 of max|out|."""
+    ops = tuple(t.to(cuda, torch.bfloat16).contiguous()
+                for t in _torch_args(*_inputs(bsz, n, 512, 2048, adaln, seed=bsz + n)))
+    ops = (ops[0], ops[1].reshape(1, 512), ops[2].reshape(1, 512)) + ops[3:]
+    before = tg.fused_ln_geglu_residual.launches
+    got = tg.fused_ln_geglu_residual(*ops, scale_shift_mod=adaln)
+    want = tg.fused_ln_geglu_residual_plain(*ops, scale_shift_mod=adaln)
+    torch.cuda.synchronize()
+    assert tg.fused_ln_geglu_residual.launches == before + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_rejects_f32(cuda):
+    ops = tuple(t.to(cuda) for t in _torch_args(*_inputs(1, 16, 512, 2048, True)))
+    with pytest.raises(TypeError, match="bf16"):
+        tg.fused_ln_geglu_residual(*ops)
