@@ -11,9 +11,10 @@ Phases, each printed before the last line:
    ``sm_90a`` (one ``nvcc`` per source, all at once) and prints the ptxas
    register / shared-memory / spill report.
 3. kernels: each kernel against its plain PyTorch version at main-path
-   shapes, batch 1 and 8, then timed with CUDA events beside the plain version, a
-   composite of library calls the port never makes (``library_ms``) and the
-   card's bound for the same work.
+   shapes, batch 1 and 8 (and a ragged batch), with checks that the bar
+   catches a kernel dropping a bias or a scale, then timed with CUDA events
+   beside the plain version, a composite of library calls the port never
+   makes (``library_ms``) and the card's bound for the same work.
 4. main path: the product eval chain of
    ``configs/generation/ge_indoor_unfreeze_enc_ints_only_eval.yml`` at full
    width (DiT dim 512 x 24 blocks, VAE dim 512 x 24 blocks, bf16) on seeded
@@ -22,11 +23,16 @@ Phases, each printed before the last line:
    sampler -> decode of 5e5 grid + 7e5 densified CFAR helper queries ->
    threshold -> 5e5 refine queries decoded -> polar->cartesian ->
    Chamfer / F-score against a 1e4-point synthetic surface, at batch 1
-   and 8. Launch counters are zeroed just before each run and read just
-   after.
-5. reference: a reduced-depth chain run twice on the card, once through the
-   kernels and once through their plain versions; tokens and Chamfer must
-   agree.
+   and 8; then the same chain in quantized inference
+   (``eval.inference.int8_ff`` / ``int8_attn``): dynamic int8 FF + "vout"
+   attention (bench.py's operating point) at batch 1 and 8, dynamic FF +
+   "full" attention at batch 1, and static FF (scales from
+   ``calibrate_act_scales`` on one synthetic batch) + "vout" at batch 1.
+   Launch counters are zeroed just before each run and read just after,
+   and every kernel's count is checked exactly.
+5. reference: reduced-depth chains (bf16; int8 dynamic + vout; int8
+   static + full) each run twice on the card, once through the kernels and
+   once through their plain versions; tokens and Chamfer must agree.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -52,9 +58,14 @@ PRODUCT_CFG = REPO / "configs" / "generation" / "ge_indoor_unfreeze_enc_ints_onl
 # the peak rate of their type.
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
 
 D, INNER = 512, 2048  # product DiT / VAE width and GEGLU inner width
+SCRATCH = REPO / "build" / "chip_smoke"  # calibrated scales written by the run (git-ignored)
+KERNEL_NAMES = ("fused_ln_geglu_residual", "nn_min_sq_both", "fused_ln_geglu_residual_int8",
+                "fused_ln_geglu_residual_int8_static", "fused_self_attention_block_int8",
+                "fused_self_attention_block_int8_vout")
 NN_N, NN_M = 500_000, 10_000  # refined predictions, GT surface points
 
 
@@ -86,7 +97,14 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def bound(n_bytes: float, ops: float, peak_ops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, ops / peak_ops
+    return bound_t(n_bytes, ops / peak_ops)
+
+
+def bound_t(n_bytes: float, t_ops: float):
+    """The larger of the bytes over the memory rate and ``t_ops``, the
+    seconds the operations take at the peak rate of their type (summed over
+    types where a kernel mixes them)."""
+    t_bytes = n_bytes / PEAK_BYTES
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -142,6 +160,201 @@ def _nn_library(a, b, chunk: int = 16384):
         row[:, s:s + chunk] = d.amin(2)
         col = torch.minimum(col, d.amin(1))
     return row, col
+
+
+# int8 kernels: main-path operands (DiT: one AdaLN row shared by the batch),
+# weights quantized from f32 as the engine does, biases at std 0.5 so that a
+# kernel dropping one misses the bar by far
+INT8_SHAPES = ((1, 512), (8, 512), (3, 300))
+INT8_BAR = 2e-2  # bf16 output over dequantized 512/2048-term sums, as geglu
+
+
+def _int8_ff_inputs(bsz: int, n: int, gen: torch.Generator):
+    from rald_torch.ops.geglu_kernel import quantize_cols
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    x = rnd(bsz, n, D).bfloat16()
+    s, b = rnd(1, D, std=0.1).bfloat16(), rnd(1, D, std=0.1).bfloat16()
+    w1q, s1 = quantize_cols(rnd(2 * INNER, D, std=D ** -0.5))
+    w2q, s2 = quantize_cols(rnd(D, INNER, std=INNER ** -0.5))
+    return x, s, b, w1q, s1, rnd(2 * INNER, std=0.5), w2q, s2, rnd(D, std=0.5)
+
+
+def _int8_static_inputs(ff_args):
+    """The dynamic operands with calibrated-looking scales folded in as
+    latent_dit folds them: max|h| ~ 4.5 after AdaLN, max|g| ~ 2.5."""
+    from rald_torch.ops.geglu_kernel import div127, inv127
+
+    x, s, b, w1q, s1, b1, w2q, s2, b2 = ff_args
+    ah = torch.full((1,), 4.5, device="cuda")
+    ag = torch.full((1,), 2.5, device="cuda")
+    return (x, s, b, w1q, s1 * div127(ah), b1, w2q, s2 * div127(ag), b2, inv127(ah),
+            inv127(ag))
+
+
+def _int8_attn_inputs(bsz: int, n: int, vout: bool, gen: torch.Generator):
+    from rald_torch.ops.geglu_kernel import quantize_cols
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    x = rnd(bsz, n, D).bfloat16()
+    s, b = rnd(1, D, std=0.1).bfloat16(), rnd(1, D, std=0.1).bfloat16()
+    w = [rnd(D, D, std=D ** -0.5) for _ in range(4)]
+    qk = (w[0].bfloat16(), w[1].bfloat16()) if vout else (*quantize_cols(w[0]),
+                                                           *quantize_cols(w[1]))
+    return (x, s, b, *qk, *quantize_cols(w[2]), *quantize_cols(w[3]), rnd(D, std=0.5))
+
+
+def _ln_mod_lib(x, s, b):
+    return F.layer_norm(x.float(), (D,), eps=1e-5) * (1 + s.float()) + b.float()
+
+
+def _quant_lib(v):
+    amax = v.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+    return torch.round(v * (127.0 / amax)).to(torch.int8), amax / 127.0
+
+
+def _int8_ff_library(x, s, b, w1q, c1, b1, w2q, c2, b2, inv_h=None, inv_g=None):
+    """Yardstick only: the int8 FF sublayer as F.layer_norm + torch._int_mm
+    + F.gelu (the port never calls this)."""
+    h = _ln_mod_lib(x, s, b).reshape(-1, D)
+    if inv_h is None:
+        hq, hr = _quant_lib(h)
+        p = torch._int_mm(hq, w1q.t()).float() * hr * c1 + b1
+    else:
+        hq = torch.round((h * inv_h).clamp(-127, 127)).to(torch.int8)
+        p = torch._int_mm(hq, w1q.t()).float() * c1 + b1
+    a, gate = p.chunk(2, dim=-1)
+    g = a * F.gelu(gate)
+    if inv_g is None:
+        gq, gr = _quant_lib(g)
+        y = torch._int_mm(gq, w2q.t()).float() * gr * c2
+    else:
+        y = torch._int_mm(torch.round((g * inv_g).clamp(-127, 127)).to(torch.int8),
+                          w2q.t()).float() * c2
+    return (y + b2 + x.reshape(-1, D).float()).to(x.dtype).reshape(x.shape)
+
+
+def _int8_attn_library(x, s, b, *w, vout: bool):
+    """Yardstick only: the int8 self-attention sublayer as F.layer_norm +
+    torch._int_mm (+ F.linear for vout's q / k) + F.scaled_dot_product_attention."""
+    bsz, n, _ = x.shape
+    h = _ln_mod_lib(x, s, b).reshape(-1, D)
+    hq, hr = _quant_lib(h)
+
+    def proj(wq8, sc):
+        return (torch._int_mm(hq, wq8.t()).float() * hr * sc).bfloat16()
+
+    if vout:
+        (wq, wk), (wv, sv, wo, so, bo) = w[:2], w[2:]
+        q, k = F.linear(h.bfloat16(), wq), F.linear(h.bfloat16(), wk)
+    else:
+        (wq, sq, wk, sk), (wv, sv, wo, so, bo) = w[:4], w[4:]
+        q, k = proj(wq, sq), proj(wk, sk)
+    heads = lambda t: t.reshape(bsz, n, 8, 64).transpose(1, 2)
+    o = F.scaled_dot_product_attention(heads(q), heads(k), heads(proj(wv, sv)))
+    oq, orow = _quant_lib(o.transpose(1, 2).reshape(-1, D).float())
+    y = torch._int_mm(oq, wo.t()).float() * orow * so + bo + x.reshape(-1, D).float()
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def _int8_bound(name: str, bsz: int, n: int):
+    rows = bsz * n
+    act_bytes = 2 * (2 * rows * D) + 2 * 2 * D  # x in, out (bf16), mod rows
+    if name.startswith("fused_ln_geglu_residual_int8"):
+        int8_ops = rows * (2 * D * 2 * INNER + 2 * INNER * D)
+        n_bytes = act_bytes + 3 * D * INNER + 4 * (2 * 2 * INNER + 2 * D)
+        return bound_t(n_bytes, int8_ops / PEAK_INT8)
+    attn_ops = 2 * 2 * bsz * n * n * D  # q.k^T and a.v over all heads, bf16
+    if name.endswith("_vout"):
+        int8_ops, bf16_ops = 2 * 2 * rows * D * D, 2 * 2 * rows * D * D + attn_ops
+        n_bytes = act_bytes + 2 * 2 * D * D + 2 * D * D + 4 * 3 * D
+    else:
+        int8_ops, bf16_ops = 4 * 2 * rows * D * D, attn_ops
+        n_bytes = act_bytes + 4 * D * D + 4 * 5 * D
+    return bound_t(n_bytes, int8_ops / PEAK_INT8 + bf16_ops / PEAK_BF16)
+
+
+def _drop_checks(label, plain, args, want, bar, drops) -> dict:
+    """Each entry of ``drops`` (key -> (operand index, replacement)) must move
+    the plain output by more than the bar: the parity check then catches a
+    kernel that leaves that operand out."""
+    moved = {}
+    for key, (i, repl) in drops.items():
+        a = list(args)
+        a[i] = repl(a[i])
+        moved[key] = (plain(*a).float() - want.float()).abs().max().item()
+        check(moved[key] > bar, f"{label}: dropping {key} moves the output only "
+                                f"{moved[key]:.3e} <= bar {bar:.3e}")
+    return moved
+
+
+def _int8_kernel_entries(gen: torch.Generator) -> list:
+    from rald_torch.ops import attn_kernel as ak
+    from rald_torch.ops import geglu_kernel as gk
+
+    zero, one = torch.zeros_like, torch.ones_like
+    specs = [  # name, kernel, plain, inputs, library, drop checks, TPU kernel
+        ("fused_ln_geglu_residual_int8", gk.fused_ln_geglu_residual_int8,
+         gk.fused_ln_geglu_residual_int8_plain, lambda b, n: _int8_ff_inputs(b, n, gen),
+         _int8_ff_library,
+         {"b1": (5, zero), "b2": (8, zero), "s1": (4, one), "s2": (7, one)},
+         "rald_tpu/ops/geglu_kernel.py:411", "rald_torch/csrc/geglu_int8.cu"),
+        ("fused_ln_geglu_residual_int8_static", gk.fused_ln_geglu_residual_int8_static,
+         gk.fused_ln_geglu_residual_int8_static_plain,
+         lambda b, n: _int8_static_inputs(_int8_ff_inputs(b, n, gen)), _int8_ff_library,
+         {"b1": (5, zero), "b2": (8, zero), "d1": (4, one), "d2": (7, one),
+          "inv_h": (9, one), "inv_g": (10, one)},
+         "rald_tpu/ops/geglu_kernel.py:297", "rald_torch/csrc/geglu_int8.cu"),
+        ("fused_self_attention_block_int8", ak.fused_self_attention_block_int8,
+         ak.fused_self_attention_block_int8_plain,
+         lambda b, n: _int8_attn_inputs(b, n, False, gen),
+         lambda *a: _int8_attn_library(*a, vout=False),
+         {"bo": (11, zero), "so": (10, one), "sv": (8, one), "sq": (4, one)},
+         "rald_tpu/ops/attn_kernel.py:241", "rald_torch/csrc/attn_int8.cu"),
+        ("fused_self_attention_block_int8_vout", ak.fused_self_attention_block_int8_vout,
+         ak.fused_self_attention_block_int8_vout_plain,
+         lambda b, n: _int8_attn_inputs(b, n, True, gen),
+         lambda *a: _int8_attn_library(*a, vout=True),
+         {"bo": (9, zero), "so": (8, one), "sv": (6, one)},
+         "rald_tpu/ops/attn_kernel.py:342", "rald_torch/csrc/attn_int8.cu"),
+    ]
+    entries = []
+    for name, fn, plain, make, library, drops, replaces, source in specs:
+        rows = {}
+        for bsz, n in INT8_SHAPES:
+            args = make(bsz, n)
+            got = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ref = want.float().abs().max().item()
+            check(math.isfinite(err) and err <= INT8_BAR * ref,
+                  f"{name} ({bsz},{n},{D}): max err {err:.3e} > {INT8_BAR} * {ref:.3e}")
+            line = {"shape": [bsz, n, D], "max_abs_err": err, "max_abs_out": ref,
+                    "dropped": _drop_checks(f"{name} ({bsz},{n},{D})", plain, args, want,
+                                            INT8_BAR * ref, drops)}
+            if n == 512:
+                iters = 200 if bsz == 1 else 50
+                line["ms"] = cuda_ms(lambda: fn(*args), iters)
+                line["plain_ms"] = cuda_ms(lambda: plain(*args), iters // 4)
+                line["library_ms"] = cuda_ms(lambda: library(*args), iters)
+                line["bound_ms"], line["bound_by"] = _int8_bound(name, bsz, n)
+            rows[bsz] = line
+            print(f"[kernels] {name} " + json.dumps(line))
+        r1 = rows[1]
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "shape": r1["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": r1["ms"], "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"],
+            "bound_by": r1["bound_by"], "library_ms": r1["library_ms"], "ms_b8": rows[8]["ms"],
+            "plain_ms_b8": rows[8]["plain_ms"], "bound_ms_b8": rows[8]["bound_ms"],
+            "library_ms_b8": rows[8]["library_ms"],
+        })
+    return entries
 
 
 def phase_kernels() -> list:
@@ -227,8 +440,10 @@ def phase_kernels() -> list:
         nn_rows[bsz] = line
     nn_line = nn_rows[1]
 
+    entries += _int8_kernel_entries(gen)
+
     g1 = geglu_rows[(1, True)]
-    entries.append({
+    entries.insert(0, {
         "name": "fused_ln_geglu_residual", "route": "cuda", "source": "rald_torch/csrc/geglu.cu",
         "replaces": "rald_tpu/ops/geglu_kernel.py:134", "shape": g1["shape"],
         "max_abs_err": max(r["max_abs_err"] for r in geglu_rows.values()),
@@ -236,7 +451,7 @@ def phase_kernels() -> list:
         "bound_by": g1["bound_by"], "library_ms": g1["library_ms"],
         "ms_b8": geglu_rows[(8, True)]["ms"],
     })
-    entries.append({
+    entries.insert(1, {
         "name": "nn_min_sq_both", "route": "cuda", "source": "rald_torch/csrc/nn_dist.cu",
         "replaces": "rald_tpu/ops/nn_dist_kernel.py:87", "shape": nn_line["shape"],
         "max_abs_err": max(r["max_abs_err"] for r in nn_rows.values()), "ms": nn_line["ms"],
@@ -300,12 +515,70 @@ def _run_step(eng, inputs, seed: int, timings=None, **kw):
     return out
 
 
-def phase_main() -> list:
+def _product_cfg(int8_ff=False, int8_attn=False, act_scales=None):
     from rald_torch.config import load_config
-    from rald_torch.ops import launch_counts, reset_launch_counts
-    from rald_torch.train.gen_engine import GenerationEngine
 
     cfg = load_config(PRODUCT_CFG)
+    cfg.eval.inference.int8_ff = int8_ff
+    cfg.eval.inference.int8_attn = int8_attn
+    if act_scales is not None:
+        cfg.eval.inference.int8_act_scales = str(act_scales)
+    return cfg
+
+
+def _want_launches(eng, int8_ff, int8_attn) -> dict:
+    """Exact launches of every kernel in one eval step of this mode."""
+    per_nfe = (2 * eng.sampler_kwargs["num_steps"] - 1) * eng.model.depth
+    vdepth = len(eng.vae.layers)
+    want = {name: 0 for name in KERNEL_NAMES}
+    want["nn_min_sq_both"] = None  # once per Chamfer call: checked >= 1
+    want["fused_ln_geglu_residual"] = vdepth + (0 if int8_ff else per_nfe)
+    if int8_ff:
+        want["fused_ln_geglu_residual_int8" + ("_static" if int8_ff == "static" else "")] = per_nfe
+    if int8_attn:
+        want["fused_self_attention_block_int8" + ("_vout" if int8_attn == "vout" else "")] = per_nfe
+    return want
+
+
+def _main_run(eng, inputs, bsz: int, label: str, want: dict) -> dict:
+    from rald_torch.ops import launch_counts, reset_launch_counts
+
+    kw = dict(compute_cd=True, refine=True, helper_aug=True, use_device_grid=True)
+    _run_step(eng, inputs, seed=bsz, **kw)  # warm-up: cuBLAS/cuDNN plans
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, iou, acc, cd, f, n_pred = _run_step(eng, inputs, seed=bsz, timings=timings, **kw)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    cd, f, n_pred = cd.cpu().numpy(), f.cpu().numpy(), n_pred.cpu().numpy()
+    for name, n in want.items():
+        if n is None:
+            check(counts[name] >= 1, f"{label} B={bsz}: {name} never launched")
+        else:
+            check(counts[name] == n, f"{label} B={bsz}: {counts[name]} {name} launches, want {n}")
+    check(bool((n_pred > 0).all()), f"{label} B={bsz}: empty prediction n_pred={n_pred.tolist()}")
+    check(bool(np.isfinite(cd).all()) and bool(np.isfinite(f).all()),
+          f"{label} B={bsz}: non-finite Chamfer/F {cd.tolist()} {f.tolist()}")
+    check(all(math.isfinite(float(v)) for v in (loss, iou, acc)),
+          f"{label} B={bsz}: non-finite loss/IoU")
+    line = {
+        "mode": label, "batch": bsz, "stage_ms": {k: round(v, 3) for k, v in timings.items()},
+        "step_ms": wall * 1e3, "frames_per_s": bsz / wall,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": counts, "n_pred": n_pred.tolist(), "cd": cd.tolist(), "f": f.tolist(),
+        "loss": float(loss), "iou": float(iou), "acc": float(acc),
+    }
+    print("[main] " + json.dumps(line))
+    return line
+
+
+def phase_main() -> dict:
+    """Returns the runs by (mode, batch)."""
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    cfg = _product_cfg()
     t0 = time.perf_counter()
     eng = GenerationEngine(cfg)  # device None -> the card
     depth, vdepth = eng.model.depth, len(eng.vae.layers)
@@ -316,52 +589,61 @@ def phase_main() -> list:
     inputs = {b: _inputs(cfg, b, rng) for b in (1, 8)}
     shift = _center_occupancy(eng, inputs.values())
     print(f"[main] decoder query projection x10, occupancy bias shift {shift:+.6f}")
-    nfe = 2 * eng.sampler_kwargs["num_steps"] - 1
-    want_geglu = nfe * depth + vdepth
-    kw = dict(compute_cd=True, refine=True, helper_aug=True, use_device_grid=True)
-    results = []
+    runs = {}
     for bsz in (1, 8):
-        _run_step(eng, inputs[bsz], seed=bsz, **kw)  # warm-up: cuBLAS/cuDNN plans
-        torch.cuda.reset_peak_memory_stats()
-        timings = {}
-        reset_launch_counts()
+        runs[("bf16", bsz)] = _main_run(eng, inputs[bsz], bsz, "bf16",
+                                        _want_launches(eng, False, False))
+
+    # static activation scales: the port's calibration on one synthetic batch
+    t0 = time.perf_counter()
+    ah, ag = eng.calibrate_act_scales(
+        [{"radar_cube": inputs[1]["radar_cube"], "seeds_or_prior": inputs[1]["seeds_or_prior"]}],
+        num_batches=1, margin=1.1, print_fn=lambda *_: None)
+    scales = SCRATCH / "int8_act_scales.npz"
+    scales.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(scales, ah=ah, ag=ag, num_steps=eng.sampler_kwargs["num_steps"])
+    check(ah.shape == (eng.sampler_kwargs["num_steps"], depth) and bool(np.isfinite(ah).all())
+          and bool((ah > 0).all()) and bool((ag > 0).all()), "calibrate_act_scales: bad tables")
+    print(f"[main] calibrate_act_scales (1 batch, margin 1.1) in {time.perf_counter() - t0:.1f} s: "
+          f"ah {float(ah.min()):.4f}..{float(ah.max()):.4f}, "
+          f"ag {float(ag.min()):.4f}..{float(ag.max()):.4f}")
+    del eng
+    torch.cuda.empty_cache()
+
+    for int8_ff, int8_attn, batches in ((True, "vout", (1, 8)), (True, "full", (1,)),
+                                        ("static", "vout", (1,))):
+        label = f"int8_ff={int8_ff},int8_attn={int8_attn}"
         t0 = time.perf_counter()
-        loss, iou, acc, cd, f, n_pred = _run_step(eng, inputs[bsz], seed=bsz, timings=timings, **kw)
-        wall = time.perf_counter() - t0
-        counts = launch_counts()
-        cd, f, n_pred = cd.cpu().numpy(), f.cpu().numpy(), n_pred.cpu().numpy()
-        check(counts["fused_ln_geglu_residual"] == want_geglu,
-              f"B={bsz}: {counts['fused_ln_geglu_residual']} geglu launches, want {want_geglu}")
-        check(counts["nn_min_sq_both"] >= 1, f"B={bsz}: nn_min_sq_both never launched")
-        check(bool((n_pred > 0).all()), f"B={bsz}: empty prediction n_pred={n_pred.tolist()}")
-        check(bool(np.isfinite(cd).all()) and bool(np.isfinite(f).all()),
-              f"B={bsz}: non-finite Chamfer/F {cd.tolist()} {f.tolist()}")
-        check(all(math.isfinite(float(v)) for v in (loss, iou, acc)), f"B={bsz}: non-finite loss/IoU")
-        line = {
-            "batch": bsz, "stage_ms": {k: round(v, 3) for k, v in timings.items()},
-            "step_ms": wall * 1e3, "frames_per_s": bsz / wall,
-            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "launches": counts, "n_pred": n_pred.tolist(), "cd": cd.tolist(), "f": f.tolist(),
-            "loss": float(loss), "iou": float(iou), "acc": float(acc),
-        }
-        print("[main] " + json.dumps(line))
-        results.append(line)
-    return results
+        eng = GenerationEngine(_product_cfg(int8_ff, int8_attn,
+                                            scales if int8_ff == "static" else None))
+        built = time.perf_counter() - t0
+        shift = _center_occupancy(eng, [inputs[b] for b in batches])
+        print(f"[main] {label}: engine built (with its int8 side-tree) in {built:.1f} s, "
+              f"occupancy bias shift {shift:+.6f}")
+        for bsz in batches:
+            runs[(label, bsz)] = _main_run(eng, inputs[bsz], bsz, label,
+                                           _want_launches(eng, int8_ff, int8_attn))
+        del eng
+        torch.cuda.empty_cache()
+    return runs
 
 
 # --------------------------------------------------------------- phase 5
-def phase_reference() -> None:
+def _reference_chain(int8_ff=False, int8_attn=False, act_scales=None, bf16_tokens=None):
     """The chain at depth 2 / 4 steps, once through the kernels and once
-    with their plain versions patched in, on the same card and weights."""
+    with their plain versions patched in, on the same card and weights.
+    ``bf16_tokens``: the plain bf16 chain's tokens (same weights, cube and
+    prior), the yardstick of an int8 chain. Returns the engine, its inputs
+    and the plain tokens."""
     import rald_torch.eval.chamfer as chamfer
     import rald_torch.models.latent_dit as latent_dit
     import rald_torch.models.vecset_vae as vecset_vae
-    from rald_torch.config import load_config
-    from rald_torch.ops.geglu_kernel import fused_ln_geglu_residual_plain
+    from rald_torch.ops import attn_kernel as ak
+    from rald_torch.ops import geglu_kernel as gk
     from rald_torch.ops.nn_dist_kernel import nn_min_sq_both_plain
     from rald_torch.train.gen_engine import GenerationEngine
 
-    cfg = load_config(PRODUCT_CFG)
+    cfg = _product_cfg(int8_ff, int8_attn, act_scales)
     cfg.ar_model.overrides = {"depth": 2}
     cfg.lidar_ae.overrides = {"depth": 2}
     cfg.eval.inference.num_steps = 4
@@ -374,28 +656,65 @@ def phase_reference() -> None:
     inputs["helper"] = inputs["helper_mask"] = None
     tok_k = eng.sample_tokens(inputs["radar_cube"], [0])
     out_k = _run_step(eng, inputs, seed=3, **kw)
-    saved = (latent_dit.fused_ln_geglu_residual, vecset_vae.fused_ln_geglu_residual,
-             chamfer.nn_min_sq_both)
-    latent_dit.fused_ln_geglu_residual = fused_ln_geglu_residual_plain
-    vecset_vae.fused_ln_geglu_residual = fused_ln_geglu_residual_plain
-    chamfer.nn_min_sq_both = nn_min_sq_both_plain
+    patches = [(latent_dit, "fused_ln_geglu_residual", gk.fused_ln_geglu_residual_plain),
+               (vecset_vae, "fused_ln_geglu_residual", gk.fused_ln_geglu_residual_plain),
+               (chamfer, "nn_min_sq_both", nn_min_sq_both_plain)]
+    patches += [(latent_dit, name, getattr(mod, name + "_plain"))
+                for mod, name in ((gk, "fused_ln_geglu_residual_int8"),
+                                  (gk, "fused_ln_geglu_residual_int8_static"),
+                                  (ak, "fused_self_attention_block_int8"),
+                                  (ak, "fused_self_attention_block_int8_vout"))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, plain in patches:
+        setattr(mod, name, plain)
     try:
         tok_p = eng.sample_tokens(inputs["radar_cube"], [0])
         out_p = _run_step(eng, inputs, seed=3, **kw)
     finally:
-        (latent_dit.fused_ln_geglu_residual, vecset_vae.fused_ln_geglu_residual,
-         chamfer.nn_min_sq_both) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     tok_err = (tok_k - tok_p).abs().max().item()
     tok_rms = tok_p.pow(2).mean().sqrt().item()
     cd_k, cd_p = float(out_k[3][0]), float(out_p[3][0])
-    line = {"tokens_max_abs_diff": tok_err, "tokens_rms": tok_rms, "cd_kernels": cd_k,
-            "cd_plain": cd_p, "n_pred_kernels": int(out_k[5][0]), "n_pred_plain": int(out_p[5][0])}
+    line = {"int8_ff": int8_ff, "int8_attn": int8_attn, "tokens_max_abs_diff": tok_err,
+            "tokens_rms": tok_rms, "cd_kernels": cd_k, "cd_plain": cd_p,
+            "n_pred_kernels": int(out_k[5][0]), "n_pred_plain": int(out_p[5][0])}
+    line["tokens_rms_diff"] = (tok_k - tok_p).pow(2).mean().sqrt().item()
+    if bf16_tokens is None:
+        # bf16 chain: the two paths round the FF sums in different orders;
+        # the bar is scripts/full_parity.py's 5% of max(rms, 1) on the tokens
+        err, bar = tok_err, 0.05 * max(tok_rms, 1.0)
+    else:
+        # int8 chain: here the attention sublayer is a kernel too, with its
+        # own f32 summation order, and the max |difference| of this 4-step
+        # random-weight chain saturates under any small perturbation (bf16
+        # chain 0.17, int8 chain 0.33, plain int8 vs plain bf16 0.32 on an
+        # H100), so the bar is the same 5% of max(rms, 1) taken on the rms
+        # difference over all token values (bf16 chain 0.039, int8 0.075):
+        # a kernel that composes wrongly (a dropped bias moves a sublayer
+        # by ~30% of max|out|, phase 3) misses it by far
+        q = tok_p - bf16_tokens
+        line["tokens_int8_vs_bf16_plain"] = q.abs().max().item()
+        line["tokens_int8_vs_bf16_plain_rms"] = q.pow(2).mean().sqrt().item()
+        err, bar = line["tokens_rms_diff"], 0.05 * max(tok_rms, 1.0)
+    line["tokens_bar"] = bar
     print("[reference] " + json.dumps(line))
-    # bf16 chain: the two paths round the FF sums in different orders; the
-    # bar is scripts/full_parity.py's 5% of max(rms, 1) on the tokens
-    check(tok_err <= 0.05 * max(tok_rms, 1.0), f"reference: token drift {tok_err:.3e}")
+    check(err <= bar, f"reference {line}: token drift {err:.3e} > {bar:.3e}")
     check(math.isfinite(cd_k) and abs(cd_k - cd_p) <= 0.05 * abs(cd_p),
-          f"reference: Chamfer {cd_k} vs plain {cd_p}")
+          f"reference {line}: Chamfer {cd_k} vs plain {cd_p}")
+    return eng, inputs, tok_p
+
+
+def phase_reference() -> None:
+    eng, _, tok_bf16 = _reference_chain()
+    del eng
+    eng, inputs, _ = _reference_chain(True, "vout", bf16_tokens=tok_bf16)
+    ah, ag = eng.calibrate_act_scales([{"radar_cube": inputs["radar_cube"], "seeds_or_prior": [0]}],
+                                      num_batches=1, margin=1.1, print_fn=lambda *_: None)
+    del eng
+    scales = SCRATCH / "int8_act_scales_depth2.npz"
+    np.savez(scales, ah=ah, ag=ag, num_steps=4)
+    _reference_chain("static", "full", act_scales=scales, bf16_tokens=tok_bf16)
 
 
 def main() -> int:
@@ -411,9 +730,17 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     runs = phase_main()
+    # each kernel's launches in the main-path runs of the mode that uses it
+    vout = "int8_ff=True,int8_attn=vout"
+    mode_of = {"fused_ln_geglu_residual": "bf16", "nn_min_sq_both": "bf16",
+               "fused_ln_geglu_residual_int8": vout, "fused_self_attention_block_int8_vout": vout,
+               "fused_self_attention_block_int8": "int8_ff=True,int8_attn=full",
+               "fused_ln_geglu_residual_int8_static": "int8_ff=static,int8_attn=vout"}
     for k in kernels:
-        k["launches"] = runs[0]["launches"][k["name"]]
-        k["launches_b8"] = runs[1]["launches"][k["name"]]
+        k["launches_mode"] = mode_of[k["name"]]
+        k["launches"] = runs[(mode_of[k["name"]], 1)]["launches"][k["name"]]
+        if (mode_of[k["name"]], 8) in runs:
+            k["launches_b8"] = runs[(mode_of[k["name"]], 8)]["launches"][k["name"]]
     phase_reference()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

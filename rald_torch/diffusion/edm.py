@@ -71,23 +71,38 @@ def edm_sampler(
     s_min: float = 0.0,
     s_max: float = float("inf"),
     s_noise: float = 1.0,
-) -> torch.Tensor:
+    capture_states: bool = False,
+):
     """Heun sampler from unit-normal ``latents`` (B, M, C).
 
     ``denoise_indexed(x, sigma, step_idx)`` also receives the schedule index
     of ``sigma``, so it can look up precomputed AdaLN modulations: the two
     evaluations of step ``i`` use rows ``i`` and ``i + 1``. ``s_min``,
     ``s_max`` and ``s_noise`` shape the churn only.
+
+    ``capture_states=True`` returns ``(x_final, (idxs, xs))`` instead:
+    every (schedule index, state) pair the denoiser was evaluated at, in
+    call order, the final Euler state included (``idxs`` (2*num_steps-1,)
+    int64 on the CPU, ``xs`` (2*num_steps-1, B, M, C)) -- the replay inputs
+    of the int8 activation-scale calibration (JAX ``capture_states``).
     """
     if s_churn > 0:
         raise NotImplementedError("edm_sampler: s_churn > 0 is not ported yet")
     t_steps = karras_sigmas(num_steps, sigma_min, sigma_max, rho, device=latents.device)
     x = latents.float() * t_steps[0]
+    seen = []
     for i in range(num_steps - 1):
         t_cur, t_next = t_steps[i], t_steps[i + 1]
         d_cur = (x - denoise_indexed(x, t_cur, i)) / t_cur
         x_next = x + (t_next - t_cur) * d_cur
         d_prime = (x_next - denoise_indexed(x_next, t_next, i + 1)) / t_next
+        if capture_states:
+            seen += [(i, x), (i + 1, x_next)]
         x = x + (t_next - t_cur) * (0.5 * d_cur + 0.5 * d_prime)
     t_cur, t_next = t_steps[num_steps - 1], t_steps[num_steps]
-    return x + (t_next - t_cur) * (x - denoise_indexed(x, t_cur, num_steps - 1)) / t_cur
+    x_final = x + (t_next - t_cur) * (x - denoise_indexed(x, t_cur, num_steps - 1)) / t_cur
+    if not capture_states:
+        return x_final
+    seen.append((num_steps - 1, x))
+    idxs = torch.tensor([i for i, _ in seen], dtype=torch.int64)
+    return x_final, (idxs, torch.stack([s for _, s in seen]))

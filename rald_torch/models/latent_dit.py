@@ -5,9 +5,13 @@
 (:361), ``compute_mod_table`` (:390) and ``denoise_with_mods`` (:401), in
 the reference's torch key layout (``model.transformer_blocks.{i}...``).
 
-The block's FF sublayer (AdaLN mod + LN + GEGLU FF + residual) always goes
+The block's FF sublayer (AdaLN mod + LN + GEGLU FF + residual) goes
 through :func:`rald_torch.ops.geglu_kernel.fused_ln_geglu_residual`: the
-CUDA kernel on the card, its plain version on the CPU.
+CUDA kernel on the card, its plain version on the CPU. Quantized inference
+(JAX ``use_int8_ff`` / ``use_int8_attn``, :43-188) routes the FF sublayer
+through the dynamic or static int8 FF kernel and the self-attention
+sublayer through the full or vout int8 attention kernel, with the int8
+side-tree that :meth:`EDMPrecond.set_int8` hands to the blocks.
 """
 from __future__ import annotations
 
@@ -25,7 +29,17 @@ from rald_torch.nn.layers import (
     GEGLUFeedForward,
     LayerNorm,
 )
-from rald_torch.ops.geglu_kernel import fused_ln_geglu_residual
+from rald_torch.ops.attn_kernel import (
+    fused_self_attention_block_int8,
+    fused_self_attention_block_int8_vout,
+)
+from rald_torch.ops.geglu_kernel import (
+    div127,
+    fused_ln_geglu_residual,
+    fused_ln_geglu_residual_int8,
+    fused_ln_geglu_residual_int8_static,
+    inv127,
+)
 
 
 class LatentDiTBlock(nn.Module):
@@ -37,19 +51,63 @@ class LatentDiTBlock(nn.Module):
         self.attn2 = Attention(dim, context_dim, heads=n_heads, dim_head=d_head, fused_kv=False)
         self.norm3 = AdaLayerNorm(dim)
         self.ff = GEGLUFeedForward(dim, dit_style=True)
+        # quantized inference, set by EDMPrecond.set_int8: use_int8_ff False |
+        # True (dynamic per-token activation scales) | "static" (calibrated
+        # per-(step, block) scales through ``act_scales``; dynamic without
+        # them); use_int8_attn False | True / "full" | "vout" (v / out int8,
+        # q / k bf16); int8: this block's side-tree nodes {"ff", "attn1"}
+        self.use_int8_ff = False
+        self.use_int8_attn = False
+        self.int8 = {}
 
     def mods(self, t_emb):
         """All three sigma-dependent (scale, shift) pairs for this block."""
         return (self.norm1.mod(t_emb), self.norm2.mod(t_emb), self.norm3.mod(t_emb))
 
-    def apply_with_mods(self, x, mods, cond=None):
+    def _int8_attn(self, x, s1, b1, q8):
+        attn = self.attn1
+        if self.use_int8_attn == "vout":
+            return fused_self_attention_block_int8_vout(
+                x, s1, b1, attn.to_q.weight, attn.to_k.weight, q8["to_v_q"], q8["to_v_s"],
+                q8["to_out_q"], q8["to_out_s"], q8["to_out_b"], heads=attn.heads,
+            )
+        return fused_self_attention_block_int8(
+            x, s1, b1, q8["to_q_q"], q8["to_q_s"], q8["to_k_q"], q8["to_k_s"], q8["to_v_q"],
+            q8["to_v_s"], q8["to_out_q"], q8["to_out_s"], q8["to_out_b"], heads=attn.heads,
+        )
+
+    def _int8_ff(self, x, s3, b3, q8, act_scales):
+        if self.use_int8_ff == "static" and act_scales is not None:
+            # calibrated amax folded into the dequant rows outside the kernel
+            ah, ag = (a.float().clamp_min(1e-6) for a in act_scales)
+            return fused_ln_geglu_residual_int8_static(
+                x, s3, b3, q8["w1q"], q8["s1"] * div127(ah), q8["b1"], q8["w2q"],
+                q8["s2"] * div127(ag), q8["b2"], inv127(ah).reshape(1), inv127(ag).reshape(1),
+            )
+        return fused_ln_geglu_residual_int8(
+            x, s3, b3, q8["w1q"], q8["s1"], q8["b1"], q8["w2q"], q8["s2"], q8["b2"]
+        )
+
+    def apply_with_mods(self, x, mods, cond=None, act_scales=None, quant_stats=None):
+        """``act_scales``: this block's ``(ah, ag)`` FF activation amax for
+        the static int8 FF. ``quant_stats``: a list that receives the FF's
+        ``(max|h|, max|g|)``; the block then runs unfused and without int8,
+        as the JAX calibration model does."""
         (s1, b1), (s2, b2), (s3, b3) = mods
-        x = x + self.attn1(self.norm1.apply_mod(x, s1, b1))
+        q8 = {} if quant_stats is not None else self.int8
+        if self.use_int8_attn and "attn1" in q8:
+            x = self._int8_attn(x.contiguous(), s1, b1, q8["attn1"])
+        else:
+            x = x + self.attn1(self.norm1.apply_mod(x, s1, b1))
         x = x + self.attn2(self.norm2.apply_mod(x, s2, b2), context=cond)
+        if quant_stats is not None:
+            return x + self.ff(self.norm3.apply_mod(x, s3, b3), amax=quant_stats)
+        x = x.contiguous()
+        if self.use_int8_ff and "ff" in q8:
+            return self._int8_ff(x, s3, b3, q8["ff"], act_scales)
         pi, po = self.ff.proj_in, self.ff.proj_out
         return fused_ln_geglu_residual(
-            x.contiguous(), s3.contiguous(), b3.contiguous(),
-            pi.weight, pi.bias, po.weight, po.bias,
+            x, s3.contiguous(), b3.contiguous(), pi.weight, pi.bias, po.weight, po.bias,
             scale_shift_mod=True,
         )
 
@@ -89,10 +147,15 @@ class LatentArrayTransformer(nn.Module):
         t_emb = F.silu(self.map_layer1(t_emb))
         return tuple(block.mods(t_emb) for block in self.transformer_blocks)
 
-    def forward_with_mods(self, x, mods, cond=None):
+    def forward_with_mods(self, x, mods, cond=None, act_scales=None, quant_stats=None):
+        """``act_scales``: per-block ``(ah, ag)`` for the static int8 FF
+        (None: dynamic). ``quant_stats``: a list that receives each block's
+        FF ``(max|h|, max|g|)`` in block order (unfused, no int8)."""
         x = self.proj_in(x)
-        for block, block_mods in zip(self.transformer_blocks, mods):
-            x = block.apply_with_mods(x, block_mods, cond)
+        if act_scales is None:
+            act_scales = (None,) * len(self.transformer_blocks)
+        for block, block_mods, sc in zip(self.transformer_blocks, mods, act_scales):
+            x = block.apply_with_mods(x, block_mods, cond, act_scales=sc, quant_stats=quant_stats)
         return self.proj_out(self.norm(x))
 
     def forward(self, x, t, cond=None):
@@ -179,12 +242,26 @@ class EDMPrecond(nn.Module):
         """AdaLN (scale, shift) pairs for a fixed schedule; leaves (S, 1, C)."""
         return self.model.compute_mods(torch.log(sigmas.float()) / 4)
 
-    def denoise_with_mods(self, x, sigma, mods, cond_tokens=None):
-        """``denoise`` with precomputed AdaLN modulations for this sigma."""
+    def denoise_with_mods(self, x, sigma, mods, cond_tokens=None, act_scales=None,
+                          quant_stats=None):
+        """``denoise`` with precomputed AdaLN modulations for this sigma;
+        ``act_scales`` / ``quant_stats`` as in ``forward_with_mods``."""
         x, sigma, c_skip, c_out, c_in = self._precond(x, sigma)
         dt = self.model.proj_in.weight.dtype
-        f_x = self.model.forward_with_mods((c_in * x).to(dt), mods, cond_tokens)
+        f_x = self.model.forward_with_mods((c_in * x).to(dt), mods, cond_tokens,
+                                           act_scales=act_scales, quant_stats=quant_stats)
         return c_skip * x + c_out * f_x.float()
+
+    def set_int8(self, tree: dict, use_int8_ff=False, use_int8_attn=False) -> None:
+        """Quantized inference: ``tree`` is the int8 side-tree of this
+        model's f32 weights (``quantize_ff_tree`` / ``quantize_attn_tree``,
+        merged; keys are module paths), on the model's device. Each DiT block
+        takes its nodes and routes its FF / self-attention by the flags
+        (values as ``eval.inference.int8_ff`` / ``int8_attn``)."""
+        for name, mod in self.named_modules():
+            if isinstance(mod, LatentDiTBlock):
+                mod.use_int8_ff, mod.use_int8_attn = use_int8_ff, use_int8_attn
+                mod.int8 = {k: tree[f"{name}.{k}"] for k in ("ff", "attn1") if f"{name}.{k}" in tree}
 
     def forward(self, x, sigma, radar_cube=None):
         cond = (

@@ -138,6 +138,11 @@ class GEGLUFeedForward(nn.Module):
     ``dit_style`` picks the key layout: ``net.0.proj`` / ``net.2`` (DiT) or
     ``net.0`` / ``net.2`` (VAE). ``proj_in`` weight rows ``[:inner]`` are
     the values, ``[inner:]`` the gates.
+
+    ``forward(x, amax=list)`` appends ``(max|x|, max|gated product|)`` in f32,
+    the two activations the int8 FF kernels quantize (JAX ``sow_amax``,
+    ``rald_tpu/nn/layers.py:146-182``): the calibration of static int8
+    activation scales reads them.
     """
 
     def __init__(self, dim: int, mult: int = 4, out_dim: Optional[int] = None, dit_style: bool = False):
@@ -155,9 +160,12 @@ class GEGLUFeedForward(nn.Module):
     def proj_out(self) -> nn.Linear:
         return self.net[2]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, amax: Optional[list] = None) -> torch.Tensor:
         h, gates = self.proj_in(x).chunk(2, dim=-1)
-        return self.proj_out(h * F.gelu(gates))
+        g = h * F.gelu(gates)
+        if amax is not None:
+            amax.append((x.float().abs().amax(), g.float().abs().amax()))
+        return self.proj_out(g)
 
 
 class AdaLayerNorm(nn.Module):

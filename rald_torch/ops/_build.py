@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for ``sm_90a`` into a shared library under ``build/rald_torch_kernels/``
 (listed in ``.gitignore``) and loaded with ``ctypes``. The library's file
-name carries a hash of its source, so an edited kernel is rebuilt and a
-built one is reused. Nothing here runs at import time.
+name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited kernel is rebuilt and a built one is reused.
+Nothing here runs at import time.
 
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all
 of them; ``chip_smoke.py`` calls it so the builds overlap.
@@ -21,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rald_torch_kernels"
-SOURCES = ("geglu", "nn_dist")
+SOURCES = ("geglu", "nn_dist", "geglu_int8", "attn_int8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +46,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

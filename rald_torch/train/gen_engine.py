@@ -7,8 +7,11 @@ Counterpart of ``rald_tpu/train/gen_engine.py``'s eval programs:
 :535-635): radar cube -> on-device upsample -> 3D-CNN condition tokens ->
 AdaLN mod table -> 35-NFE Heun sampling -> VAE decode of the grid + CFAR
 helper queries -> threshold -> densify + refine decode -> polar->cartesian
--> Chamfer / F-score. Training, ``evaluate``, int8 and the frozen external
-radar encoder come in later slices and raise here.
+-> Chamfer / F-score. Quantized inference (``eval.inference.int8_ff`` /
+``int8_attn``, :93-124) runs the DiT through the int8 kernels, with
+:meth:`GenerationEngine.calibrate_act_scales` (:669-768) for the static
+activation scales. Training, ``evaluate`` and the frozen external radar
+encoder come in later slices and raise here.
 
 The engine reads the same YAML as ``rald_tpu`` (``system.compute_dtype``,
 ``ar_model`` / ``lidar_ae`` with their ``overrides``, ``eval.inference``).
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import time
 from contextlib import contextmanager
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -40,6 +44,8 @@ from rald_torch.eval.chamfer import batched_cd_fscore_graph
 from rald_torch.eval.densify import densify_queries
 from rald_torch.eval.occupancy import occupancy_metrics
 from rald_torch.models.registry import get_ae_model, get_generation_model
+from rald_torch.ops.attn_kernel import merge_int8_trees, quantize_attn_tree
+from rald_torch.ops.geglu_kernel import quantize_ff_tree
 
 
 def bce_with_logits(logits, labels, mask=None):
@@ -86,17 +92,33 @@ class GenerationEngine:
             raise NotImplementedError("rald_torch: the frozen external radar encoder is not ported yet")
         ev = cfg.get("eval", {})
         inf = ev.get("inference", {})
-        if inf.get("int8_ff", False) or inf.get("int8_attn", False):
-            raise NotImplementedError("rald_torch: int8 inference is not ported yet")
 
         lidar = cfg.dataset.lidar
         self.model = get_generation_model(cfg.ar_model.name, mc, cfg.ar_model.get("overrides"))
         self.vae = get_ae_model(
             cfg.lidar_ae.name, N=int(lidar.num_samples), overrides=cfg.lidar_ae.get("overrides"),
         )
+        # quantized inference (default off): the DiT FF runs int8 with
+        # dynamic per-token activation scales (True) or calibrated
+        # per-(schedule step, block) scales ("static", loaded from
+        # eval.inference.int8_act_scales); int8_attn True / "full" also
+        # quantizes all four self-attention projections, "vout" only v / out
+        int8_ff = inf.get("int8_ff", False)
+        if int8_ff not in (False, True, "static"):
+            raise ValueError(f"eval.inference.int8_ff must be bool or 'static', got {int8_ff!r}")
+        self._act_scales = self._load_act_scales(inf) if int8_ff == "static" else None
+        int8_attn = inf.get("int8_attn", False)
+        if isinstance(int8_attn, str) and int8_attn not in ("full", "vout"):
+            raise ValueError(
+                f"eval.inference.int8_attn must be bool, 'full' or 'vout', got {int8_attn!r}"
+            )
+        self.use_int8_ff, self.use_int8_attn = int8_ff, int8_attn
+
         gen = torch.Generator().manual_seed(self.seed)
         for m in (self.model, self.vae):
             init_random_weights(m, gen)
+        self._quantize(self.model.state_dict())  # the f32 weights, before the cast
+        for m in (self.model, self.vae):
             m.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
 
         radar = cfg.dataset.get("radar", {})
@@ -118,11 +140,69 @@ class GenerationEngine:
 
     def load_state_dicts(self, edm_state_dict=None, vae_state_dict=None) -> None:
         """Load reference-layout weights (numpy arrays or tensors), strictly;
-        values are cast to the engine's dtype and device."""
+        values are cast to the engine's dtype and device. In int8 mode the
+        side-tree is rebuilt from the values as given (f32), not from the
+        cast copy."""
         for m, sd in ((self.model, edm_state_dict), (self.vae, vae_state_dict)):
             if sd is not None:
-                m.load_state_dict({k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
-                                   for k, v in sd.items()})
+                sd = {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+                      for k, v in sd.items()}
+                m.load_state_dict(sd)
+                if m is self.model:
+                    self._quantize(sd)
+
+    def _quantize(self, state_dict) -> None:
+        """Build the int8 side-tree of the DiT from its weights, once per
+        weight set (the JAX engine rebuilds the same numbers in every
+        sampling call), and hand it to the model."""
+        if not (self.use_int8_ff or self.use_int8_attn):
+            return
+        tree = quantize_ff_tree(state_dict) if self.use_int8_ff else {}
+        if self.use_int8_attn:
+            tree = merge_int8_trees(tree, quantize_attn_tree(state_dict))
+        tree = {k: {n: v.to(self.device) for n, v in node.items()} for k, node in tree.items()}
+        self.model.set_int8(tree, self.use_int8_ff, self.use_int8_attn)
+
+    def _load_act_scales(self, inf_cfg) -> torch.Tensor:
+        """Calibrated FF activation amax for ``int8_ff: "static"``: an npz
+        with ``ah`` / ``ag`` of shape (num_steps, depth) and ``num_steps``,
+        at ``eval.inference.int8_act_scales`` or by default
+        ``<eval.ckpt>/int8_act_scales.npz`` (the JAX package's
+        ``scripts/calibrate_int8.py`` writes it; :meth:`calibrate_act_scales`
+        computes the same tables). Returns a (num_steps, depth, 2) f32 table
+        on the device, indexed by schedule step like the mod table."""
+        path = str(inf_cfg.get("int8_act_scales", "") or "")
+        if not path:
+            ckpt = str(self.cfg.get("eval", {}).get("ckpt", "") or "")
+            if not ckpt:
+                raise ValueError(
+                    "eval.inference.int8_ff: 'static' needs calibrated activation scales — set "
+                    "eval.inference.int8_act_scales or eval.ckpt (default "
+                    "<ckpt>/int8_act_scales.npz); GenerationEngine.calibrate_act_scales "
+                    "produces them"
+                )
+            path = str(Path(ckpt) / "int8_act_scales.npz")
+        if not Path(path).exists():
+            raise FileNotFoundError(
+                f"int8_ff: 'static' — no activation scales at {path}; calibrate them on the "
+                "eval checkpoint first (GenerationEngine.calibrate_act_scales)"
+            )
+        with np.load(path) as z:
+            ah, ag = np.asarray(z["ah"], np.float32), np.asarray(z["ag"], np.float32)
+            calib_steps = int(z["num_steps"]) if "num_steps" in z else ah.shape[0]
+        num_steps = int(inf_cfg.get("num_steps", 18))
+        if ah.shape != ag.shape or ah.shape[0] != num_steps or calib_steps != num_steps:
+            raise ValueError(
+                f"activation scales at {path} were calibrated for num_steps={calib_steps} "
+                f"(ah {ah.shape}), but eval.inference.num_steps={num_steps} — recalibrate"
+            )
+        depth = int(self.model.depth)
+        if ah.shape[1] != depth:
+            raise ValueError(
+                f"activation scales at {path} cover {ah.shape[1]} blocks, model has depth "
+                f"{depth} — recalibrate"
+            )
+        return torch.from_numpy(np.stack([ah, ag], axis=-1)).to(self.device)
 
     # ---------------------------------------------------------------- pieces
     def _to_dev(self, a, dtype=torch.float32):
@@ -147,26 +227,89 @@ class GenerationEngine:
             return None
         return self.model.process_radar_cond(self._maybe_upsample(self._to_dev(radar_cube)))
 
-    @torch.no_grad()
-    def sample_from_cond(self, cond, seeds_or_prior):
-        """35-NFE Heun sampling with the AdaLN mod table built once."""
-        m = self.model
-        latents = sample_prior_latents(seeds_or_prior, m.n_latents, m.channels, self.device)
+    def _schedule(self):
         kw = self.sampler_kwargs
         t_steps = karras_sigmas(kw["num_steps"], kw["sigma_min"], kw["sigma_max"], kw["rho"],
                                 device=self.device)
-        table = stack_mod_table(m.compute_mod_table(t_steps[:-1]))
+        return t_steps, stack_mod_table(self.model.compute_mod_table(t_steps[:-1]))
+
+    @torch.no_grad()
+    def sample_from_cond(self, cond, seeds_or_prior, capture_states: bool = False):
+        """35-NFE Heun sampling with the AdaLN mod table built once; in
+        ``int8_ff: "static"`` mode each NFE takes its schedule step's row of
+        the activation-scale table. ``capture_states`` as in
+        :func:`edm_sampler`."""
+        m = self.model
+        latents = sample_prior_latents(seeds_or_prior, m.n_latents, m.channels, self.device)
+        _, table = self._schedule()
+        acts = self._act_scales if self.use_int8_ff == "static" else None
 
         def denoise_indexed(x, sigma, idx):
-            return m.denoise_with_mods(x, sigma, unstack_mods(table[idx]), cond)
+            sc = None
+            if acts is not None:
+                row = acts[idx]  # (depth, 2)
+                sc = tuple((row[i, 0], row[i, 1]) for i in range(row.shape[0]))
+            return m.denoise_with_mods(x, sigma, unstack_mods(table[idx]), cond, act_scales=sc)
 
-        return edm_sampler(denoise_indexed, latents, **kw)
+        return edm_sampler(denoise_indexed, latents, capture_states=capture_states,
+                           **self.sampler_kwargs)
 
     @torch.no_grad()
     def sample_tokens(self, radar_cube, seeds_or_prior):
         """Cube -> (B, n_latents, channels) f32 latent tokens. ``seeds_or_prior``
         is a list of integer seeds or an injected (B, M, C) prior draw."""
         return self.sample_from_cond(self.condition(radar_cube), seeds_or_prior)
+
+    @torch.no_grad()
+    def calibrate_act_scales(self, batches, num_batches: int = 2, margin: float = 1.0,
+                             print_fn=print):
+        """Per-(schedule step, block) FF activation amax tables for
+        ``int8_ff: "static"`` (JAX ``calibrate_act_scales``).
+
+        Runs the engine's own sampler, in its own mode, with
+        ``capture_states`` on up to ``num_batches`` batches, so the tables
+        see the (step, state) pairs the deployed sampler visits; replays each
+        state through the unfused full-precision denoiser and takes
+        ``max|h|`` (FF input after LN + mod) and ``max|g|`` (gated product)
+        per (step, block) over batches and tokens. ``batches``: dicts with
+        ``radar_cube`` and optionally ``seeds_or_prior`` (seeds or an
+        injected prior draw, as :meth:`sample_tokens` takes); without it
+        batch b of size B draws from seeds b*B .. b*B+B-1, as JAX does.
+        Returns ``(ah, ag)`` f32 numpy arrays (num_steps, depth) times
+        ``margin``; save them as ``np.savez(path, ah=ah, ag=ag,
+        num_steps=num_steps)`` for ``eval.inference.int8_act_scales``.
+        """
+        if self.sampler_kwargs["s_churn"] > 0:
+            raise ValueError(
+                "static activation scales are per-schedule-step; churn perturbs sigma off the "
+                "schedule (int8_ff: 'static' is unsupported with s_churn > 0)"
+            )
+        m = self.model
+        depth, num_steps = int(m.depth), int(self.sampler_kwargs["num_steps"])
+        t_steps, table = self._schedule()
+        amax_h = np.zeros((num_steps, depth), np.float32)
+        amax_g = np.zeros((num_steps, depth), np.float32)
+        done = 0
+        for b, batch in zip(range(num_batches), batches):
+            cube = batch.get("radar_cube")
+            prior = batch.get("seeds_or_prior")
+            if prior is None:
+                bsz = len(batch["lidar_points"] if "lidar_points" in batch else cube)
+                prior = list(range(b * bsz, (b + 1) * bsz))
+            cond = self.condition(cube)
+            _, (idxs, xs) = self.sample_from_cond(cond, prior, capture_states=True)
+            for k, idx in enumerate(idxs.tolist()):
+                stats = []
+                m.denoise_with_mods(xs[k], t_steps[idx], unstack_mods(table[idx]), cond,
+                                    quant_stats=stats)
+                hg = torch.stack([torch.stack(p) for p in stats]).float().cpu().numpy()
+                amax_h[idx] = np.maximum(amax_h[idx], hg[:, 0])
+                amax_g[idx] = np.maximum(amax_g[idx], hg[:, 1])
+            done += 1
+            print_fn(f"calibrate_act_scales: batch {done}/{num_batches} done")
+        if not done:
+            raise ValueError("calibrate_act_scales: empty loader")
+        return amax_h * margin, amax_g * margin
 
     @torch.no_grad()
     def decode_queries(self, tokens, queries):

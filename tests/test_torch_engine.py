@@ -159,8 +159,11 @@ def test_engine_refuses_unported_options():
     from rald_torch.train.gen_engine import GenerationEngine
     from torch_parity import tiny_cfg
 
-    with pytest.raises(NotImplementedError, match="int8"):
-        GenerationEngine(tiny_cfg(Config, eval={"inference": {"int8_ff": True}}), device="cpu")
+    with pytest.raises(ValueError, match="int8_ff must be bool or 'static'"):
+        GenerationEngine(tiny_cfg(Config, eval={"inference": {"int8_ff": "dynamic"}}),
+                         device="cpu")
+    with pytest.raises(ValueError, match="int8_attn must be bool, 'full' or 'vout'"):
+        GenerationEngine(tiny_cfg(Config, eval={"inference": {"int8_attn": "qk"}}), device="cpu")
     with pytest.raises(NotImplementedError, match="churn"):
         eng = GenerationEngine(tiny_cfg(Config, eval={"inference": {"s_churn": 1.0}}),
                                device="cpu")
