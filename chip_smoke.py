@@ -10,11 +10,14 @@ Phases, each printed before the last line:
 2. build: compiles every hand-written kernel under ``rald_torch/csrc`` for
    ``sm_90a`` (one ``nvcc`` per source, all at once) and prints the ptxas
    register / shared-memory / spill report.
-3. kernels: each kernel against its plain PyTorch version at main-path
-   shapes, batch 1 and 8 (and a ragged batch), with checks that the bar
-   catches a kernel dropping a bias or a scale, then timed with CUDA events
-   beside the plain version, a composite of library calls the port never
-   makes (``library_ms``) and the card's bound for the same work.
+3. kernels: each of the nine kernels against its plain PyTorch version at
+   main-path shapes, batch 1 and 8 (and a ragged batch; geglu_ff also at an
+   out_dim of 768), with checks that the bar catches a kernel dropping a
+   bias or a scale row or computing the other mod mode (the nearest-
+   neighbour kernels: bitwise, and nn_min_sq_batch bitwise equal to
+   nn_min_sq_both's rows), then timed with CUDA events beside the plain
+   version, a composite of library calls the port never makes
+   (``library_ms``) and the card's bound for the same work.
 4. main path: the product eval chain of
    ``configs/generation/ge_indoor_unfreeze_enc_ints_only_eval.yml`` at full
    width (DiT dim 512 x 24 blocks, VAE dim 512 x 24 blocks, bf16) on seeded
@@ -23,16 +26,22 @@ Phases, each printed before the last line:
    sampler -> decode of 5e5 grid + 7e5 densified CFAR helper queries ->
    threshold -> 5e5 refine queries decoded -> polar->cartesian ->
    Chamfer / F-score against a 1e4-point synthetic surface, at batch 1
-   and 8; then the same chain in quantized inference
-   (``eval.inference.int8_ff`` / ``int8_attn``): dynamic int8 FF + "vout"
-   attention (bench.py's operating point) at batch 1 and 8, dynamic FF +
-   "full" attention at batch 1, and static FF (scales from
-   ``calibrate_act_scales`` on one synthetic batch) + "vout" at batch 1.
-   Launch counters are zeroed just before each run and read just after,
-   and every kernel's count is checked exactly.
-5. reference: reduced-depth chains (bf16; int8 dynamic + vout; int8
-   static + full) each run twice on the card, once through the kernels and
-   once through their plain versions; tokens and Chamfer must agree.
+   and 8; the port's infer CLI (``rald_torch.cli.infer.run``) on 9
+   synthetic raw cubes in two directories at batch 8; the chain in
+   quantized inference (``eval.inference.int8_ff`` / ``int8_attn``):
+   dynamic int8 FF + "vout" attention (bench.py's operating point) at
+   batch 1 and 8, dynamic FF + "full" attention at batch 1, and static FF
+   (scales from ``calibrate_act_scales`` on one synthetic batch) + "vout"
+   at batch 1; with ``ar_model.overrides: {use_fused_attn: true}`` at
+   batch 1 and 8 and through the CLI; ``GEGLUFeedForward(use_fused=True)``
+   once; and ``system.fast_inference: false`` at batch 1 (plain modules,
+   unfolded decode). Launch counters are zeroed just before each run and
+   read just after, and every kernel's count is checked exactly.
+5. reference: reduced-depth chains (bf16; bf16 + use_fused_attn; int8
+   dynamic + vout; int8 static + full) each run twice on the card, once
+   through the kernels and once through their plain versions; tokens and
+   Chamfer must agree. Then the host ``chamfer_and_fscore`` once on the
+   card against the CPU.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -63,8 +72,9 @@ PEAK_F32 = 67e12
 
 D, INNER = 512, 2048  # product DiT / VAE width and GEGLU inner width
 SCRATCH = REPO / "build" / "chip_smoke"  # calibrated scales written by the run (git-ignored)
-KERNEL_NAMES = ("fused_ln_geglu_residual", "nn_min_sq_both", "fused_ln_geglu_residual_int8",
-                "fused_ln_geglu_residual_int8_static", "fused_self_attention_block_int8",
+KERNEL_NAMES = ("fused_ln_geglu_residual", "nn_min_sq_both", "nn_min_sq_batch",
+                "fused_ln_geglu_residual_int8", "fused_ln_geglu_residual_int8_static",
+                "geglu_ff", "fused_self_attention_block", "fused_self_attention_block_int8",
                 "fused_self_attention_block_int8_vout")
 NN_N, NN_M = 500_000, 10_000  # refined predictions, GT surface points
 
@@ -151,14 +161,16 @@ def _geglu_library(x, s, b, w1, b1, w2, b2, adaln: bool):
     return x + F.linear(a * F.gelu(g), w2, b2)
 
 
-def _nn_library(a, b, chunk: int = 16384):
-    """Yardstick only: exact (non-matmul) cdist in chunks, both minima."""
+def _nn_library(a, b, chunk: int = 16384, both: bool = True):
+    """Yardstick only: exact (non-matmul) cdist in chunks, both minima (or
+    the row minima alone)."""
     row = torch.empty(a.shape[:2], device=a.device)
     col = torch.full(b.shape[:2], float("inf"), device=a.device)
     for s in range(0, a.shape[1], chunk):
         d = torch.cdist(a[:, s:s + chunk], b, compute_mode="donot_use_mm_for_euclid_dist")
         row[:, s:s + chunk] = d.amin(2)
-        col = torch.minimum(col, d.amin(1))
+        if both:
+            col = torch.minimum(col, d.amin(1))
     return row, col
 
 
@@ -278,15 +290,20 @@ def _int8_bound(name: str, bsz: int, n: int):
     return bound_t(n_bytes, int8_ops / PEAK_INT8 + bf16_ops / PEAK_BF16)
 
 
-def _drop_checks(label, plain, args, want, bar, drops) -> dict:
-    """Each entry of ``drops`` (key -> (operand index, replacement)) must move
-    the plain output by more than the bar: the parity check then catches a
-    kernel that leaves that operand out."""
+def _drop_checks(label, plain, args, want, bar, drops, kw=None) -> dict:
+    """Each entry of ``drops`` (key -> (operand index, replacement), or key ->
+    a dict of keyword changes) must move the plain output by more than the
+    bar: the parity check then catches a kernel that leaves that operand out
+    (or computes the other mode)."""
     moved = {}
-    for key, (i, repl) in drops.items():
-        a = list(args)
-        a[i] = repl(a[i])
-        moved[key] = (plain(*a).float() - want.float()).abs().max().item()
+    for key, change in drops.items():
+        a, k = list(args), dict(kw or {})
+        if isinstance(change, dict):
+            k.update(change)
+        else:
+            i, repl = change
+            a[i] = repl(a[i])
+        moved[key] = (plain(*a, **k).float() - want.float()).abs().max().item()
         check(moved[key] > bar, f"{label}: dropping {key} moves the output only "
                                 f"{moved[key]:.3e} <= bar {bar:.3e}")
     return moved
@@ -357,9 +374,160 @@ def _int8_kernel_entries(gen: torch.Generator) -> list:
     return entries
 
 
+# bf16 self-attention sublayer (fused_self_attention_block): DiT AdaLN rows
+# at std 0.5, so that dropping the scale row moves the output past the bar,
+# or the VAE-style affine LayerNorm rows
+ATTN_SHAPES = ((1, 512), (8, 512), (3, 300))
+
+
+def _attn_inputs(bsz: int, n: int, adaln: bool, gen: torch.Generator):
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).bfloat16()
+
+    x = rnd(bsz, n, D)
+    s, b = (rnd(1, D, std=0.5), rnd(1, D, std=0.1)) if adaln else (
+        (1.0 + rnd(D, std=0.1).float()).bfloat16(), rnd(D, std=0.1))
+    w = [rnd(D, D, std=D ** -0.5) for _ in range(4)]
+    return (x, s, b, *w, rnd(D, std=0.5))
+
+
+def _attn_library(x, s, b, wq, wk, wv, wo, bo, scale_shift_mod=True):
+    """Yardstick only: F.layer_norm + 3 x F.linear + SDPA + F.linear in bf16
+    (the port never calls this)."""
+    bsz, n, _ = x.shape
+    if scale_shift_mod:
+        h = F.layer_norm(x, (D,), eps=1e-5) * (1 + s) + b
+    else:
+        h = F.layer_norm(x, (D,), s, b, eps=1e-5)
+    heads = lambda t: t.reshape(bsz, n, 8, 64).transpose(1, 2)
+    o = F.scaled_dot_product_attention(heads(F.linear(h, wq)), heads(F.linear(h, wk)),
+                                       heads(F.linear(h, wv)))
+    return x + F.linear(o.transpose(1, 2).reshape(bsz, n, D), wo, bo)
+
+
+def _attn_bound(bsz: int, n: int):
+    rows = bsz * n
+    flops = 4 * 2 * rows * D * D + 2 * 2 * bsz * n * n * D
+    n_bytes = 2 * (2 * rows * D + 4 * D * D + D + 2 * D)
+    return bound(n_bytes, flops, PEAK_BF16)
+
+
+# geglu_ff: token-flattened x (the main-path widths, a ragged count and an
+# out_dim of 768 that takes two 512-column blocks, the second half-masked)
+GEGLU_FF_SHAPES = (((1, 512, D), D), ((8, 512, D), D), ((1000, D), D), ((2, 256, D), 768))
+
+
+def _geglu_ff_inputs(shape, out_dim: int, gen: torch.Generator):
+    def rnd(*sh, std=1.0):
+        return (torch.randn(sh, generator=gen, device="cuda") * std).bfloat16()
+
+    return (rnd(*shape), rnd(2 * INNER, D, std=D ** -0.5), rnd(2 * INNER, std=0.5),
+            rnd(out_dim, INNER, std=INNER ** -0.5), rnd(out_dim, std=0.5))
+
+
+def _geglu_ff_library(x, w1, b1, w2, b2):
+    """Yardstick only: 2 x F.linear + F.gelu in bf16."""
+    a, g = F.linear(x, w1, b1).chunk(2, dim=-1)
+    return F.linear(a * F.gelu(g), w2, b2)
+
+
+def _geglu_ff_bound(rows: int, out_dim: int):
+    flops = rows * (2 * D * 2 * INNER + 2 * INNER * out_dim)
+    n_bytes = 2 * (rows * (D + out_dim) + 2 * INNER * D + INNER * out_dim + 2 * INNER + out_dim)
+    return bound(n_bytes, flops, PEAK_BF16)
+
+
+def _parity(label, fn, plain, args, bar_rel, drops, kw=None) -> dict:
+    """Kernel against plain version on the same inputs (max |diff| <=
+    bar_rel * max|out|), with the drop checks."""
+    kw = kw or {}
+    got = fn(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    check(tuple(got.shape) == tuple(want.shape), f"{label}: shape {tuple(got.shape)}")
+    check(math.isfinite(err) and err <= bar_rel * ref,
+          f"{label}: max err {err:.3e} > {bar_rel} * {ref:.3e}")
+    return {"max_abs_err": err, "max_abs_out": ref,
+            "dropped": _drop_checks(label, plain, args, want, bar_rel * ref, drops, kw)}
+
+
+def _timed(line, fn, plain, library, args, kw, iters, bnd):
+    line["ms"] = cuda_ms(lambda: fn(*args, **kw), iters)
+    line["plain_ms"] = cuda_ms(lambda: plain(*args, **kw), max(iters // 4, 2))
+    line["library_ms"] = cuda_ms(lambda: library(*args, **kw), iters)
+    line["bound_ms"], line["bound_by"] = bnd
+
+
+def _entry(name, source, replaces, rows: dict, b1, b8) -> dict:
+    r1, r8 = rows[b1], rows[b8]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "shape": r1["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "ms": r1["ms"], "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"],
+        "bound_by": r1["bound_by"], "library_ms": r1["library_ms"], "ms_b8": r8["ms"],
+        "plain_ms_b8": r8["plain_ms"], "bound_ms_b8": r8["bound_ms"],
+        "library_ms_b8": r8.get("library_ms"),
+    }
+
+
+def _bf16_kernel_entries(gen: torch.Generator) -> list:
+    """fused_self_attention_block and geglu_ff: bf16 outputs over 512- to
+    2048-term sums in another order than the plain version, so the bar is
+    geglu's 2e-2 * max|out|."""
+    from rald_torch.ops import attn_kernel as ak
+    from rald_torch.ops import geglu_kernel as gk
+
+    zero = torch.zeros_like
+    rows = {}
+    for bsz, n in ATTN_SHAPES:
+        for adaln in (True, False):
+            args = _attn_inputs(bsz, n, adaln, gen)
+            kw = {"scale_shift_mod": adaln}
+            label = f"fused_self_attention_block ({bsz},{n},{D}) {'adaln' if adaln else 'affine'}"
+            line = {"shape": [bsz, n, D], "mode": "adaln" if adaln else "affine", **_parity(
+                label, ak.fused_self_attention_block, ak.fused_self_attention_block_plain, args,
+                INT8_BAR, {"bo": (7, zero), "scale": (1, zero),
+                           "mode": {"scale_shift_mod": not adaln}}, kw)}
+            if n == 512 and adaln:
+                _timed(line, ak.fused_self_attention_block, ak.fused_self_attention_block_plain,
+                       _attn_library, args, kw, 200 if bsz == 1 else 50, _attn_bound(bsz, n))
+                rows[bsz] = line
+            rows.setdefault((bsz, n, adaln), line)
+            print("[kernels] fused_self_attention_block " + json.dumps(line))
+    attn = _entry("fused_self_attention_block", "rald_torch/csrc/attn_int8.cu",
+                  "rald_tpu/ops/attn_kernel.py:85", rows, 1, 8)
+    attn["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+
+    rows = {}
+    for shape, out_dim in GEGLU_FF_SHAPES:
+        args = _geglu_ff_inputs(shape, out_dim, gen)
+        tokens = math.prod(shape[:-1])
+        line = {"shape": list(shape), "out_dim": out_dim, **_parity(
+            f"geglu_ff {shape} -> {out_dim}", gk.geglu_ff, gk.geglu_ff_plain, args, INT8_BAR,
+            {"b1": (2, zero), "b2": (4, zero)})}
+        if shape[-2] == 512 and out_dim == D:
+            _timed(line, gk.geglu_ff, gk.geglu_ff_plain, _geglu_ff_library, args, {},
+                   200 if tokens == 512 else 50, _geglu_ff_bound(tokens, out_dim))
+            rows[shape[0]] = line
+        rows.setdefault((shape, out_dim), line)
+        print("[kernels] geglu_ff " + json.dumps(line))
+    ff = _entry("geglu_ff", "rald_torch/csrc/geglu.cu", "rald_tpu/ops/geglu_kernel.py:492",
+                rows, 1, 8)
+    ff["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    return [attn, ff]
+
+
 def phase_kernels() -> list:
     from rald_torch.ops.geglu_kernel import fused_ln_geglu_residual, fused_ln_geglu_residual_plain
-    from rald_torch.ops.nn_dist_kernel import BIG, nn_min_sq_both, nn_min_sq_both_plain
+    from rald_torch.ops.nn_dist_kernel import (
+        BIG,
+        nn_min_sq_batch,
+        nn_min_sq_batch_plain,
+        nn_min_sq_both,
+        nn_min_sq_both_plain,
+    )
 
     gen = torch.Generator("cuda").manual_seed(0)
     entries = []
@@ -409,7 +577,7 @@ def phase_kernels() -> list:
     # batch 1 and at batch 8 (the main path's two batches), where each frame
     # has its own data and its own BIG-padded tail, as batched_cd_fscore_graph
     # pads a ragged batch
-    nn_rows = {}
+    nn_rows, batch_rows = {}, {}
     for bsz in (1, 8):
         a = torch.rand((bsz, NN_N, 3), generator=gen, device="cuda") * 16.0
         b = torch.rand((bsz, NN_M, 3), generator=gen, device="cuda") * 16.0
@@ -438,9 +606,31 @@ def phase_kernels() -> list:
             4 * bsz * (3 * (NN_N + NN_M) + NN_N + NN_M), 8 * bsz * NN_N * NN_M, PEAK_F32)
         print("[kernels] nn_min_sq_both " + json.dumps(line))
         nn_rows[bsz] = line
+        # nn_min_sq_batch: the row pass alone, bitwise its plain version and
+        # the two-way kernel's row output
+        rb = nn_min_sq_batch(a, b)
+        rb_p = nn_min_sq_batch_plain(a, b)
+        torch.cuda.synchronize()
+        check(torch.equal(rb, rb_p), f"nn_min_sq_batch B={bsz} is not bitwise equal to its plain version")
+        check(torch.equal(rb, row), f"nn_min_sq_batch B={bsz} differs from nn_min_sq_both's rows")
+        line = {
+            "shape": [bsz, NN_N, NN_M], "bitwise_equal": True,
+            "max_abs_err": (rb - rb_p).abs().max().item(),
+            "ms": cuda_ms(lambda: nn_min_sq_batch(a, b), 20 if bsz == 1 else 5),
+            "plain_ms": cuda_ms(lambda: nn_min_sq_batch_plain(a, b), 2, warmup=1),
+        }
+        if bsz == 1:  # the cdist composite takes ~6 s a frame
+            line["library_ms"] = cuda_ms(lambda: _nn_library(a, b, both=False), 2, warmup=1)
+        line["bound_ms"], line["bound_by"] = bound(
+            4 * bsz * (3 * (NN_N + NN_M) + NN_N), 8 * bsz * NN_N * NN_M, PEAK_F32)
+        print("[kernels] nn_min_sq_batch " + json.dumps(line))
+        batch_rows[bsz] = line
     nn_line = nn_rows[1]
 
     entries += _int8_kernel_entries(gen)
+    entries += _bf16_kernel_entries(gen)
+    entries.append(_entry("nn_min_sq_batch", "rald_torch/csrc/nn_dist.cu",
+                          "rald_tpu/ops/nn_dist_kernel.py:145", batch_rows, 1, 8))
 
     g1 = geglu_rows[(1, True)]
     entries.insert(0, {
@@ -515,7 +705,7 @@ def _run_step(eng, inputs, seed: int, timings=None, **kw):
     return out
 
 
-def _product_cfg(int8_ff=False, int8_attn=False, act_scales=None):
+def _product_cfg(int8_ff=False, int8_attn=False, act_scales=None, fused_attn=False, fast=True):
     from rald_torch.config import load_config
 
     cfg = load_config(PRODUCT_CFG)
@@ -523,21 +713,114 @@ def _product_cfg(int8_ff=False, int8_attn=False, act_scales=None):
     cfg.eval.inference.int8_attn = int8_attn
     if act_scales is not None:
         cfg.eval.inference.int8_act_scales = str(act_scales)
+    if fused_attn:
+        cfg.ar_model.overrides = {"use_fused_attn": True}
+    if not fast:
+        cfg.system.fast_inference = False
     return cfg
 
 
-def _want_launches(eng, int8_ff, int8_attn) -> dict:
-    """Exact launches of every kernel in one eval step of this mode."""
-    per_nfe = (2 * eng.sampler_kwargs["num_steps"] - 1) * eng.model.depth
-    vdepth = len(eng.vae.layers)
+def _per_nfe(eng) -> int:
+    """DiT block evaluations per sample: 35 NFEs x depth."""
+    return (2 * eng.sampler_kwargs["num_steps"] - 1) * eng.model.depth
+
+
+def _want_launches(eng) -> dict:
+    """Exact launches of every kernel in one eval step of the engine's mode."""
+    per_nfe, vdepth = _per_nfe(eng), len(eng.vae.layers)
     want = {name: 0 for name in KERNEL_NAMES}
-    want["nn_min_sq_both"] = None  # once per Chamfer call: checked >= 1
+    want["nn_min_sq_both"] = 1  # one Chamfer call, both directions
+    if not eng.fast_inference:  # plain modules: no FF or attention kernel
+        return want
+    int8_ff, int8_attn = eng.use_int8_ff, eng.use_int8_attn
     want["fused_ln_geglu_residual"] = vdepth + (0 if int8_ff else per_nfe)
     if int8_ff:
         want["fused_ln_geglu_residual_int8" + ("_static" if int8_ff == "static" else "")] = per_nfe
     if int8_attn:
         want["fused_self_attention_block_int8" + ("_vout" if int8_attn == "vout" else "")] = per_nfe
+    elif eng.model.use_fused_attn:
+        want["fused_self_attention_block"] = per_nfe
     return want
+
+
+def _check_counts(counts: dict, want: dict, label: str) -> None:
+    for name, n in want.items():
+        check(counts[name] == n, f"{label}: {counts[name]} {name} launches, want {n}")
+
+
+# ------------------------------------------------------- the infer CLI
+CLI_FRAMES = (5, 4)  # raw cubes in two sequence directories with colliding names
+
+
+def _cli_cubes(cfg) -> Path:
+    """Synthetic raw cubes of the product shape (intensity dB, velocity,
+    validity), written as the dataset lays them out."""
+    import shutil
+
+    root = SCRATCH / "cli_cubes"
+    shutil.rmtree(root, ignore_errors=True)
+    r = cfg.dataset.radar
+    shape = (int(r.input_r_dim), int(r.input_a_dim), int(r.input_e_dim))
+    rng = np.random.default_rng(11)
+    for seq, n in zip(("seq_a", "seq_b"), CLI_FRAMES):
+        d = root / seq / "radar_cube"
+        d.mkdir(parents=True)
+        for i in range(n):
+            cube = np.stack([rng.uniform(0, 60, shape), rng.normal(0, 1.5, shape),
+                             (rng.uniform(size=shape) < 0.7)], axis=-1).astype(np.float32)
+            np.save(d / f"{i:04d}.npy", cube)
+    return root
+
+
+def _cli_run(eng, cfg, label: str, src: Path, bsz: int = 8) -> dict:
+    """``rald_torch.cli.infer.run`` over the cubes at ``src`` with this
+    engine (its weights), batch 8: two batches, the last one pad-last. The
+    threshold sits at the 90th percentile of the first frame's logits, so
+    the clouds are real; the first batch's point counts must equal
+    (decode > threshold).sum() of a separate pass, and every kernel count
+    is exact."""
+    import shutil
+
+    from rald_torch.cli import infer
+    from rald_torch.eval.ply import read_ply
+    from rald_torch.ops import launch_counts, reset_launch_counts
+
+    out = SCRATCH / f"cli_{label}"
+    shutil.rmtree(out, ignore_errors=True)
+    files = infer.collect_inputs(str(src))
+    check(len(files) == sum(CLI_FRAMES), f"cli {label}: {len(files)} inputs")
+    grid = torch.from_numpy(infer.query_grid(cfg)).cuda()[None].expand(bsz, -1, -1)
+    cubes = np.stack([infer.preprocess(infer.load_cube(f), cfg.dataset.radar)
+                      for f in files[:bsz]])
+    logits = eng.decode_queries(eng.sample_tokens(cubes, list(range(bsz))), grid)
+    thr = float(torch.quantile(logits[0, ::16], 0.9))
+    want_points = (logits > thr).sum(1).tolist()
+    reset_launch_counts()
+    stats = infer.run(cfg, str(src), str(out), batch=bsz, threshold=thr, engine=eng,
+                      print_fn=lambda *_: None)
+    counts = launch_counts()
+    n_batches = -(-len(files) // bsz)
+    want = {name: 0 for name in KERNEL_NAMES}
+    per_nfe, vdepth = _per_nfe(eng), len(eng.vae.layers)
+    want["fused_ln_geglu_residual"] = n_batches * (per_nfe + vdepth)
+    if eng.model.use_fused_attn:
+        want["fused_self_attention_block"] = n_batches * per_nfe
+    _check_counts(counts, want, f"cli {label}")
+    got = sorted(str(p.relative_to(out)) for p in out.rglob("*.ply"))
+    expect = sorted(f"{seq}/radar_cube/{i:04d}.ply"
+                    for seq, n in zip(("seq_a", "seq_b"), CLI_FRAMES) for i in range(n))
+    check(got == expect, f"cli {label}: PLY files {got}")
+    check(stats["files"] == len(files), f"cli {label}: {stats['files']} files")
+    for f, n in zip(infer.output_paths(files, out), stats["points"]):
+        check(len(read_ply(f)) == n, f"cli {label}: {f} holds {len(read_ply(f))} points, not {n}")
+    check(stats["points"][:bsz] == want_points,
+          f"cli {label}: points {stats['points'][:bsz]} != decode > thr {want_points}")
+    check(sum(stats["points"]) > 0, f"cli {label}: every cloud is empty")
+    line = {"mode": label, "batch": bsz, "files": stats["files"], "threshold": thr,
+            "points": stats["points"], "seconds": stats["seconds"],
+            "frames_per_s": stats["frames_per_sec"], "launches": counts}
+    print("[cli] " + json.dumps(line))
+    return line
 
 
 def _main_run(eng, inputs, bsz: int, label: str, want: dict) -> dict:
@@ -553,11 +836,7 @@ def _main_run(eng, inputs, bsz: int, label: str, want: dict) -> dict:
     wall = time.perf_counter() - t0
     counts = launch_counts()
     cd, f, n_pred = cd.cpu().numpy(), f.cpu().numpy(), n_pred.cpu().numpy()
-    for name, n in want.items():
-        if n is None:
-            check(counts[name] >= 1, f"{label} B={bsz}: {name} never launched")
-        else:
-            check(counts[name] == n, f"{label} B={bsz}: {counts[name]} {name} launches, want {n}")
+    _check_counts(counts, want, f"{label} B={bsz}")
     check(bool((n_pred > 0).all()), f"{label} B={bsz}: empty prediction n_pred={n_pred.tolist()}")
     check(bool(np.isfinite(cd).all()) and bool(np.isfinite(f).all()),
           f"{label} B={bsz}: non-finite Chamfer/F {cd.tolist()} {f.tolist()}")
@@ -574,25 +853,61 @@ def _main_run(eng, inputs, bsz: int, label: str, want: dict) -> dict:
     return line
 
 
-def phase_main() -> dict:
-    """Returns the runs by (mode, batch)."""
+def _build(cfg, label: str, batches):
     from rald_torch.train.gen_engine import GenerationEngine
 
-    cfg = _product_cfg()
     t0 = time.perf_counter()
     eng = GenerationEngine(cfg)  # device None -> the card
+    built = time.perf_counter() - t0
+    shift = _center_occupancy(eng, batches)
+    print(f"[main] {label}: engine built in {built:.1f} s, occupancy bias shift {shift:+.6f}")
+    return eng
+
+
+def _geglu_ff_module_run(eng) -> dict:
+    """``GEGLUFeedForward(use_fused=True)``: the module that reaches
+    geglu_ff (no inference chain of the JAX package does), at full width
+    with the DiT's block-0 FF weights, against the unfused module."""
+    from rald_torch.ops import launch_counts, reset_launch_counts
+
+    ff = eng.model.model.transformer_blocks[0].ff
+    x = torch.randn((8, 512, D), generator=torch.Generator("cuda").manual_seed(5),
+                    device="cuda").bfloat16()
+    want = ff(x)
+    reset_launch_counts()
+    ff.use_fused = True
+    try:
+        got = ff(x)
+        torch.cuda.synchronize()
+    finally:
+        ff.use_fused = False
+    counts = launch_counts()
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    check(err <= INT8_BAR * ref, f"GEGLUFeedForward(use_fused=True): err {err:.3e} vs {ref:.3e}")
+    _check_counts(counts, {name: int(name == "geglu_ff") for name in KERNEL_NAMES},
+                  "GEGLUFeedForward(use_fused=True)")
+    line = {"mode": "GEGLUFeedForward(use_fused=True)", "shape": [8, 512, D],
+            "max_abs_err_vs_unfused": err, "launches": counts}
+    print("[main] " + json.dumps(line))
+    return line
+
+
+def phase_main() -> dict:
+    """Returns the runs by (mode, batch)."""
+    cfg = _product_cfg()
+    rng = np.random.default_rng(cfg.system.seed)
+    inputs = {b: _inputs(cfg, b, rng) for b in (1, 8)}
+    cli_src = _cli_cubes(cfg)
+    eng = _build(cfg, "bf16", inputs.values())
     depth, vdepth = eng.model.depth, len(eng.vae.layers)
     n_params = sum(p.numel() for m in (eng.model, eng.vae) for p in m.parameters())
     print(f"[main] {cfg.ar_model.name} (depth {depth}) + {cfg.lidar_ae.name} (depth {vdepth}), "
-          f"{n_params / 1e6:.1f}M params, {eng.dtype}, built in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(cfg.system.seed)
-    inputs = {b: _inputs(cfg, b, rng) for b in (1, 8)}
-    shift = _center_occupancy(eng, inputs.values())
-    print(f"[main] decoder query projection x10, occupancy bias shift {shift:+.6f}")
+          f"{n_params / 1e6:.1f}M params, {eng.dtype}; decoder query projection x10")
     runs = {}
     for bsz in (1, 8):
-        runs[("bf16", bsz)] = _main_run(eng, inputs[bsz], bsz, "bf16",
-                                        _want_launches(eng, False, False))
+        runs[("bf16", bsz)] = _main_run(eng, inputs[bsz], bsz, "bf16", _want_launches(eng))
+    runs[("cli bf16", 8)] = _cli_run(eng, cfg, "bf16", cli_src)
 
     # static activation scales: the port's calibration on one synthetic batch
     t0 = time.perf_counter()
@@ -613,28 +928,42 @@ def phase_main() -> dict:
     for int8_ff, int8_attn, batches in ((True, "vout", (1, 8)), (True, "full", (1,)),
                                         ("static", "vout", (1,))):
         label = f"int8_ff={int8_ff},int8_attn={int8_attn}"
-        t0 = time.perf_counter()
-        eng = GenerationEngine(_product_cfg(int8_ff, int8_attn,
-                                            scales if int8_ff == "static" else None))
-        built = time.perf_counter() - t0
-        shift = _center_occupancy(eng, [inputs[b] for b in batches])
-        print(f"[main] {label}: engine built (with its int8 side-tree) in {built:.1f} s, "
-              f"occupancy bias shift {shift:+.6f}")
+        eng = _build(_product_cfg(int8_ff, int8_attn, scales if int8_ff == "static" else None),
+                     label, [inputs[b] for b in batches])
         for bsz in batches:
-            runs[(label, bsz)] = _main_run(eng, inputs[bsz], bsz, label,
-                                           _want_launches(eng, int8_ff, int8_attn))
+            runs[(label, bsz)] = _main_run(eng, inputs[bsz], bsz, label, _want_launches(eng))
         del eng
         torch.cuda.empty_cache()
+
+    # ar_model.overrides: {use_fused_attn: true}: the bf16 attention kernel
+    cfg = _product_cfg(fused_attn=True)
+    eng = _build(cfg, "use_fused_attn", inputs.values())
+    for bsz in (1, 8):
+        runs[("use_fused_attn", bsz)] = _main_run(eng, inputs[bsz], bsz, "use_fused_attn",
+                                                  _want_launches(eng))
+    runs[("cli use_fused_attn", 8)] = _cli_run(eng, cfg, "use_fused_attn", cli_src)
+    runs[("GEGLUFeedForward(use_fused=True)", 1)] = _geglu_ff_module_run(eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    # system.fast_inference: false: plain modules, unfolded decode, no kernel
+    # but the Chamfer pass
+    eng = _build(_product_cfg(fast=False), "fast_inference=false", [inputs[1]])
+    runs[("fast_inference=false", 1)] = _main_run(eng, inputs[1], 1, "fast_inference=false",
+                                                  _want_launches(eng))
+    del eng
+    torch.cuda.empty_cache()
     return runs
 
 
 # --------------------------------------------------------------- phase 5
-def _reference_chain(int8_ff=False, int8_attn=False, act_scales=None, bf16_tokens=None):
+def _reference_chain(int8_ff=False, int8_attn=False, act_scales=None, bf16_tokens=None,
+                     fused_attn=False):
     """The chain at depth 2 / 4 steps, once through the kernels and once
     with their plain versions patched in, on the same card and weights.
     ``bf16_tokens``: the plain bf16 chain's tokens (same weights, cube and
-    prior), the yardstick of an int8 chain. Returns the engine, its inputs
-    and the plain tokens."""
+    prior), the yardstick of a chain whose attention is a kernel too.
+    Returns the engine, its inputs and the plain tokens."""
     import rald_torch.eval.chamfer as chamfer
     import rald_torch.models.latent_dit as latent_dit
     import rald_torch.models.vecset_vae as vecset_vae
@@ -644,7 +973,7 @@ def _reference_chain(int8_ff=False, int8_attn=False, act_scales=None, bf16_token
     from rald_torch.train.gen_engine import GenerationEngine
 
     cfg = _product_cfg(int8_ff, int8_attn, act_scales)
-    cfg.ar_model.overrides = {"depth": 2}
+    cfg.ar_model.overrides = {"depth": 2, "use_fused_attn": fused_attn}
     cfg.lidar_ae.overrides = {"depth": 2}
     cfg.eval.inference.num_steps = 4
     cfg.eval.inference.num_query_points = 65536
@@ -662,6 +991,7 @@ def _reference_chain(int8_ff=False, int8_attn=False, act_scales=None, bf16_token
     patches += [(latent_dit, name, getattr(mod, name + "_plain"))
                 for mod, name in ((gk, "fused_ln_geglu_residual_int8"),
                                   (gk, "fused_ln_geglu_residual_int8_static"),
+                                  (ak, "fused_self_attention_block"),
                                   (ak, "fused_self_attention_block_int8"),
                                   (ak, "fused_self_attention_block_int8_vout"))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
@@ -676,7 +1006,8 @@ def _reference_chain(int8_ff=False, int8_attn=False, act_scales=None, bf16_token
     tok_err = (tok_k - tok_p).abs().max().item()
     tok_rms = tok_p.pow(2).mean().sqrt().item()
     cd_k, cd_p = float(out_k[3][0]), float(out_p[3][0])
-    line = {"int8_ff": int8_ff, "int8_attn": int8_attn, "tokens_max_abs_diff": tok_err,
+    line = {"int8_ff": int8_ff, "int8_attn": int8_attn, "use_fused_attn": fused_attn,
+            "tokens_max_abs_diff": tok_err,
             "tokens_rms": tok_rms, "cd_kernels": cd_k, "cd_plain": cd_p,
             "n_pred_kernels": int(out_k[5][0]), "n_pred_plain": int(out_p[5][0])}
     line["tokens_rms_diff"] = (tok_k - tok_p).pow(2).mean().sqrt().item()
@@ -685,17 +1016,18 @@ def _reference_chain(int8_ff=False, int8_attn=False, act_scales=None, bf16_token
         # the bar is scripts/full_parity.py's 5% of max(rms, 1) on the tokens
         err, bar = tok_err, 0.05 * max(tok_rms, 1.0)
     else:
-        # int8 chain: here the attention sublayer is a kernel too, with its
-        # own f32 summation order, and the max |difference| of this 4-step
-        # random-weight chain saturates under any small perturbation (bf16
-        # chain 0.17, int8 chain 0.33, plain int8 vs plain bf16 0.32 on an
-        # H100), so the bar is the same 5% of max(rms, 1) taken on the rms
-        # difference over all token values (bf16 chain 0.039, int8 0.075):
-        # a kernel that composes wrongly (a dropped bias moves a sublayer
-        # by ~30% of max|out|, phase 3) misses it by far
+        # int8 or fused-attention chain: here the attention sublayer is a
+        # kernel too, with its own f32 summation order, and the max
+        # |difference| of this 4-step random-weight chain saturates under
+        # any small perturbation (bf16 chain 0.17, int8 chain 0.33, plain
+        # int8 vs plain bf16 0.32 on an H100), so the bar is the same 5% of
+        # max(rms, 1) taken on the rms difference over all token values
+        # (bf16 chain 0.039, int8 0.075): a kernel that composes wrongly (a
+        # dropped bias moves a sublayer by ~30% of max|out|, phase 3)
+        # misses it by far
         q = tok_p - bf16_tokens
-        line["tokens_int8_vs_bf16_plain"] = q.abs().max().item()
-        line["tokens_int8_vs_bf16_plain_rms"] = q.pow(2).mean().sqrt().item()
+        line["tokens_vs_bf16_plain"] = q.abs().max().item()
+        line["tokens_vs_bf16_plain_rms"] = q.pow(2).mean().sqrt().item()
         err, bar = line["tokens_rms_diff"], 0.05 * max(tok_rms, 1.0)
     line["tokens_bar"] = bar
     print("[reference] " + json.dumps(line))
@@ -705,8 +1037,35 @@ def _reference_chain(int8_ff=False, int8_attn=False, act_scales=None, bf16_token
     return eng, inputs, tok_p
 
 
-def phase_reference() -> None:
+def _host_chamfer() -> dict:
+    """The host ``chamfer_and_fscore`` on the card (one nn_min_sq_batch per
+    direction) against the same call on the CPU: distances are exact on
+    both, so F agrees exactly and CD to the order of its f32 sums."""
+    from rald_torch.eval.chamfer import chamfer_and_fscore
+    from rald_torch.ops import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(13)
+    pred = rng.uniform(0, 10, size=(20_000, 3)).astype(np.float32)
+    gt = rng.uniform(0, 10, size=(5_000, 3)).astype(np.float32)
+    reset_launch_counts()
+    cd, f = chamfer_and_fscore(pred, gt, 0.25)  # device None -> the card
+    counts = launch_counts()
+    cd_c, f_c = chamfer_and_fscore(pred, gt, 0.25, device="cpu")
+    _check_counts(counts, {name: 2 * (name == "nn_min_sq_batch") for name in KERNEL_NAMES},
+                  "host chamfer_and_fscore")
+    check(math.isfinite(cd) and abs(cd - cd_c) <= 1e-5 * cd_c and f == f_c and 0 < f < 1,
+          f"host chamfer_and_fscore: card ({cd}, {f}) vs CPU ({cd_c}, {f_c})")
+    line = {"mode": "host chamfer_and_fscore", "pred": len(pred), "gt": len(gt), "cd": cd,
+            "f": f, "cd_cpu": cd_c, "f_cpu": f_c, "launches": counts}
+    print("[reference] " + json.dumps(line))
+    return line
+
+
+def phase_reference() -> dict:
+    """Returns the host Chamfer call's line (its launch counts)."""
     eng, _, tok_bf16 = _reference_chain()
+    del eng
+    eng, _, _ = _reference_chain(fused_attn=True, bf16_tokens=tok_bf16)
     del eng
     eng, inputs, _ = _reference_chain(True, "vout", bf16_tokens=tok_bf16)
     ah, ag = eng.calibrate_act_scales([{"radar_cube": inputs["radar_cube"], "seeds_or_prior": [0]}],
@@ -715,6 +1074,7 @@ def phase_reference() -> None:
     scales = SCRATCH / "int8_act_scales_depth2.npz"
     np.savez(scales, ah=ah, ag=ag, num_steps=4)
     _reference_chain("static", "full", act_scales=scales, bf16_tokens=tok_bf16)
+    return _host_chamfer()
 
 
 def main() -> int:
@@ -730,18 +1090,24 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     runs = phase_main()
-    # each kernel's launches in the main-path runs of the mode that uses it
+    runs[("host chamfer_and_fscore", 1)] = phase_reference()
+    # each kernel's launches in the runs of the mode that uses it: the main
+    # path's eval step at batch 1 (and 8), or, for the two kernels no
+    # inference chain reaches, the module / host API that does
     vout = "int8_ff=True,int8_attn=vout"
     mode_of = {"fused_ln_geglu_residual": "bf16", "nn_min_sq_both": "bf16",
+               "nn_min_sq_batch": "host chamfer_and_fscore",
                "fused_ln_geglu_residual_int8": vout, "fused_self_attention_block_int8_vout": vout,
                "fused_self_attention_block_int8": "int8_ff=True,int8_attn=full",
-               "fused_ln_geglu_residual_int8_static": "int8_ff=static,int8_attn=vout"}
+               "fused_ln_geglu_residual_int8_static": "int8_ff=static,int8_attn=vout",
+               "geglu_ff": "GEGLUFeedForward(use_fused=True)",
+               "fused_self_attention_block": "use_fused_attn"}
     for k in kernels:
-        k["launches_mode"] = mode_of[k["name"]]
-        k["launches"] = runs[(mode_of[k["name"]], 1)]["launches"][k["name"]]
-        if (mode_of[k["name"]], 8) in runs:
-            k["launches_b8"] = runs[(mode_of[k["name"]], 8)]["launches"][k["name"]]
-    phase_reference()
+        mode = mode_of[k["name"]]
+        k["launches_mode"] = mode
+        k["launches"] = runs[(mode, 1)]["launches"][k["name"]]
+        if (mode, 8) in runs:
+            k["launches_b8"] = runs[(mode, 8)]["launches"][k["name"]]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

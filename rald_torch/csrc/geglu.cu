@@ -37,6 +37,14 @@
 // ragged last token tile is masked on load; the workspace rows are padded to
 // the tile so partial stores need no mask. TMA/cp.async staging and wgmma
 // are for a later change.
+//
+// The same kernel without the LN and the residual replaces
+// rald_tpu/ops/geglu_kernel.py::geglu_ff (Pallas body _kernel):
+// out = W2 (a * GELU(g)) + b2 with [a | g] = W1 x + b1 over token-flattened
+// x (tokens, D), at the same rounding points, and out_dim (a multiple of 16)
+// free: grid.y then walks 512-wide blocks of output columns (the value and
+// gate chunks are recomputed for each), warps past out_dim skip their W2
+// tiles, and a second kernel sums the partials and adds b2 only.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -64,7 +72,10 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// grid (row tiles, batch, splits); part is (splits, batch, n_pad, D) f32
+// grid (row tiles, batch, splits); part is (splits, batch, n_pad, D) f32.
+// Without LN (geglu_ff): grid (row tiles, output column blocks, splits), x
+// (n_tok, D) is h, and part is (splits, n_pad, col_blocks * D) f32.
+template <bool LN>
 __global__ void __launch_bounds__(NTHREADS, 2)
 ln_geglu_partial_kernel(const __nv_bfloat16* __restrict__ x,
                         const __nv_bfloat16* __restrict__ s,
@@ -74,7 +85,8 @@ ln_geglu_partial_kernel(const __nv_bfloat16* __restrict__ x,
                         const __nv_bfloat16* __restrict__ b1,
                         const __nv_bfloat16* __restrict__ w2,
                         float* __restrict__ part,
-                        int n_tok, int n_pad, int inner, int scale_shift_mod, float eps) {
+                        int n_tok, int n_pad, int inner, int out_dim, int scale_shift_mod,
+                        float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* h_s = reinterpret_cast<__nv_bfloat16*>(smem);
   float* pv_s = reinterpret_cast<float*>(smem + SMEM_H);
@@ -83,7 +95,8 @@ ln_geglu_partial_kernel(const __nv_bfloat16* __restrict__ x,
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int batch = blockIdx.y;
+  const int batch = LN ? blockIdx.y : 0;
+  const int col0 = LN ? 0 : blockIdx.y * D;  // this block's first output column
   const int row0 = blockIdx.x * BM;
   const int share = inner / gridDim.z;  // a multiple of IC (launcher)
   const int j_begin = blockIdx.z * share;
@@ -91,8 +104,16 @@ ln_geglu_partial_kernel(const __nv_bfloat16* __restrict__ x,
   const __nv_bfloat16* sb = s + (long long)batch * mod_bstride;
   const __nv_bfloat16* bb = b + (long long)batch * mod_bstride;
 
-  // ---- LN + mod -> bf16 h tile in shared memory (4 rows per warp)
-  for (int r = warp; r < BM; r += NWARPS) {
+  // ---- LN + mod -> bf16 h tile in shared memory (4 rows per warp); without
+  // LN the x tile itself
+  for (int r = warp; r < BM && !LN; r += NWARPS) {
+    const int row = row0 + r;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i)
+      h_s[r * D + lane + 32 * i] =
+          row < n_tok ? xb[(long long)row * D + lane + 32 * i] : __float2bfloat16(0.f);
+  }
+  for (int r = warp; r < BM && LN; r += NWARPS) {
     const int row = row0 + r;
     float v[D / 32];
     float sum = 0.f, sq = 0.f;
@@ -171,7 +192,8 @@ ln_geglu_partial_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int t = 0; t < WT; ++t) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> wb;
-        const int d0 = warp * WN + t * 16;
+        const int d0 = col0 + warp * WN + t * 16;
+        if (d0 >= out_dim) continue;  // uniform over the warp
         wmma::load_matrix_sync(wb, w2 + (long long)d0 * inner + j0 + kk, inner);
 #pragma unroll
         for (int i = 0; i < RT; ++i) wmma::mma_sync(acc[i][t], ga[i], wb, acc[i][t]);
@@ -181,12 +203,15 @@ ln_geglu_partial_kernel(const __nv_bfloat16* __restrict__ x,
     // its g_s writes
   }
 
-  float* pb = part + ((long long)blockIdx.z * gridDim.y + batch) * n_pad * D + (long long)row0 * D;
+  // partial rows are D (LN) or col_blocks * D (no LN) floats apart
+  const long long ldp = (long long)(LN ? 1 : gridDim.y) * D;
+  float* pb = part + ((long long)blockIdx.z * (LN ? gridDim.y : 1) + batch) * n_pad * ldp +
+              (long long)row0 * ldp + col0;
 #pragma unroll
   for (int i = 0; i < RT; ++i)
 #pragma unroll
     for (int t = 0; t < WT; ++t)
-      wmma::store_matrix_sync(pb + i * 16 * D + warp * WN + t * 16, acc[i][t], D,
+      wmma::store_matrix_sync(pb + i * 16 * ldp + warp * WN + t * 16, acc[i][t], (unsigned)ldp,
                               wmma::mem_row_major);
 }
 
@@ -208,6 +233,39 @@ __global__ void geglu_finalize_kernel(const float* __restrict__ part,
     for (int sp = 1; sp < splits; ++sp) y += part[p + sp * split_stride];
     out[i] = __float2bfloat16(y + __bfloat162float(b2[c]) + __bfloat162float(x[i]));
   }
+}
+
+// geglu_ff: out (n_tok, out_dim) = bf16(sum_s part[s] + b2), partials
+// (splits, n_pad, ldp) summed in split order
+__global__ void geglu_ff_finalize_kernel(const float* __restrict__ part,
+                                         const __nv_bfloat16* __restrict__ b2,
+                                         __nv_bfloat16* __restrict__ out, int n_tok, int n_pad,
+                                         int out_dim, int ldp, int splits) {
+  const long long total = (long long)n_tok * out_dim;
+  const long long split_stride = (long long)n_pad * ldp;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(i % out_dim);
+    const long long p = (i / out_dim) * ldp + c;
+    float y = part[p];
+    for (int sp = 1; sp < splits; ++sp) y += part[p + sp * split_stride];
+    out[i] = __float2bfloat16(y + __bfloat162float(b2[c]));
+  }
+}
+
+template <bool LN>
+cudaError_t partial_attr() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(ln_geglu_partial_kernel<LN>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)SMEM_BYTES);
+  done = e == cudaSuccess;
+  return e;
+}
+
+int finalize_blocks(long long total) {
+  return (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
 }
 
 int sm_count() {
@@ -245,30 +303,51 @@ extern "C" int rald_fused_ln_geglu_residual_bf16(
     const void* x, const void* s, const void* b, long long mod_bstride,
     const void* w1, const void* b1, const void* w2, const void* b2, void* part, void* out,
     int batch, int n_tok, int inner, int splits, int scale_shift_mod, float eps, void* stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(ln_geglu_partial_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  cudaError_t e = partial_attr<true>();
+  if (e != cudaSuccess) return (int)e;
   if (inner % IC != 0 || n_tok <= 0 || batch <= 0 || splits <= 0 ||
       (inner / IC) % splits != 0)
     return (int)cudaErrorInvalidValue;
   const int tiles = (n_tok + BM - 1) / BM;
   const int n_pad = tiles * BM;
   cudaStream_t st = (cudaStream_t)stream;
-  ln_geglu_partial_kernel<<<dim3(tiles, batch, splits), NTHREADS, SMEM_BYTES, st>>>(
+  ln_geglu_partial_kernel<true><<<dim3(tiles, batch, splits), NTHREADS, SMEM_BYTES, st>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)s, (const __nv_bfloat16*)b, mod_bstride,
       (const __nv_bfloat16*)w1, (const __nv_bfloat16*)b1, (const __nv_bfloat16*)w2,
-      (float*)part, n_tok, n_pad, inner, scale_shift_mod, eps);
-  cudaError_t e = cudaGetLastError();
+      (float*)part, n_tok, n_pad, inner, D, scale_shift_mod, eps);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long total = (long long)batch * n_tok * D;
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  geglu_finalize_kernel<<<blocks, 256, 0, st>>>((const float*)part, (const __nv_bfloat16*)x,
-                                                (const __nv_bfloat16*)b2, (__nv_bfloat16*)out,
-                                                batch, n_tok, n_pad, splits);
+  geglu_finalize_kernel<<<finalize_blocks(total), 256, 0, st>>>(
+      (const float*)part, (const __nv_bfloat16*)x, (const __nv_bfloat16*)b2, (__nv_bfloat16*)out,
+      batch, n_tok, n_pad, splits);
+  return (int)cudaGetLastError();
+}
+
+// geglu_ff: x (n_tok, D), w1 (2*inner, D), w2 (out_dim, inner), out
+// (n_tok, out_dim); part: workspace of splits * n_pad * col_blocks * D floats
+// with col_blocks = ceil(out_dim / D) and splits = rald_geglu_splits(col_blocks,
+// n_tok, inner)
+extern "C" int rald_geglu_ff_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                                  const void* b2, void* part, void* out, int n_tok, int inner,
+                                  int out_dim, int splits, void* stream) {
+  cudaError_t e = partial_attr<false>();
+  if (e != cudaSuccess) return (int)e;
+  if (inner % IC != 0 || n_tok <= 0 || out_dim <= 0 || out_dim % 16 != 0 || splits <= 0 ||
+      (inner / IC) % splits != 0)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (n_tok + BM - 1) / BM;
+  const int n_pad = tiles * BM;
+  const int col_blocks = (out_dim + D - 1) / D;
+  cudaStream_t st = (cudaStream_t)stream;
+  ln_geglu_partial_kernel<false><<<dim3(tiles, col_blocks, splits), NTHREADS, SMEM_BYTES, st>>>(
+      (const __nv_bfloat16*)x, nullptr, nullptr, 0, (const __nv_bfloat16*)w1,
+      (const __nv_bfloat16*)b1, (const __nv_bfloat16*)w2, (float*)part, n_tok, n_pad, inner,
+      out_dim, 0, 0.f);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  geglu_ff_finalize_kernel<<<finalize_blocks((long long)n_tok * out_dim), 256, 0, st>>>(
+      (const float*)part, (const __nv_bfloat16*)b2, (__nv_bfloat16*)out, n_tok, n_pad, out_dim,
+      col_blocks * D, splits);
   return (int)cudaGetLastError();
 }

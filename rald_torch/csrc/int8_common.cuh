@@ -88,9 +88,10 @@ __device__ __forceinline__ float gelu_poly(float x) {
 
 // ---------------------------------------------------------------- LN + quant
 // One warp per token row, 16 contiguous columns per lane. h = mod(LN(x)) in
-// f32, then int8 codes: dynamic (inv_h null) round(h * (127/hmax)) with
-// hrow = hmax/127, or static round(clip(h * inv_h, +-127)). hb (optional)
-// receives h rounded to bf16 (vout's q / k input).
+// f32, then int8 codes (when hq is given): dynamic (inv_h null)
+// round(h * (127/hmax)) with hrow = hmax/127, or static
+// round(clip(h * inv_h, +-127)). hb (optional) receives h rounded to bf16
+// (the bf16 q / k / v input).
 __global__ void ln_quant_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s,
                                 const bf16* __restrict__ b, long long mod_bstride,
                                 signed char* __restrict__ hq, float* __restrict__ hrow,
@@ -139,22 +140,24 @@ __global__ void ln_quant_kernel(const bf16* __restrict__ x, const bf16* __restri
     v[i] = h;
     amax = fmaxf(amax, fabsf(h));
   }
-  float mult;
-  if (inv_h == nullptr) {
-    amax = fmaxf(warp_max(amax), 1e-6f);
-    mult = __fdiv_rn(127.f, amax);
-    if (lane == 0) hrow[row] = __fdiv_rn(amax, 127.f);
-  } else {
-    mult = *inv_h;
-  }
-  uint4 codes;
-  signed char* ce = reinterpret_cast<signed char*>(&codes);
+  if (hq != nullptr) {  // uniform over the warp
+    float mult;
+    if (inv_h == nullptr) {
+      amax = fmaxf(warp_max(amax), 1e-6f);
+      mult = __fdiv_rn(127.f, amax);
+      if (lane == 0) hrow[row] = __fdiv_rn(amax, 127.f);
+    } else {
+      mult = *inv_h;
+    }
+    uint4 codes;
+    signed char* ce = reinterpret_cast<signed char*>(&codes);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const float u = __fmul_rn(v[i], mult);
-    ce[i] = q8(inv_h == nullptr ? u : fminf(fmaxf(u, -127.f), 127.f));
+    for (int i = 0; i < 16; ++i) {
+      const float u = __fmul_rn(v[i], mult);
+      ce[i] = q8(inv_h == nullptr ? u : fminf(fmaxf(u, -127.f), 127.f));
+    }
+    *reinterpret_cast<uint4*>(hq + (long long)row * D + lane * 16) = codes;
   }
-  *reinterpret_cast<uint4*>(hq + (long long)row * D + lane * 16) = codes;
   if (hb != nullptr) {
     uint4 o[2];
     bf16* oe = reinterpret_cast<bf16*>(o);

@@ -25,6 +25,13 @@
 // block's warps in shared memory, and across blocks -- which CUDA runs in
 // no order -- with one atomicMin per (block, b point) on the unsigned bits
 // of a buffer the launcher first fills with +inf. All of it is exact.
+//
+// The row-only variant (rald_nn_min_sq_batch_f32) replaces
+// rald_tpu/ops/nn_dist_kernel.py::nn_min_sq_batch (Pallas body
+// _nn_min_kernel): the same sweep without the column reduction, so its
+// output is bitwise the row output of the two-way kernel. It has the same
+// operation bound (the distances are the work) and the host Chamfer APIs
+// (rald_torch/eval/chamfer.py) run one call per direction.
 #include <cuda_runtime.h>
 
 namespace {
@@ -49,9 +56,11 @@ __global__ void fill_inf(unsigned* __restrict__ p, long long n) {
   if (i < n) p[i] = INF_BITS;
 }
 
+// COL: also the column minima (into col); else col is unused
+template <bool COL>
 __global__ void __launch_bounds__(NT)
-nn_min_both_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                   float* __restrict__ row, unsigned* __restrict__ col, int n, int m) {
+nn_min_kernel(const float* __restrict__ a, const float* __restrict__ b,
+              float* __restrict__ row, unsigned* __restrict__ col, int n, int m) {
   __shared__ float sx[TB], sy[TB], sz[TB];
   __shared__ unsigned cpart[NT / 32][TB];
   const int bi = blockIdx.y;
@@ -91,9 +100,12 @@ nn_min_both_kernel(const float* __restrict__ a, const float* __restrict__ b,
         rmin[r] = fminf(rmin[r], d);
         cm = fminf(cm, d);
       }
-      const unsigned wmin = __reduce_min_sync(0xffffffffu, __float_as_uint(cm));
-      if (lane == 0) cpart[warp][t] = wmin;
+      if (COL) {
+        const unsigned wmin = __reduce_min_sync(0xffffffffu, __float_as_uint(cm));
+        if (lane == 0) cpart[warp][t] = wmin;
+      }
     }
+    if (!COL) continue;
     __syncthreads();
     for (int t = threadIdx.x; t < TB; t += NT) {
       const int j = j0 + t;
@@ -122,7 +134,16 @@ extern "C" int rald_nn_min_sq_both_f32(const void* a, const void* b, void* row, 
   const long long ncol = (long long)batch * m;
   fill_inf<<<(unsigned)((ncol + 255) / 256), 256, 0, st>>>((unsigned*)col, ncol);
   dim3 grid((n + TA - 1) / TA, batch);
-  nn_min_both_kernel<<<grid, NT, 0, st>>>((const float*)a, (const float*)b, (float*)row,
-                                          (unsigned*)col, n, m);
+  nn_min_kernel<true><<<grid, NT, 0, st>>>((const float*)a, (const float*)b, (float*)row,
+                                           (unsigned*)col, n, m);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rald_nn_min_sq_batch_f32(const void* a, const void* b, void* row, int batch, int n,
+                                        int m, void* stream) {
+  if (batch <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  dim3 grid((n + TA - 1) / TA, batch);
+  nn_min_kernel<false><<<grid, NT, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, (float*)row, nullptr, n, m);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
-"""Point normalization and polar -> cartesian (``rald_tpu/geometry.py:28-90``).
+"""Point normalization, polar <-> cartesian and the FOV mask
+(``rald_tpu/geometry.py:28-104``).
 
 Every function takes a torch tensor or a numpy array and returns the same
 kind. Conventions are the reference's: polar points are (range [m],
-azimuth [deg], elevation [deg]) and ``polar2cartesian`` negates azimuth.
+azimuth [deg], elevation [deg]); ``cartesian2polar`` negates azimuth and
+``polar2cartesian`` inverts that.
 """
 from __future__ import annotations
 
@@ -62,3 +64,19 @@ def polar2cartesian(points):
     y = r * xp.cos(el) * xp.sin(az)
     z = r * xp.sin(el)
     return xp.stack([x, y, z], axis=-1) if xp is np else torch.stack([x, y, z], dim=-1)
+
+
+def cartesian2polar(points):
+    """(x, y, z) -> (r, az [deg], el [deg])."""
+    xp = torch if isinstance(points, torch.Tensor) else np
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+    r = xp.sqrt(x * x + y * y + z * z)
+    az = -xp.rad2deg(xp.arctan2(y, x))
+    el = xp.rad2deg(xp.arcsin(z / r))
+    return xp.stack([r, az, el], axis=-1) if xp is np else torch.stack([r, az, el], dim=-1)
+
+
+def fov_mask(points, eps: float = 0.0):
+    """Boolean mask of points strictly inside the open cube (-1, 1)^3."""
+    inside = (points > -1 + eps) & (points < 1 - eps)
+    return inside.all(-1) if isinstance(points, torch.Tensor) else np.all(inside, axis=-1)

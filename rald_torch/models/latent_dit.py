@@ -5,13 +5,18 @@
 (:361), ``compute_mod_table`` (:390) and ``denoise_with_mods`` (:401), in
 the reference's torch key layout (``model.transformer_blocks.{i}...``).
 
-The block's FF sublayer (AdaLN mod + LN + GEGLU FF + residual) goes
-through :func:`rald_torch.ops.geglu_kernel.fused_ln_geglu_residual`: the
-CUDA kernel on the card, its plain version on the CPU. Quantized inference
-(JAX ``use_int8_ff`` / ``use_int8_attn``, :43-188) routes the FF sublayer
-through the dynamic or static int8 FF kernel and the self-attention
-sublayer through the full or vout int8 attention kernel, with the int8
-side-tree that :meth:`EDMPrecond.set_int8` hands to the blocks.
+The modules take JAX's inference flags with JAX's names and defaults
+(:43-64, routing :91-188), each a kernel wrapper (the CUDA kernel on the
+card, its plain version on the CPU): ``use_fused_ff`` runs the block's FF
+sublayer (AdaLN mod + LN + GEGLU FF + residual) through
+:func:`~rald_torch.ops.geglu_kernel.fused_ln_geglu_residual`, or with
+``use_int8_ff`` through the dynamic or static int8 FF kernel;
+``use_fused_attn`` runs the self-attention sublayer through
+:func:`~rald_torch.ops.attn_kernel.fused_self_attention_block`, and
+``use_int8_attn`` (checked first) through the full or vout int8 attention
+kernel, with the int8 side-tree that :meth:`EDMPrecond.set_int8` hands to
+the blocks. Without flags every sublayer is the plain module.
+:meth:`EDMPrecond.set_flags` is JAX's ``model.copy(**flags)`` for them.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from rald_torch.nn.layers import (
     LayerNorm,
 )
 from rald_torch.ops.attn_kernel import (
+    fused_self_attention_block,
     fused_self_attention_block_int8,
     fused_self_attention_block_int8_vout,
 )
@@ -42,9 +48,15 @@ from rald_torch.ops.geglu_kernel import (
 )
 
 
+FLAGS = ("use_fused_ff", "use_fused_attn")
+
+
 class LatentDiTBlock(nn.Module):
-    def __init__(self, dim: int, n_heads: int = 8, d_head: int = 64, context_dim: Optional[int] = None):
+    def __init__(self, dim: int, n_heads: int = 8, d_head: int = 64,
+                 context_dim: Optional[int] = None, use_fused_ff: bool = False,
+                 use_fused_attn: bool = False):
         super().__init__()
+        self.use_fused_ff, self.use_fused_attn = use_fused_ff, use_fused_attn
         self.norm1 = AdaLayerNorm(dim)
         self.attn1 = Attention(dim, heads=n_heads, dim_head=d_head, fused_kv=False)
         self.norm2 = AdaLayerNorm(dim)
@@ -94,13 +106,20 @@ class LatentDiTBlock(nn.Module):
         ``(max|h|, max|g|)``; the block then runs unfused and without int8,
         as the JAX calibration model does."""
         (s1, b1), (s2, b2), (s3, b3) = mods
-        q8 = {} if quant_stats is not None else self.int8
+        calib = quant_stats is not None
+        q8 = {} if calib else self.int8
         if self.use_int8_attn and "attn1" in q8:
             x = self._int8_attn(x.contiguous(), s1, b1, q8["attn1"])
+        elif self.use_fused_attn and not calib:
+            a = self.attn1
+            x = fused_self_attention_block(
+                x.contiguous(), s1, b1, a.to_q.weight, a.to_k.weight, a.to_v.weight,
+                a.to_out[0].weight, a.to_out[0].bias, heads=a.heads,
+            )
         else:
             x = x + self.attn1(self.norm1.apply_mod(x, s1, b1))
         x = x + self.attn2(self.norm2.apply_mod(x, s2, b2), context=cond)
-        if quant_stats is not None:
+        if not self.use_fused_ff or calib:
             return x + self.ff(self.norm3.apply_mod(x, s3, b3), amax=quant_stats)
         x = x.contiguous()
         if self.use_int8_ff and "ff" in q8:
@@ -125,15 +144,19 @@ class LatentArrayTransformer(nn.Module):
         depth: int = 12,
         out_channels: Optional[int] = None,
         context_dim: Optional[int] = None,
+        use_fused_ff: bool = False,
+        use_fused_attn: bool = False,
     ):
         super().__init__()
+        self.use_fused_ff, self.use_fused_attn = use_fused_ff, use_fused_attn
         inner = n_heads * d_head
         self.map_noise = FourierTimeEmbedding(t_channels)
         self.map_layer0 = nn.Linear(t_channels, inner)
         self.map_layer1 = nn.Linear(inner, inner)
         self.proj_in = nn.Linear(in_channels, inner, bias=False)
         self.transformer_blocks = nn.ModuleList(
-            [LatentDiTBlock(inner, n_heads, d_head, context_dim) for _ in range(depth)]
+            [LatentDiTBlock(inner, n_heads, d_head, context_dim, use_fused_ff, use_fused_attn)
+             for _ in range(depth)]
         )
         self.norm = LayerNorm(inner)
         self.proj_out = nn.Linear(inner, out_channels or in_channels, bias=False)
@@ -181,8 +204,27 @@ class EDMPrecond(nn.Module):
         enc_radar_dims: tuple = (8, 4, 2),
         enc_radar_ch: int = 16,
         enc_hidden_ch: int = 64,
+        use_fused_ff: bool = False,
+        use_fused_attn: bool = False,
+        use_int8_ff=False,
+        use_int8_attn=False,
+        sow_quant_stats: bool = False,
+        sigma_min: float = 0.0,
+        sigma_max: float = float("inf"),
+        dtype=None,
     ):
+        """Arguments are JAX's ``EDMPrecond`` fields. ``use_int8_ff`` /
+        ``use_int8_attn`` take effect through :meth:`set_int8` (the engine
+        builds the side-tree); ``sow_quant_stats`` is kept for the YAML (the
+        port's calibration passes ``quant_stats`` instead); ``sigma_min`` /
+        ``sigma_max`` are unused there too; ``dtype`` (a torch dtype or its
+        name), when given, is the compute dtype the engine casts this model
+        to instead of ``system.compute_dtype``."""
         super().__init__()
+        self.use_fused_ff, self.use_fused_attn = use_fused_ff, use_fused_attn
+        self.use_int8_ff, self.use_int8_attn = use_int8_ff, use_int8_attn
+        self.sow_quant_stats, self.sigma_min, self.sigma_max = sow_quant_stats, sigma_min, sigma_max
+        self.compute_dtype = dtype
         self.n_latents, self.channels, self.depth = n_latents, channels, depth
         self.sigma_data = sigma_data
         self.cond_type = cond_type
@@ -191,6 +233,7 @@ class EDMPrecond(nn.Module):
         self.model = LatentArrayTransformer(
             channels, 256, n_heads, d_head, depth,
             context_dim=radar_token_channel if cond_type == "radar" else None,
+            use_fused_ff=use_fused_ff, use_fused_attn=use_fused_attn,
         )
         if cond_type == "radar":
             if unfreeze_radar_enc:
@@ -252,12 +295,25 @@ class EDMPrecond(nn.Module):
                                            act_scales=act_scales, quant_stats=quant_stats)
         return c_skip * x + c_out * f_x.float()
 
+    def set_flags(self, **flags) -> None:
+        """Set ``use_fused_ff`` / ``use_fused_attn`` here and in every
+        transformer and block, as JAX's ``model.copy(**flags)`` rebuilds the
+        module tree with them (the weights stay shared)."""
+        for k in flags:
+            if k not in FLAGS:
+                raise TypeError(f"EDMPrecond.set_flags: unknown flag {k!r}")
+        for mod in self.modules():
+            if isinstance(mod, (EDMPrecond, LatentArrayTransformer, LatentDiTBlock)):
+                for k, v in flags.items():
+                    setattr(mod, k, v)
+
     def set_int8(self, tree: dict, use_int8_ff=False, use_int8_attn=False) -> None:
         """Quantized inference: ``tree`` is the int8 side-tree of this
         model's f32 weights (``quantize_ff_tree`` / ``quantize_attn_tree``,
         merged; keys are module paths), on the model's device. Each DiT block
         takes its nodes and routes its FF / self-attention by the flags
         (values as ``eval.inference.int8_ff`` / ``int8_attn``)."""
+        self.use_int8_ff, self.use_int8_attn = use_int8_ff, use_int8_attn
         for name, mod in self.named_modules():
             if isinstance(mod, LatentDiTBlock):
                 mod.use_int8_ff, mod.use_int8_attn = use_int8_ff, use_int8_attn

@@ -1,8 +1,9 @@
 """Name-keyed model factories (``rald_tpu/models/registry.py:18-97``).
 
-Same variant names as the reference, so configs are interchangeable.
-``overrides`` replaces constructor arguments, as the YAML's
-``ar_model.overrides`` / ``lidar_ae.overrides`` blocks do in JAX.
+Same variant names as the reference, so configs are interchangeable. The
+inference flags are arguments, as in JAX (:54-97); ``overrides`` replaces
+any constructor argument, as the YAML's ``ar_model.overrides`` /
+``lidar_ae.overrides`` blocks do through JAX's ``model.copy(**overrides)``.
 """
 from __future__ import annotations
 
@@ -37,19 +38,22 @@ GENERATION_VARIANTS = {
 }
 
 
-def get_ae_model(name: str, N: int = 2048, overrides=None) -> VecSetVAE:
+def get_ae_model(name: str, N: int = 2048, overrides=None, use_fused_ff: bool = False,
+                 fold_decode_tail: bool = False) -> VecSetVAE:
     kw = dict(AE_VARIANTS[name])
     args = dict(
         depth=24, dim=kw["dim"], queries_dim=kw["dim"], output_dim=1, num_inputs=N,
         num_latents=kw["M"], latent_dim=kw.get("latent_dim", 64), heads=8, dim_head=64,
         query_type=kw.get("query_type", "point"),
         deterministic_latent=kw.get("deterministic", False),
+        use_fused_ff=use_fused_ff, fold_decode_tail=fold_decode_tail,
     )
     args.update(dict(overrides or {}))
     return VecSetVAE(**args)
 
 
-def get_generation_model(name: str, configs, overrides=None) -> EDMPrecond:
+def get_generation_model(name: str, configs, overrides=None, use_fused_ff: bool = False,
+                         use_fused_attn: bool = False) -> EDMPrecond:
     """Build an EDM model from an ``ar_model.configs`` block."""
     kw = GENERATION_VARIANTS[name]
     args = dict(
@@ -72,6 +76,8 @@ def get_generation_model(name: str, configs, overrides=None) -> EDMPrecond:
         ),
         enc_radar_ch=configs.get("enc_radar_ch", 16),
         enc_hidden_ch=configs.get("enc_hidden_ch", 64),
+        use_fused_ff=use_fused_ff,
+        use_fused_attn=use_fused_attn,
     )
     args.update(dict(overrides or {}))
     return EDMPrecond(**args)

@@ -4,13 +4,18 @@
 ``KLAutoEncoder`` (encoder included, in its torch key layout), so its
 ``state_dict`` is complete and round-trips through
 ``rald_tpu.convert.torch_ckpt.convert_vae_state_dict``. It computes the
-decode: ``decode_latents`` (:204), ``decode_queries`` (:213) and the folded
-decode ``_decode_queries_folded`` (:251-301). ``encode`` comes in a later
-slice.
+decode: ``decode_latents`` (:204), ``decode_queries`` (:213-239) and the
+folded decode ``_decode_queries_folded`` (:251-301). ``encode`` comes in a
+later slice.
 
-Each self-attention block's FF sublayer (LayerNorm + GEGLU FF + residual)
-goes through :func:`rald_torch.ops.geglu_kernel.fused_ln_geglu_residual`
-in affine mode, with the ``ff`` LayerNorm's weight and bias as the rows.
+JAX's inference flags, with its names and defaults: ``use_fused_ff`` runs
+each self-attention block's FF sublayer (LayerNorm + GEGLU FF + residual)
+through :func:`rald_torch.ops.geglu_kernel.fused_ln_geglu_residual` in
+affine mode, with the ``ff`` LayerNorm's weight and bias as the rows (else
+the plain modules); ``fold_decode_tail`` (with ``output_dim`` 1) decodes
+through the folded tail, else the unfolded point-embed -> LayerNorm ->
+cross-attention -> head. :meth:`VecSetVAE.set_flags` is JAX's
+``vae.copy(**flags)`` for them.
 """
 from __future__ import annotations
 
@@ -39,15 +44,18 @@ class SelfAttnBlock(nn.ModuleList):
     """``layers.{i}``: pre-norm self-attention, then the pre-norm GEGLU FF,
     both residual."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, use_fused_ff: bool = False):
         super().__init__([
             PreNorm(dim, Attention(dim, heads=heads, dim_head=dim_head)),
-            PreNorm(dim, GEGLUFeedForward(dim)),
+            PreNorm(dim, GEGLUFeedForward(dim, use_fused=use_fused_ff)),
         ])
+        self.use_fused_ff = use_fused_ff
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         attn, ff = self[0], self[1]
         x = x + attn.fn(attn.norm(x))
+        if not self.use_fused_ff:
+            return x + ff.fn(ff.norm(x))
         f = ff.fn
         return fused_ln_geglu_residual(
             x.contiguous(), ff.norm.weight, ff.norm.bias,
@@ -71,8 +79,16 @@ class VecSetVAE(nn.Module):
         query_type: str = "mix",
         deterministic_latent: bool = False,
         query_chunk: int = 65536,
+        use_fused_ff: bool = False,
+        fold_decode_tail: bool = False,
+        dtype=None,
     ):
+        """Arguments are JAX's ``VecSetVAE`` fields; ``dtype`` (a torch dtype
+        or its name), when given, is the compute dtype the engine casts this
+        model to instead of ``system.compute_dtype``."""
         super().__init__()
+        self.use_fused_ff, self.fold_decode_tail = use_fused_ff, fold_decode_tail
+        self.compute_dtype = dtype
         self.dim, self.queries_dim, self.output_dim = dim, queries_dim, output_dim
         self.num_inputs, self.num_latents, self.latent_dim = num_inputs, num_latents, latent_dim
         self.query_type, self.deterministic_latent = query_type, deterministic_latent
@@ -92,7 +108,8 @@ class VecSetVAE(nn.Module):
             self.query_proj = nn.Linear(dim, dim)
         elif query_type != "point":
             raise NotImplementedError(f"Query type {query_type} is not implemented")
-        self.layers = nn.ModuleList([SelfAttnBlock(dim, heads, dim_head) for _ in range(depth)])
+        self.layers = nn.ModuleList(
+            [SelfAttnBlock(dim, heads, dim_head, use_fused_ff) for _ in range(depth)])
         self.decoder_cross_attn = PreNorm(
             dim,
             Attention(dim, dim, heads=1, dim_head=queries_dim, out_dim=queries_dim),
@@ -108,6 +125,18 @@ class VecSetVAE(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.to_outputs.weight.dtype
 
+    def set_flags(self, **flags) -> None:
+        """Set ``use_fused_ff`` / ``fold_decode_tail``, in the blocks and
+        their FF modules too, as JAX's ``vae.copy(**flags)`` does."""
+        for k, v in flags.items():
+            if k not in ("use_fused_ff", "fold_decode_tail"):
+                raise TypeError(f"VecSetVAE.set_flags: unknown flag {k!r}")
+            setattr(self, k, v)
+            if k == "use_fused_ff":
+                for block in self.layers:
+                    block.use_fused_ff = v
+                    block[1].fn.use_fused = v
+
     def decode_latents(self, z: torch.Tensor) -> torch.Tensor:
         """Latent tokens -> decoder token state (proj + self-attn stack)."""
         x = z.to(self.dtype)
@@ -118,12 +147,19 @@ class VecSetVAE(nn.Module):
         return x
 
     def decode_queries(self, tokens: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-        """(B, Q, 1) occupancy logits at query points, streamed in
-        ``_chunk(B)`` query blocks through the folded decode."""
-        if self.output_dim != 1:
-            raise NotImplementedError(
-                f"rald_torch: the folded decode needs output_dim 1, got {self.output_dim}")
-        return self._decode_queries_folded(self.decoder_cross_attn.norm_context(tokens), queries)
+        """(B, Q, output_dim) occupancy logits at query points, streamed in
+        ``_chunk(B)`` query blocks: the folded decode with
+        ``fold_decode_tail`` and ``output_dim`` 1, else point-embed ->
+        LayerNorm -> 1-head cross-attention -> head."""
+        dca = self.decoder_cross_attn
+        ctx = dca.norm_context(tokens)
+        if self.fold_decode_tail and self.output_dim == 1:
+            return self._decode_queries_folded(ctx, queries)
+
+        def tail(q_blk):
+            return self.to_outputs(dca.fn(dca.norm(self.point_embed(q_blk)), context=ctx))
+
+        return map_query_chunks(tail, queries, self._chunk(queries.shape[0]))
 
     def _chunk(self, batch: int) -> int:
         """Per-chunk query count, scaled so batch * chunk stays <= 2^19."""

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rald_torch.ops.geglu_kernel import geglu_ff
+
 
 def point_fourier_basis(hidden_dim: int) -> np.ndarray:
     """Block-diagonal (3, hidden_dim//2) basis of 2^k * pi frequencies."""
@@ -139,18 +141,24 @@ class GEGLUFeedForward(nn.Module):
     ``net.0`` / ``net.2`` (VAE). ``proj_in`` weight rows ``[:inner]`` are
     the values, ``[inner:]`` the gates.
 
+    ``use_fused`` (JAX ``use_fused``, :165-173) runs the whole FF through
+    :func:`rald_torch.ops.geglu_kernel.geglu_ff`: the CUDA kernel on the
+    card, its plain version on the CPU.
+
     ``forward(x, amax=list)`` appends ``(max|x|, max|gated product|)`` in f32,
     the two activations the int8 FF kernels quantize (JAX ``sow_amax``,
     ``rald_tpu/nn/layers.py:146-182``): the calibration of static int8
-    activation scales reads them.
+    activation scales reads them. It runs unfused, as ``sow_amax`` does.
     """
 
-    def __init__(self, dim: int, mult: int = 4, out_dim: Optional[int] = None, dit_style: bool = False):
+    def __init__(self, dim: int, mult: int = 4, out_dim: Optional[int] = None,
+                 dit_style: bool = False, use_fused: bool = False):
         super().__init__()
         inner = dim * mult
         first = _GEGLUProj(dim, inner) if dit_style else nn.Linear(dim, 2 * inner)
         self.net = nn.Sequential(first, nn.Identity(), nn.Linear(inner, out_dim or dim))
         self.dit_style = dit_style
+        self.use_fused = use_fused
 
     @property
     def proj_in(self) -> nn.Linear:
@@ -161,6 +169,9 @@ class GEGLUFeedForward(nn.Module):
         return self.net[2]
 
     def forward(self, x: torch.Tensor, amax: Optional[list] = None) -> torch.Tensor:
+        if self.use_fused and amax is None:
+            pi, po = self.proj_in, self.proj_out
+            return geglu_ff(x.to(pi.weight.dtype), pi.weight, pi.bias, po.weight, po.bias)
         h, gates = self.proj_in(x).chunk(2, dim=-1)
         g = h * F.gelu(gates)
         if amax is not None:

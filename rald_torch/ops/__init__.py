@@ -6,6 +6,7 @@ plain version (CPU tensors) never counts.
 from __future__ import annotations
 
 from rald_torch.ops.attn_kernel import (
+    fused_self_attention_block,
     fused_self_attention_block_int8,
     fused_self_attention_block_int8_vout,
 )
@@ -13,14 +14,18 @@ from rald_torch.ops.geglu_kernel import (
     fused_ln_geglu_residual,
     fused_ln_geglu_residual_int8,
     fused_ln_geglu_residual_int8_static,
+    geglu_ff,
 )
-from rald_torch.ops.nn_dist_kernel import nn_min_sq_both
+from rald_torch.ops.nn_dist_kernel import nn_min_sq_batch, nn_min_sq_both
 
 KERNELS = {
     "fused_ln_geglu_residual": fused_ln_geglu_residual,
     "nn_min_sq_both": nn_min_sq_both,
+    "nn_min_sq_batch": nn_min_sq_batch,
     "fused_ln_geglu_residual_int8": fused_ln_geglu_residual_int8,
     "fused_ln_geglu_residual_int8_static": fused_ln_geglu_residual_int8_static,
+    "geglu_ff": geglu_ff,
+    "fused_self_attention_block": fused_self_attention_block,
     "fused_self_attention_block_int8": fused_self_attention_block_int8,
     "fused_self_attention_block_int8_vout": fused_self_attention_block_int8_vout,
 }

@@ -4,6 +4,9 @@ Counterparts of ``rald_tpu/ops/geglu_kernel.py``:
 
 - :func:`fused_ln_geglu_residual` (bf16; Pallas body ``_ln_kernel``
   :96-128) -> ``rald_torch/csrc/geglu.cu``;
+- :func:`geglu_ff` (the FF without LN and residual, token-flattened, any
+  ``out_dim``; ``_kernel`` :478-488, wrapper :491-538) -> the same source's
+  second entry point;
 - :func:`fused_ln_geglu_residual_int8` (int8 weights, dynamic per-token
   int8 activations; ``_ln_int8_kernel`` :206-248, wrapper :408-475) and
   :func:`fused_ln_geglu_residual_int8_static` (calibrated static activation
@@ -138,6 +141,77 @@ def fused_ln_geglu_residual(
 
 
 fused_ln_geglu_residual.launches = 0
+
+
+def geglu_ff_plain(x, w1, b1, w2, b2):
+    """``geglu_ff``'s arithmetic in PyTorch ops: x (..., D) -> (..., out_dim).
+
+    Every weight and bias is cast to x's dtype; ``x @ W1 + b1`` summed in f32
+    and rounded; the exact-erf GELU of the gate (the JAX kernel's A&S erf is
+    within 1.5e-7 of it) rounded; the gated product rounded; ``g @ W2 + b2``
+    summed in f32 and rounded."""
+    dt = x.dtype
+    inner = w1.shape[0] // 2
+    p = (torch.matmul(x.float(), w1.to(dt).float().t()) + b1.to(dt).float()).to(dt)
+    val, gate = p[..., :inner], p[..., inner:]
+    gl = torch.nn.functional.gelu(gate.float()).to(dt)
+    g = (val.float() * gl.float()).to(dt)
+    return (torch.matmul(g.float(), w2.to(dt).float().t()) + b2.to(dt).float()).to(dt)
+
+
+def geglu_ff(x, w1, b1, w2, b2):
+    """``(proj_in -> GEGLU -> proj_out)(x)`` in one kernel: x (..., D), w1
+    (2*inner, D), b1 (2*inner,), w2 (out_dim, inner), b2 (out_dim,) in the
+    torch layout; the leading axes are flattened into tokens. On the card:
+    bf16, D = 512, inner a multiple of 64, out_dim a multiple of 16."""
+    name = "geglu_ff"
+    dim = x.shape[-1]
+    inner = w1.shape[0] // 2
+    out_dim = w2.shape[0]
+    if w1.shape != (2 * inner, dim) or w2.shape != (out_dim, inner) or b1.numel() != 2 * inner \
+            or b2.numel() != out_dim:
+        raise ValueError(
+            f"{name}: w1 {tuple(w1.shape)} / b1 {tuple(b1.shape)} / w2 {tuple(w2.shape)} / "
+            f"b2 {tuple(b2.shape)} do not match D={dim} (torch layout: w1 (2*inner, D), "
+            "w2 (out_dim, inner))"
+        )
+    if x.device.type == "cpu":
+        return geglu_ff_plain(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    lib = _build.load("geglu")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bf16, got {x.dtype}")
+    lead = x.shape[:-1]
+    xt = x.reshape(-1, dim).contiguous()
+    n = xt.shape[0]
+    if dim != lib.rald_geglu_width() or inner % 64 or out_dim % 16 or n == 0:
+        raise ValueError(
+            f"{name}: the CUDA kernel takes D={lib.rald_geglu_width()}, inner % 64 == 0 and "
+            f"out_dim % 16 == 0, got D={dim}, inner={inner}, out_dim={out_dim}, tokens={n}"
+        )
+    args = [xt] + [t.to(torch.bfloat16).contiguous() for t in (w1, b1, w2, b2)]
+    for t in args:
+        if t.device != x.device:
+            raise ValueError(f"{name}: every operand must be on {x.device}")
+    if args[1].data_ptr() % 32 or args[3].data_ptr() % 32:
+        raise ValueError(f"{name}: weights must be 32-byte aligned")
+    col_blocks = -(-out_dim // dim)
+    splits = lib.rald_geglu_splits(col_blocks, n, inner)
+    n_pad = -(-n // lib.rald_geglu_row_tile()) * lib.rald_geglu_row_tile()
+    part = torch.empty((splits, n_pad, col_blocks * dim), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, out_dim), dtype=x.dtype, device=x.device)
+    fn = lib.rald_geglu_ff_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    rc = fn(*(t.data_ptr() for t in args), part.data_ptr(), out.data_ptr(), n, inner, out_dim,
+            splits, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, name)
+    geglu_ff.launches += 1
+    return out.reshape(*lead, out_dim)
+
+
+geglu_ff.launches = 0
 
 
 # ------------------------------------------------------------------ int8

@@ -14,9 +14,18 @@ activation scales. Training, ``evaluate`` and the frozen external radar
 encoder come in later slices and raise here.
 
 The engine reads the same YAML as ``rald_tpu`` (``system.compute_dtype``,
-``ar_model`` / ``lidar_ae`` with their ``overrides``, ``eval.inference``).
-Models start from seeded random weights (:func:`init_random_weights`);
-:meth:`GenerationEngine.load_state_dicts` loads real ones.
+``system.fast_inference``, ``ar_model`` / ``lidar_ae`` with their
+``overrides``, ``eval.inference``, ``eval.cast_params_bf16``) and builds
+the eval models as JAX builds ``model_eval`` / ``vae_eval`` (:87-128),
+with the card in the TPU's role: with ``fast_inference`` (the default) the
+DiT gets the fused FF and the int8 flags, the VAE the fused FF and the
+folded decode tail; without it both run as the YAML builds them (plain
+modules, unfolded decode, no int8 unless ``overrides`` ask). The DiT keeps
+the ``use_fused_attn`` of its overrides either way. Since the port is
+eval-only, ``model`` / ``vae`` are those eval models (JAX shares their
+weights with the training models too). Models start from seeded random
+weights (:func:`init_random_weights`); :meth:`load_state_dicts` loads real
+ones.
 """
 from __future__ import annotations
 
@@ -75,6 +84,23 @@ def init_random_weights(module: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
 
 
+def _bf16_value(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(t.dtype) if t.dtype == torch.float32 else t
+
+
+@torch.no_grad()
+def _round_to_bf16(module: nn.Module) -> None:
+    """``eval.cast_params_bf16``: every f32 weight rounded to bf16 (JAX
+    ``cast_tree_bf16``); modules computing in f32 then promote it back."""
+    for t in module.state_dict().values():
+        t.copy_(_bf16_value(t))
+
+
+def _torch_dtype(name):
+    """A model's own ``dtype`` override (a torch dtype or its name) or None."""
+    return getattr(torch, name) if isinstance(name, str) else name
+
+
 class GenerationEngine:
     def __init__(self, cfg, device=None, seed: Optional[int] = None, dtype=None):
         self.cfg = cfg
@@ -98,6 +124,10 @@ class GenerationEngine:
         self.vae = get_ae_model(
             cfg.lidar_ae.name, N=int(lidar.num_samples), overrides=cfg.lidar_ae.get("overrides"),
         )
+        self.fast_inference = bool(cfg.system.get("fast_inference", True))
+        # inference-only weights rounded to bf16 (JAX casts the f32 params
+        # before sampling, so its int8 codes come from the rounded weights)
+        self.cast_params_bf16 = bool(ev.get("cast_params_bf16", False))
         # quantized inference (default off): the DiT FF runs int8 with
         # dynamic per-token activation scales (True) or calibrated
         # per-(schedule step, block) scales ("static", loaded from
@@ -112,14 +142,22 @@ class GenerationEngine:
             raise ValueError(
                 f"eval.inference.int8_attn must be bool, 'full' or 'vout', got {int8_attn!r}"
             )
+        if self.fast_inference:
+            self.model.set_flags(use_fused_ff=True)
+            self.vae.set_flags(fold_decode_tail=True, use_fused_ff=True)
+        else:  # JAX's model_eval is then the model as built, int8 flags included
+            int8_ff, int8_attn = self.model.use_int8_ff, self.model.use_int8_attn
         self.use_int8_ff, self.use_int8_attn = int8_ff, int8_attn
 
         gen = torch.Generator().manual_seed(self.seed)
         for m in (self.model, self.vae):
             init_random_weights(m, gen)
+            if self.cast_params_bf16:
+                _round_to_bf16(m)
         self._quantize(self.model.state_dict())  # the f32 weights, before the cast
         for m in (self.model, self.vae):
-            m.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
+            m.to(device=self.device, dtype=_torch_dtype(m.compute_dtype) or dtype)
+            m.eval().requires_grad_(False)
 
         radar = cfg.dataset.get("radar", {})
         self.upsample_on_device = bool(radar.get("upsample", False)) and bool(
@@ -147,6 +185,8 @@ class GenerationEngine:
             if sd is not None:
                 sd = {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
                       for k, v in sd.items()}
+                if self.cast_params_bf16:
+                    sd = {k: _bf16_value(v) for k, v in sd.items()}
                 m.load_state_dict(sd)
                 if m is self.model:
                     self._quantize(sd)

@@ -110,3 +110,60 @@ def test_full_width_dit_block():
     want = jax.jit(lambda *a: jblock.apply({"params": p}, *a))(x, t_emb, cond)
     got = tblock(torch.from_numpy(x), torch.from_numpy(t_emb), torch.from_numpy(cond))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("sigma", [80.0, 0.002])
+def test_denoise_with_mods_use_fused_attn(engines, sigma, monkeypatch):
+    """``use_fused_attn`` routes every block's self-attention sublayer
+    through ``fused_self_attention_block`` (its plain version on the CPU);
+    JAX's model with the same flag runs its Pallas kernel interpreted."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    import rald_torch.models.latent_dit as tdit
+
+    jeng, params, teng = engines
+    rng = np.random.default_rng(int(sigma * 10) + 1)
+    x = (rng.normal(size=(2, 16, 8)) * max(sigma, 1.0)).astype(np.float32)
+    cube = _cube(seed=2)
+    sig = np.array([sigma], np.float32)
+    jm = jeng.model.copy(use_fused_attn=True)
+    j_cond = jm.apply({"params": params}, jnp.asarray(cube), method="process_radar_cond")
+    j_mods = jm.apply({"params": params}, jnp.asarray(sig), method="compute_mod_table")
+    # jitted: eager dispatch beside the interpreter's io_callbacks can deadlock
+    denoise = jax.jit(lambda p, *a: jm.apply({"params": p}, *a, method="denoise_with_mods"))
+    with pltpu.force_tpu_interpret_mode():
+        want = denoise(params, jnp.asarray(x), jnp.asarray(sig), j_mods, j_cond)
+    calls = []
+    fused = tdit.fused_self_attention_block
+    monkeypatch.setattr(tdit, "fused_self_attention_block",
+                        lambda *a, **k: calls.append(1) or fused(*a, **k))
+    t_cond = teng.model.process_radar_cond(torch.from_numpy(cube))
+    t_mods = teng.model.compute_mod_table(torch.from_numpy(sig))
+    teng.model.set_flags(use_fused_attn=True)
+    try:
+        got = teng.model.denoise_with_mods(torch.from_numpy(x), torch.from_numpy(sig), t_mods,
+                                           t_cond)
+    finally:
+        teng.model.set_flags(use_fused_attn=False)
+    assert len(calls) == 2  # depth
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+
+
+def test_model_flags_follow_jax():
+    """The constructor takes JAX's flags with JAX's defaults, and
+    ``set_flags`` reaches every block (JAX's ``model.copy``)."""
+    from rald_torch.models.latent_dit import EDMPrecond
+    from rald_tpu.models.latent_dit import EDMPrecond as JEDM
+
+    kw = dict(n_latents=4, channels=2, n_heads=1, d_head=8, depth=2, cond_type="none")
+    m = EDMPrecond(**kw)
+    for flag in ("use_fused_ff", "use_fused_attn", "use_int8_ff", "use_int8_attn",
+                 "sow_quant_stats"):
+        assert getattr(m, flag) == getattr(JEDM(), flag) is False
+    assert (m.sigma_min, m.sigma_max) == (JEDM().sigma_min, JEDM().sigma_max)
+    m = EDMPrecond(use_fused_attn=True, **kw)
+    assert all(b.use_fused_attn and not b.use_fused_ff for b in m.model.transformer_blocks)
+    m.set_flags(use_fused_ff=True, use_fused_attn=False)
+    assert all(b.use_fused_ff and not b.use_fused_attn for b in m.model.transformer_blocks)
+    with pytest.raises(TypeError, match="unknown flag"):
+        m.set_flags(use_fused=True)

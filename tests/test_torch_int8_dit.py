@@ -173,10 +173,12 @@ def test_denoise_with_mods_int8_matches_jax(jax_side, tmp_path, ff, attn):
     jm = jeng.model.copy(use_fused_ff=True, use_int8_ff=ff, use_int8_attn=attn)
     j_sc = None if scales is None else tuple(
         (jnp.float32(h), jnp.float32(g)) for h, g in scales)
+    # jitted: eager dispatch beside the interpreter's io_callbacks can deadlock
+    denoise = jax.jit(lambda v, *a: jm.apply(v, *a, method="denoise_with_mods",
+                                             act_scales=j_sc))
     with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(jm.apply({"params": params, "int8": _jax_int8_tree(params, ff, attn)},
-                                   jnp.asarray(x), jnp.asarray(sig), j_mods, j_cond,
-                                   method="denoise_with_mods", act_scales=j_sc))
+        want = np.asarray(denoise({"params": params, "int8": _jax_int8_tree(params, ff, attn)},
+                                  jnp.asarray(x), jnp.asarray(sig), j_mods, j_cond))
     t_sc = None if scales is None else tuple(
         (torch.tensor(h), torch.tensor(g)) for h, g in scales)
     got = teng.model.denoise_with_mods(torch.from_numpy(x), torch.from_numpy(sig), t_mods,

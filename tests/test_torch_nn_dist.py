@@ -1,7 +1,8 @@
-"""``nn_min_sq_both`` and the Chamfer / F-score built on it: the port's
-plain version against rald_tpu's Pallas kernel (interpret mode), a scipy
-cKDTree oracle at metric coordinate scale, the empty-prediction semantics,
-and -- on the card only -- the CUDA kernel, bitwise.
+"""``nn_min_sq_both``, ``nn_min_sq_batch`` and the Chamfer / F-score built on
+them (the engine's batched graph and the host APIs): the port's plain
+versions against rald_tpu's Pallas kernels (interpret mode) and host APIs,
+a scipy cKDTree oracle at metric coordinate scale, the empty-prediction
+semantics, and -- on the card only -- the CUDA kernels, bitwise.
 
 Both sides compute exact float32 subtract-square (no |a|^2+|b|^2-2ab):
 rtol 1e-6 against JAX; 1e-5 against scipy's float64 distances."""
@@ -142,3 +143,108 @@ def test_cuda_kernel_bitwise_equals_plain(cuda, bsz, n, m, pad_a, pad_b):
     assert tn.nn_min_sq_both.launches == before + 2
     assert torch.equal(row, row_p) and torch.equal(col, col_p)
     assert torch.equal(row, row_s) and torch.equal(col, col_s)
+
+
+# ------------------------------------------------------ nn_min_sq_batch (B3)
+@pytest.mark.parametrize("n,m,pad_a,pad_b", [(300, 200, 0, 0), (257, 130, 17, 9)])
+def test_batch_plain_matches_pallas(n, m, pad_a, pad_b):
+    """Within 1 float32 ulp (rtol 1e-6, as for nn_min_sq_both above): XLA's
+    CPU backend contracts the interpreted kernel's ``acc += d * d`` into
+    fused multiply-adds, which the exact separate roundings of the port (and
+    of its CUDA kernel, bitwise on the card) do not."""
+    from rald_tpu.ops.nn_dist_kernel import nn_min_sq_batch as j_batch
+
+    a, b = _clouds(2, n, m, seed=n * m, pad_a=pad_a, pad_b=pad_b)
+    want = np.asarray(j_batch(jnp.asarray(a), jnp.asarray(b), tile_a=64, tile_b=128,
+                              interpret=True))
+    got = tn.nn_min_sq_batch_plain(torch.from_numpy(a), torch.from_numpy(b), chunk_elems=4096)
+    np.testing.assert_allclose(got.numpy()[:, :n - pad_a], want[:, :n - pad_a], rtol=1e-6, atol=0)
+
+
+def test_batch_is_the_row_output_of_both():
+    a, b = _clouds(2, 700, 90, seed=21, pad_b=10)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    from rald_torch.ops import reset_launch_counts
+
+    reset_launch_counts()
+    got = tn.nn_min_sq_batch(ta, tb)
+    assert tn.nn_min_sq_batch.launches == 0  # CPU: the plain version, uncounted
+    assert torch.equal(got, tn.nn_min_sq_both_plain(ta, tb)[0])
+    with pytest.raises(ValueError, match="need"):
+        tn.nn_min_sq_batch(torch.zeros(1, 4, 3), torch.zeros(1, 4, 2))
+
+
+# ------------------------------------------------------ host Chamfer APIs
+def _metric_pair(seed, n=3000, m=1200):
+    rng = np.random.default_rng(seed)
+    pred = rng.uniform([0, -15, -5], [15.8, 15, 5], size=(n, 3)).astype(np.float32)
+    gt = (pred[rng.choice(n, m)] + rng.normal(scale=0.15, size=(m, 3))).astype(np.float32)
+    return pred, gt
+
+
+def test_host_apis_match_scipy():
+    from rald_torch.eval import chamfer as tc
+
+    pred, gt = _metric_pair(31)
+    d, _ = cKDTree(gt.astype(np.float64)).query(pred.astype(np.float64))
+    np.testing.assert_allclose(tc.nearest_neighbor_dists(pred, gt, device="cpu").numpy(), d,
+                               rtol=1e-5, atol=1e-6)
+    want_cd, want_f = _oracle_cd_f(pred, gt, 0.1)
+    cd, f = tc.chamfer_and_fscore(pred, gt, 0.1, device="cpu")
+    assert cd == pytest.approx(want_cd, rel=1e-5) and f == pytest.approx(want_f, abs=1e-5)
+    assert tc.chamfer_distance(pred, gt, device="cpu") == pytest.approx(want_cd, rel=1e-5)
+    # the masked forms on padded tensors
+    pm = np.arange(4096) < len(pred)
+    gm = np.arange(2048) < len(gt)
+    pp = np.full((4096, 3), tn.BIG, np.float32)
+    pp[:len(pred)] = pred
+    gp = np.full((2048, 3), tn.BIG, np.float32)
+    gp[:len(gt)] = gt
+    args = [torch.from_numpy(v) for v in (pp, pm, gp, gm)]
+    cd2, f2 = tc.masked_chamfer_fscore(*args, 0.1)
+    assert float(cd2) == pytest.approx(want_cd, rel=1e-5) and float(f2) == pytest.approx(want_f, abs=1e-5)
+    assert float(tc.masked_chamfer(*args)) == pytest.approx(want_cd, rel=1e-5)
+    assert tc.chamfer_and_fscore(np.zeros((0, 3)), gt, 0.1, device="cpu") == (float("inf"), 0.0)
+    assert tc.chamfer_distance(np.zeros((0, 3)), gt, device="cpu") == float("inf")
+
+
+def test_host_apis_match_jax():
+    """JAX's host APIs use |a|^2+|b|^2-2ab, which loses small distances at
+    ~15 m coordinates: 1e-3 relative."""
+    from rald_torch.eval import chamfer as tc
+    from rald_tpu.eval import chamfer as jc
+
+    pred, gt = _metric_pair(32, n=2000, m=700)
+    cd, f = tc.chamfer_and_fscore(pred, gt, 0.25, device="cpu")
+    j_cd, j_f = jc.chamfer_and_fscore(pred, gt, 0.25)
+    assert cd == pytest.approx(j_cd, rel=1e-3) and f == pytest.approx(j_f, rel=1e-3)
+    assert tc.chamfer_distance(pred, gt, device="cpu") == pytest.approx(
+        jc.chamfer_distance(pred, gt), rel=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bsz,n,m,pad_a,pad_b", [(1, 500_000, 10_000, 1000, 100),
+                                                 (8, 500_000, 10_000, 4096, 17),
+                                                 (2, 3001, 257, 0, 0)])
+def test_cuda_batch_kernel_bitwise(cuda, bsz, n, m, pad_a, pad_b):
+    a, b = _clouds(bsz, n, m, seed=bsz + 1, pad_a=pad_a, pad_b=pad_b)
+    ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    before = tn.nn_min_sq_batch.launches
+    row = tn.nn_min_sq_batch(ta, tb)
+    row_both, _ = tn.nn_min_sq_both(ta, tb)
+    row_p = tn.nn_min_sq_batch_plain(ta, tb)
+    torch.cuda.synchronize()
+    assert tn.nn_min_sq_batch.launches == before + 1
+    assert torch.equal(row, row_p) and torch.equal(row, row_both)
+
+
+@pytest.mark.gpu
+def test_cuda_host_chamfer_matches_cpu(cuda):
+    from rald_torch.eval import chamfer as tc
+
+    pred, gt = _metric_pair(33)
+    before = tn.nn_min_sq_batch.launches
+    cd, f = tc.chamfer_and_fscore(pred, gt, 0.1, device=cuda)
+    assert tn.nn_min_sq_batch.launches == before + 2
+    cd_c, f_c = tc.chamfer_and_fscore(pred, gt, 0.1, device="cpu")
+    assert cd == pytest.approx(cd_c, rel=1e-5) and f == f_c

@@ -1,9 +1,14 @@
 """The churn-free EDM Heun sampler: the whole 18-step / 35-NFE chain of
 rald_torch against rald_tpu's engine on the tiny model, fed the same prior
-draw (JAX's per-seed stream, injected into the port as numpy).
+draw (JAX's per-seed stream, injected into the port as numpy): as the YAML
+ships, with ``system.fast_inference: false`` (then also the unfolded
+decode) and with ``ar_model.overrides: {use_fused_attn: true}``.
 
 Float32 on both sides; 35 NFEs compound summation-order differences, and
 the tokens end O(1)-O(10): 1e-3 absolute."""
+import copy
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +17,7 @@ import torch
 
 from rald_torch.diffusion import edm as tedm
 from rald_tpu.diffusion import edm as jedm
-from torch_parity import jax_engine_and_params, torch_engine
+from torch_parity import TINY_CFG, jax_engine_and_params, torch_engine
 
 
 @pytest.fixture(autouse=True)
@@ -71,14 +76,73 @@ def test_sampler_counts_35_nfes_with_paired_rows():
     assert calls[:4] == [0, 1, 1, 2] and calls[-1] == 17
 
 
-def test_full_35_nfe_chain_matches_jax():
-    jeng, params, vparams = jax_engine_and_params(0)
-    teng = torch_engine(params, vparams)
+@functools.lru_cache(maxsize=None)
+def _jax_chain(use_fused_attn: bool = False):
+    """(cube, prior, tokens) of the JAX engine's 35-NFE chain on cube seed 4
+    (the tiny encoder conditions it to 1e-6), its Pallas attention kernel
+    interpreted when ``use_fused_attn``. Cached per process."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    jeng, params, _ = jax_engine_and_params(0)
     cube = np.random.default_rng(4).normal(size=(2, 32, 16, 16, 3)).astype(np.float32)
     seeds = jnp.arange(2)
     prior = np.asarray(jedm.sample_prior_latents(seeds, 16, 8))
-    want = np.asarray(jeng._sample(params, jnp.asarray(cube), seeds))
+    with jax.default_matmul_precision("highest"):
+        if not use_fused_attn:
+            return cube, prior, np.asarray(jeng._sample(params, jnp.asarray(cube), seeds))
+        j2 = copy.copy(jeng)
+        j2.model_eval = jeng.model.copy(use_fused_attn=True)
+        with pltpu.force_tpu_interpret_mode():
+            return cube, prior, np.asarray(jax.jit(j2._sample_impl)(params, jnp.asarray(cube),
+                                                                     seeds))
+
+
+def test_full_35_nfe_chain_matches_jax():
+    _, params, vparams = jax_engine_and_params(0)
+    teng = torch_engine(params, vparams)
+    cube, prior, want = _jax_chain()
     got = teng.sample_tokens(cube, prior)
     assert got.shape == want.shape == (2, 16, 8)
     assert np.abs(want).max() > 1.0  # the chain did real work
     np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
+
+
+def test_35_nfe_chain_use_fused_attn_matches_jax():
+    """``ar_model.overrides: {use_fused_attn: true}`` is accepted, kept in
+    the eval model, and reaches every block at every NFE."""
+    from rald_torch.ops import attn_kernel
+
+    _, params, vparams = jax_engine_and_params(0)
+    overrides = dict(TINY_CFG["ar_model"]["overrides"], use_fused_attn=True)
+    teng = torch_engine(params, vparams, ar_model={"overrides": overrides})
+    blocks = teng.model.model.transformer_blocks
+    assert all(b.use_fused_attn and b.use_fused_ff for b in blocks)
+    cube, prior, want = _jax_chain(use_fused_attn=True)
+    calls = []
+    plain = attn_kernel.fused_self_attention_block_plain
+    attn_kernel.fused_self_attention_block_plain = lambda *a, **k: calls.append(1) or plain(*a, **k)
+    try:
+        got = teng.sample_tokens(cube, prior)
+    finally:
+        attn_kernel.fused_self_attention_block_plain = plain
+    assert len(calls) == 35 * len(blocks)
+    assert np.abs(want).max() > 1.0
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
+
+
+def test_fast_inference_off_matches_jax_engine():
+    """``system.fast_inference: false``: the plain DiT modules and the
+    unfolded VAE decode, against JAX's engine on the CPU, which runs
+    unfused there (and decodes unfolded without fast_inference)."""
+    jeng, params, vparams = jax_engine_and_params(0)
+    teng = torch_engine(params, vparams, system={"fast_inference": False})
+    assert not teng.model.model.transformer_blocks[0].use_fused_ff
+    assert not teng.vae.fold_decode_tail and not teng.vae.layers[0].use_fused_ff
+    cube, prior, want = _jax_chain()
+    got = teng.sample_tokens(cube, prior)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
+    q = np.random.default_rng(9).uniform(-1, 1, size=(2, 3000, 3)).astype(np.float32)
+    j_logits = np.asarray(jeng.vae.apply({"params": vparams}, jnp.asarray(want), jnp.asarray(q),
+                                         method="decode"))[..., 0]
+    t_logits = teng.decode_queries(want, q).numpy()
+    np.testing.assert_allclose(t_logits, j_logits, atol=1e-4, rtol=1e-4)

