@@ -12,12 +12,15 @@ Phases, each printed before the last line:
    register / shared-memory / spill report.
 3. kernels: each of the nine kernels against its plain PyTorch version at
    main-path shapes, batch 1 and 8 (and a ragged batch; geglu_ff also at an
-   out_dim of 768), with checks that the bar catches a kernel dropping a
-   bias or a scale row or computing the other mod mode (the nearest-
-   neighbour kernels: bitwise, and nn_min_sq_batch bitwise equal to
-   nn_min_sq_both's rows), then timed with CUDA events beside the plain
-   version, a composite of library calls the port never makes
-   (``library_ms``) and the card's bound for the same work.
+   out_dim of 768; fused_ln_geglu_residual also with one AdaLN row per
+   frame), with checks that the bar catches a kernel dropping a bias or a
+   scale row, computing the other mod mode or applying frame 0's
+   modulation row to every frame (the nearest-neighbour kernels: bitwise,
+   and nn_min_sq_batch bitwise equal to nn_min_sq_both's rows), then timed
+   with CUDA events beside the plain version, a composite of library calls
+   the port never makes (``library_ms``) and the card's bound for the same
+   work; the two bf16 FF kernels and their composites also with cold
+   weights (``ms_cold``: 24 weight sets in turn, more than the L2 holds).
 4. main path: the product eval chain of
    ``configs/generation/ge_indoor_unfreeze_enc_ints_only_eval.yml`` at full
    width (DiT dim 512 x 24 blocks, VAE dim 512 x 24 blocks, bf16) on seeded
@@ -45,9 +48,15 @@ Phases, each printed before the last line:
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
+
+One-offs outside the default run: ``nn_library_b8()`` times the
+nearest-neighbour library yardsticks at batch 8, ``ff_breakdown()`` splits
+the bf16 FF calls into host and device time, and ``trace_sample()`` traces
+the product sampler (device busy time and idle share at batch 1 and 8).
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -126,21 +135,24 @@ def phase_build() -> None:
     _build.build_all()
     print(f"[build] {len(_build.SOURCES)} kernel libraries in {time.perf_counter() - t0:.1f} s "
           f"(nvcc, sm_90a, into {_build.BUILD_DIR.relative_to(REPO)})")
+    for name, secs in sorted(_build.build_seconds.items()):
+        print(f"[build] {name}: nvcc {secs:.1f} s")
     for name, report in sorted(_build.ptxas_report.items()):
         for line in report.splitlines():
             print(f"[build] {name}: {line.strip()}")
 
 
 # --------------------------------------------------------------- phase 3
-def _geglu_inputs(bsz: int, n: int, adaln: bool, gen: torch.Generator):
+def _geglu_inputs(bsz: int, n: int, adaln: bool, gen: torch.Generator, per_batch=False):
     dev, bf = "cuda", torch.bfloat16
 
     def rnd(*shape, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(bf)
 
     x = rnd(bsz, n, D)
-    if adaln:  # DiT: one AdaLN (scale, shift) row shared by the batch
-        s, b = rnd(1, D, std=0.1), rnd(1, D, std=0.1)
+    if adaln:  # DiT: AdaLN (scale, shift) rows, one per frame or one shared
+        rows = (bsz, 1, D) if per_batch else (1, D)
+        s, b = rnd(*rows, std=0.1), rnd(*rows, std=0.1)
     else:  # VAE: the ff LayerNorm's weight and bias
         s, b = 1.0 + rnd(D, std=0.1), rnd(D, std=0.1)
     # biases at std 0.5, so that a kernel leaving out b1 or b2 moves the
@@ -159,6 +171,40 @@ def _geglu_library(x, s, b, w1, b1, w2, b2, adaln: bool):
         h = F.layer_norm(x, (D,), s, b, eps=1e-5)
     a, g = F.linear(h, w1, b1).chunk(2, dim=-1)
     return x + F.linear(a * F.gelu(g), w2, b2)
+
+
+def _geglu_bound(bsz: int, n: int):
+    rows = bsz * n
+    flops = rows * (2 * D * 2 * INNER + 2 * INNER * D)
+    n_bytes = 2 * (2 * rows * D + 3 * D * INNER + 2 * INNER + 3 * D)
+    return bound(n_bytes, flops, PEAK_BF16)
+
+
+# Cold weights: the main path reads each of its 24 layers' FF weights (6 MB
+# bf16) once per NFE, from HBM rather than L2. Rotating through 24 weight
+# sets (144 MB, beyond the 50 MB L2) times the FF kernels and their library
+# composites that way (ms_cold / library_ms_cold).
+COLD_SETS = 24
+
+
+def _ff_weight_sets(gen: torch.Generator) -> list:
+    def rnd(*shape, std):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).bfloat16()
+
+    return [(rnd(2 * INNER, D, std=D ** -0.5), rnd(2 * INNER, std=0.5),
+             rnd(D, INNER, std=INNER ** -0.5), rnd(D, std=0.5)) for _ in range(COLD_SETS)]
+
+
+def _cold_ms(fn, wsets, iters: int) -> float:
+    """cuda_ms of ``fn(w1, b1, w2, b2)``, each call with the next weight set."""
+    it = itertools.cycle(wsets)
+    return cuda_ms(lambda: fn(*next(it)), iters)
+
+
+def _cold_keys(entry: dict, rows: dict) -> dict:
+    for key in ("ms_cold", "library_ms_cold"):
+        entry[key], entry[key.replace("_cold", "_cold_b8")] = rows[1][key], rows[8][key]
+    return entry
 
 
 def _nn_library(a, b, chunk: int = 16384, both: bool = True):
@@ -291,18 +337,19 @@ def _int8_bound(name: str, bsz: int, n: int):
 
 
 def _drop_checks(label, plain, args, want, bar, drops, kw=None) -> dict:
-    """Each entry of ``drops`` (key -> (operand index, replacement), or key ->
-    a dict of keyword changes) must move the plain output by more than the
-    bar: the parity check then catches a kernel that leaves that operand out
-    (or computes the other mode)."""
+    """Each entry of ``drops`` (key -> (operand index, replacement), a tuple
+    of such pairs, or a dict of keyword changes) must move the plain output
+    by more than the bar: the parity check then catches a kernel that leaves
+    that operand out (or computes the other mode, or reads another frame's
+    modulation row)."""
     moved = {}
     for key, change in drops.items():
         a, k = list(args), dict(kw or {})
         if isinstance(change, dict):
             k.update(change)
         else:
-            i, repl = change
-            a[i] = repl(a[i])
+            for i, repl in (change if isinstance(change[0], tuple) else (change,)):
+                a[i] = repl(a[i])
         moved[key] = (plain(*a, **k).float() - want.float()).abs().max().item()
         check(moved[key] > bar, f"{label}: dropping {key} moves the output only "
                                 f"{moved[key]:.3e} <= bar {bar:.3e}")
@@ -472,7 +519,7 @@ def _entry(name, source, replaces, rows: dict, b1, b8) -> dict:
     }
 
 
-def _bf16_kernel_entries(gen: torch.Generator) -> list:
+def _bf16_kernel_entries(gen: torch.Generator, wsets: list) -> list:
     """fused_self_attention_block and geglu_ff: bf16 outputs over 512- to
     2048-term sums in another order than the plain version, so the bar is
     geglu's 2e-2 * max|out|."""
@@ -510,19 +557,83 @@ def _bf16_kernel_entries(gen: torch.Generator) -> list:
         if shape[-2] == 512 and out_dim == D:
             _timed(line, gk.geglu_ff, gk.geglu_ff_plain, _geglu_ff_library, args, {},
                    200 if tokens == 512 else 50, _geglu_ff_bound(tokens, out_dim))
+            x, cold = args[0], (4 if tokens == 512 else 2) * COLD_SETS
+            line["ms_cold"] = _cold_ms(lambda *w: gk.geglu_ff(x, *w), wsets, cold)
+            line["library_ms_cold"] = _cold_ms(lambda *w: _geglu_ff_library(x, *w), wsets, cold)
             rows[shape[0]] = line
         rows.setdefault((shape, out_dim), line)
         print("[kernels] geglu_ff " + json.dumps(line))
-    ff = _entry("geglu_ff", "rald_torch/csrc/geglu.cu", "rald_tpu/ops/geglu_kernel.py:492",
-                rows, 1, 8)
+    ff = _cold_keys(_entry("geglu_ff", "rald_torch/csrc/geglu.cu",
+                           "rald_tpu/ops/geglu_kernel.py:492", rows, 1, 8), rows)
     ff["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
     return [attn, ff]
 
 
-def phase_kernels() -> list:
+# fused_ln_geglu_residual: (batch, tokens, AdaLN?, one modulation row per
+# frame?): the main path's batches 1 and 8 in both mod modes, the ragged
+# (3, 300) and (2, 77), and distinct per-frame AdaLN rows as the DiT passes
+# them, at batch 8 and at (3, 300), where 128-row tiles straddle frames
+GEGLU_SHAPES = ((1, 512, True, False), (1, 512, False, False), (8, 512, True, False),
+                (8, 512, False, False), (3, 300, True, False), (2, 77, False, False),
+                (8, 512, True, True), (3, 300, True, True))
+
+
+def _geglu_ln_entry(gen: torch.Generator, wsets: list) -> dict:
+    """fused_ln_geglu_residual against its plain version. bf16 keeps ~3
+    significant digits, and the kernel and its plain version sum the 512-
+    and 2048-term products in different orders, so they agree to a fraction
+    of max|out| (2e-2), not bitwise. The bar must catch a kernel that drops
+    a bias or applies frame 0's modulation row to every frame."""
     from rald_torch.ops.geglu_kernel import fused_ln_geglu_residual, fused_ln_geglu_residual_plain
+
+    zero = torch.zeros_like
+    row0 = lambda t: t[:1].expand_as(t).contiguous()  # frame 0's row for every frame
+    rows = {}
+    for bsz, n, adaln, per_batch in GEGLU_SHAPES:
+        args = _geglu_inputs(bsz, n, adaln, gen, per_batch)
+        kw = {"scale_shift_mod": adaln}
+        drops = {"b1": (4, zero), "b2": (6, zero)}
+        if per_batch:
+            drops["row0"] = ((1, row0), (2, row0))
+        mode = ("adaln" if adaln else "affine") + (", per-frame rows" if per_batch else "")
+        line = {"shape": [bsz, n, D], "mode": mode, **_parity(
+            f"fused_ln_geglu_residual ({bsz},{n},{D}) {mode}", fused_ln_geglu_residual,
+            fused_ln_geglu_residual_plain, args, INT8_BAR, drops, kw)}
+        if n == 512 and adaln and not per_batch:
+            _timed(line, fused_ln_geglu_residual, fused_ln_geglu_residual_plain,
+                   lambda *a, scale_shift_mod: _geglu_library(*a, scale_shift_mod), args, kw,
+                   200 if bsz == 1 else 50, _geglu_bound(bsz, n))
+            x, s, b = args[:3]
+            cold = (4 if bsz == 1 else 2) * COLD_SETS
+            line["ms_cold"] = _cold_ms(lambda *w: fused_ln_geglu_residual(x, s, b, *w, **kw),
+                                       wsets, cold)
+            line["library_ms_cold"] = _cold_ms(lambda *w: _geglu_library(x, s, b, *w, adaln),
+                                               wsets, cold)
+            rows[bsz] = line
+        rows.setdefault((bsz, n, mode), line)
+        print("[kernels] fused_ln_geglu_residual " + json.dumps(line))
+    return _cold_keys(_entry("fused_ln_geglu_residual", "rald_torch/csrc/geglu.cu",
+                             "rald_tpu/ops/geglu_kernel.py:134", rows, 1, 8), rows)
+
+
+def _nn_inputs(bsz: int, gen: torch.Generator):
+    """(bsz, NN_N, 3) predictions and (bsz, NN_M, 3) surface points, each
+    frame offset from the others and with its own BIG-padded tail, as
+    batched_cd_fscore_graph pads a ragged batch."""
+    from rald_torch.ops.nn_dist_kernel import BIG
+
+    a = torch.rand((bsz, NN_N, 3), generator=gen, device="cuda") * 16.0
+    b = torch.rand((bsz, NN_M, 3), generator=gen, device="cuda") * 16.0
+    for i in range(bsz):
+        a[i] += i  # frames apart: a kernel reading another frame's rows disagrees
+        b[i] += i
+        a[i, NN_N - 1000 * (i + 1):] = BIG
+        b[i, NN_M - 100 * (i + 1):] = BIG
+    return a, b
+
+
+def phase_kernels() -> list:
     from rald_torch.ops.nn_dist_kernel import (
-        BIG,
         nn_min_sq_batch,
         nn_min_sq_batch_plain,
         nn_min_sq_both,
@@ -530,62 +641,14 @@ def phase_kernels() -> list:
     )
 
     gen = torch.Generator("cuda").manual_seed(0)
-    entries = []
-
-    # fused_ln_geglu_residual: bf16 keeps ~3 significant digits, and the
-    # kernel and its plain version sum the 512- and 2048-term products in
-    # different orders, so they agree to a fraction of max|out|, not bitwise
-    tol = 2e-2
-    geglu_rows = {}
-    for bsz, n, adaln in ((1, 512, True), (1, 512, False), (8, 512, True), (8, 512, False),
-                          (3, 300, True), (2, 77, False)):
-        args = _geglu_inputs(bsz, n, adaln, gen)
-        got = fused_ln_geglu_residual(*args, scale_shift_mod=adaln)
-        want = fused_ln_geglu_residual_plain(*args, scale_shift_mod=adaln)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ref = want.float().abs().max().item()
-        check(math.isfinite(err) and err <= tol * ref,
-              f"geglu ({bsz},{n},{D}) adaln={adaln}: max err {err:.3e} > {tol} * {ref:.3e}")
-        # the bar must catch a kernel that drops a bias: each bias alone
-        # moves the plain version by more than the tolerance
-        x, s, b, w1, b1, w2, b2 = args
-        bias_shift = {}
-        for key, bias_args in (("b1", (x, s, b, w1, torch.zeros_like(b1), w2, b2)),
-                               ("b2", (x, s, b, w1, b1, w2, torch.zeros_like(b2)))):
-            drop = fused_ln_geglu_residual_plain(*bias_args, scale_shift_mod=adaln)
-            bias_shift[key] = (drop.float() - want.float()).abs().max().item()
-            check(bias_shift[key] > tol * ref,
-                  f"geglu ({bsz},{n},{D}): dropping {key} moves the output only "
-                  f"{bias_shift[key]:.3e} <= {tol} * {ref:.3e}")
-        line = {"shape": [bsz, n, D], "mode": "adaln" if adaln else "affine",
-                "max_abs_err": err, "max_abs_out": ref, "bias_shift": bias_shift}
-        if n == 512:
-            iters = 200 if bsz == 1 else 50
-            line["ms"] = cuda_ms(lambda: fused_ln_geglu_residual(*args, scale_shift_mod=adaln), iters)
-            line["plain_ms"] = cuda_ms(
-                lambda: fused_ln_geglu_residual_plain(*args, scale_shift_mod=adaln), iters // 4)
-            line["library_ms"] = cuda_ms(lambda: _geglu_library(*args, adaln), iters)
-            rows = bsz * n
-            flops = rows * (2 * D * 2 * INNER + 2 * INNER * D)
-            n_bytes = 2 * (2 * rows * D + 3 * D * INNER + 2 * INNER + 3 * D)
-            line["bound_ms"], line["bound_by"] = bound(n_bytes, flops, PEAK_BF16)
-            geglu_rows[(bsz, adaln)] = line
-        print("[kernels] fused_ln_geglu_residual " + json.dumps(line))
+    wsets = _ff_weight_sets(gen)
+    entries = [_geglu_ln_entry(gen, wsets)]
 
     # nn_min_sq_both: exact f32 subtract-square on both sides -> bitwise, at
-    # batch 1 and at batch 8 (the main path's two batches), where each frame
-    # has its own data and its own BIG-padded tail, as batched_cd_fscore_graph
-    # pads a ragged batch
+    # batch 1 and at batch 8 (the main path's two batches)
     nn_rows, batch_rows = {}, {}
     for bsz in (1, 8):
-        a = torch.rand((bsz, NN_N, 3), generator=gen, device="cuda") * 16.0
-        b = torch.rand((bsz, NN_M, 3), generator=gen, device="cuda") * 16.0
-        for i in range(bsz):
-            a[i] += i  # frames apart: a kernel reading another frame's rows disagrees
-            b[i] += i
-            a[i, NN_N - 1000 * (i + 1):] = BIG
-            b[i, NN_M - 100 * (i + 1):] = BIG
+        a, b = _nn_inputs(bsz, gen)
         row, col = nn_min_sq_both(a, b)
         row_p, col_p = nn_min_sq_both_plain(a, b)
         col_sw, row_sw = nn_min_sq_both(b.contiguous(), a.contiguous())  # one-direction check
@@ -628,19 +691,10 @@ def phase_kernels() -> list:
     nn_line = nn_rows[1]
 
     entries += _int8_kernel_entries(gen)
-    entries += _bf16_kernel_entries(gen)
+    entries += _bf16_kernel_entries(gen, wsets)
     entries.append(_entry("nn_min_sq_batch", "rald_torch/csrc/nn_dist.cu",
                           "rald_tpu/ops/nn_dist_kernel.py:145", batch_rows, 1, 8))
 
-    g1 = geglu_rows[(1, True)]
-    entries.insert(0, {
-        "name": "fused_ln_geglu_residual", "route": "cuda", "source": "rald_torch/csrc/geglu.cu",
-        "replaces": "rald_tpu/ops/geglu_kernel.py:134", "shape": g1["shape"],
-        "max_abs_err": max(r["max_abs_err"] for r in geglu_rows.values()),
-        "ms": g1["ms"], "plain_ms": g1["plain_ms"], "bound_ms": g1["bound_ms"],
-        "bound_by": g1["bound_by"], "library_ms": g1["library_ms"],
-        "ms_b8": geglu_rows[(8, True)]["ms"],
-    })
     entries.insert(1, {
         "name": "nn_min_sq_both", "route": "cuda", "source": "rald_torch/csrc/nn_dist.cu",
         "replaces": "rald_tpu/ops/nn_dist_kernel.py:87", "shape": nn_line["shape"],
@@ -652,6 +706,139 @@ def phase_kernels() -> list:
     for e in entries:
         e["max_err"] = e["max_abs_err"]
     return entries
+
+
+def nn_library_b8() -> dict:
+    """One-off, outside the default run (about 50 s a call): the chunked
+    ``torch.cdist`` yardsticks of nn_min_sq_both and nn_min_sq_batch at
+    batch 8, one timed call each, on inputs drawn as phase 3 draws them.
+
+        python3 -c "import chip_smoke as c; c.nn_library_b8()"
+    """
+    check(torch.cuda.is_available(), "nn_library_b8 needs a CUDA device")
+    a, b = _nn_inputs(8, torch.Generator("cuda").manual_seed(0))
+    line = {"shape": [8, NN_N, NN_M], "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi_line(),
+            "library_ms_b8": {
+                "nn_min_sq_both": cuda_ms(lambda: _nn_library(a, b), 1, warmup=0),
+                "nn_min_sq_batch": cuda_ms(lambda: _nn_library(a, b, both=False), 1, warmup=0)}}
+    print("[nn_library_b8] " + json.dumps(line))
+    return line
+
+
+def ff_breakdown(batches=(1, 8)) -> list:
+    """One-off, outside the default run: the two bf16 FF calls and their
+    library composite split into host and device time, at the main path's
+    batches with one AdaLN row per frame. ``host_ms``: host time per call
+    with no synchronisation in the loop; ``events_ms``: CUDA events around
+    back-to-back calls (phase 3's ``ms``); ``device_ms``: a CUDA graph of
+    20 calls replayed, so no host work between launches; ``launches_ms``:
+    each kernel's device time per call from ``torch.profiler``.
+
+        python3 -c "import chip_smoke as c; c.ff_breakdown()"
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from rald_torch.ops import geglu_kernel as gk
+
+    check(torch.cuda.is_available(), "ff_breakdown needs a CUDA device")
+    gen = torch.Generator("cuda").manual_seed(0)
+    lines = []
+    for bsz in batches:
+        x, s, b, w1, b1, w2, b2 = _geglu_inputs(bsz, 512, True, gen, per_batch=True)
+        calls = {
+            "fused_ln_geglu_residual": lambda: gk.fused_ln_geglu_residual(x, s, b, w1, b1, w2, b2),
+            "geglu_ff": lambda: gk.geglu_ff(x, w1, b1, w2, b2),
+            "library (fused_ln_geglu_residual)": lambda: _geglu_library(x, s, b, w1, b1, w2, b2,
+                                                                        True),
+        }
+        for name, fn in calls.items():
+            line = {"name": name, "shape": [bsz, 512, D], "events_ms": cuda_ms(fn, 200)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            line["host_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+            torch.cuda.synchronize()
+            graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                fn()
+                torch.cuda.synchronize()
+                with torch.cuda.graph(graph, stream=stream):
+                    for _ in range(20):
+                        fn()
+            torch.cuda.synchronize()
+            line["device_ms"] = cuda_ms(graph.replay, 20) / 20
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+            per = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    key = e.name[:70]  # template arguments included, call arguments cut
+                    per[key] = per.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 20e3
+            line["launches_ms"] = per
+            line["nvidia_smi"] = smi_line()
+            print("[ff_breakdown] " + json.dumps(line))
+            lines.append(line)
+    return lines
+
+
+def trace_sample(batches=(1, 8), fused_attn: bool = False) -> list:
+    """One-off, outside the default run: where the product sampler's time
+    goes. For each batch, ``sample_tokens`` (cube -> 35-NFE tokens) once
+    untraced (wall ms) and once under ``torch.profiler``: the device's busy
+    time (the union of its kernels' intervals), its idle share of the
+    untraced wall time, the kernel launches, and the kernels by device time.
+
+        python3 -c "import chip_smoke as c; c.trace_sample()"
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    check(torch.cuda.is_available(), "trace_sample needs a CUDA device")
+    cfg = _product_cfg(fused_attn=fused_attn)
+    rng = np.random.default_rng(cfg.system.seed)
+    eng = GenerationEngine(cfg)
+    lines = []
+    for bsz in batches:
+        cube = _inputs(cfg, bsz, rng)["radar_cube"]
+        seeds = list(range(bsz))
+        eng.sample_tokens(cube, seeds)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.sample_tokens(cube, seeds)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.sample_tokens(cube, seeds)
+            torch.cuda.synchronize()
+            traced = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        busy, end = 0.0, -math.inf
+        for a, b in spans:  # union of the kernel intervals, microseconds
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        line = {"mode": "use_fused_attn" if fused_attn else "bf16", "batch": bsz,
+                "wall_ms": wall, "traced_wall_ms": traced, "device_busy_ms": busy / 1e3,
+                "device_idle_share": 1.0 - busy / 1e3 / wall, "kernels": len(spans),
+                "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+                "nvidia_smi": smi_line()}
+        print("[trace_sample] " + json.dumps(line))
+        lines.append(line)
+    return lines
 
 
 # --------------------------------------------------------------- phase 4

@@ -15,339 +15,377 @@
 // (exact erf) in f32 then rounded; a * GELU(g) rounded; W2 product + b2 + x
 // summed in f32 and rounded once.
 //
-// What bounds it on an H100: at D = 512, inner = 2048 the sublayer does
-// 6.29 MFLOP per token row against ~2 KB of activation traffic per row plus
-// 6 MB of weights, so at 512+ rows it is bound by tensor-core operations
-// (3.22 GFLOP at B = 1: 3.3 us at 989 TFLOP/s bf16), not by bytes (2.2 us).
-//
-// Design: a block of 8 warps owns a 32-row token tile of one batch element
-// and a contiguous share of the inner axis. The (rows, 2*inner) intermediate
-// never exists in full: the block loops over 64-column chunks of its inner
-// share, computes the value and gate chunk with bf16 WMMA (mma.sync) tiles
-// from the bf16 h tile kept in shared memory, applies bias / GELU / gate in
-// shared memory, and immediately contracts the (32, 64) gated chunk with the
-// matching W2 columns into a (32, 512) f32 accumulator held in registers
-// (8 warps x 8 fragments). The weights are read straight from global memory
-// (L2-resident), so one block's chunk loop is a chain of L2 round trips: the
-// time is latency, not operations. The inner axis is therefore split over
-// up to 16 blocks per token tile (split-K for the W2 product) until about
-// two blocks per SM are in flight; each block stores its f32 partial to a
-// workspace, and a second, elementwise kernel sums the partials in split
-// order (deterministic), adds b2 and the residual, and rounds once. The
-// ragged last token tile is masked on load; the workspace rows are padded to
-// the tile so partial stores need no mask. TMA/cp.async staging and wgmma
-// are for a later change.
-//
-// The same kernel without the LN and the residual replaces
+// The same stages without the LN and the residual replace
 // rald_tpu/ops/geglu_kernel.py::geglu_ff (Pallas body _kernel):
 // out = W2 (a * GELU(g)) + b2 with [a | g] = W1 x + b1 over token-flattened
-// x (tokens, D), at the same rounding points, and out_dim (a multiple of 16)
-// free: grid.y then walks 512-wide blocks of output columns (the value and
-// gate chunks are recomputed for each), warps past out_dim skip their W2
-// tiles, and a second kernel sums the partials and adds b2 only.
+// x (tokens, D), at the same rounding points, with a free out_dim (w2
+// (out_dim, inner), out_dim a multiple of 16).
+//
+// What bounds it on an H100: at D = 512, inner = 2048 the sublayer does
+// 6.29 MFLOP per token row against ~2 KB of activation traffic per row plus
+// 6 MB of weights, so from 512 rows on it is bound by tensor-core operations
+// (3.22 GFLOP at B = 1: 3.3 us at 989 TFLOP/s bf16; 26 us at B = 8), not by
+// bytes. Only wgmma reaches that rate, and only when its operands arrive in
+// shared memory ahead of it and each weight tile there feeds many rows.
+//
+// Design: three launches per call, each one pass over its rows.
+//  1. LN + mod (fused_ln_geglu_residual only): one warp per token row writes
+//     h = bf16(mod(LN(x))) into a (rows, D) scratch; the modulation row of
+//     token row r is r / N (mod_bstride = D) or row 0 (mod_bstride = 0).
+//  2. GEMM1 with a GEGLU epilogue: P = h W1^T on 128-row tiles. A block's
+//     output tile pairs 64 value columns [j, j+64) with their 64 gate columns
+//     [inner+j, inner+j+64): two TMA boxes of W1 that sit back to back in
+//     shared memory as one 128-row operand, so one m64n128k16 wgmma per
+//     16-deep slice gives value and gate in the same registers of the same
+//     thread. The epilogue adds b1, takes the gate's GELU and the gated
+//     product in registers and stores g (rows, inner) bf16 (16 MB at B = 8,
+//     L2-resident for the next launch).
+//  3. GEMM2 with the output epilogue: out = bf16(g W2^T + b2 (+ x)), one K
+//     loop over all inner columns in order (no split-K partials), on 64- or
+//     128-row by 64- or 128-column tiles chosen by the wrapper so that the
+//     grid fills the card (geglu_kernel.py gemm2_tile).
+// Both GEMMs are warp-specialised: one producer warp keeps TMA loads of the
+// A tile and the weight boxes in flight through a ring of shared-memory
+// stages (128-byte swizzle, one full and one empty mbarrier per stage), and
+// one or two consumer warpgroups of 64 rows each run wgmma with f32
+// accumulators in registers, releasing a stage as soon as the products that
+// read it are done. Rows past the end read as zeros (TMA) and are not
+// stored. No sum uses atomics, so the output is the same from run to run.
+// GEMM1's K loop is short (8 slices of 64), so a block spends much of its
+// time filling the ring and in the GELU epilogue; it is compiled for two
+// resident blocks per SM (__launch_bounds__ min 2: no spills on sm_90a), so
+// one block's epilogue overlaps the other's products. (A persistent grid,
+// tried on the card, gained nothing over that.) TMA descriptors are encoded
+// on the host and cached by address, shape and box: the weights' hit every
+// call, the scratch buffers' whenever the allocator hands back an address.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-using namespace nvcuda;
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int D = 512;            // model width (the only width this build takes)
-constexpr int BM = 32;            // token rows per block
-constexpr int IC = 64;            // inner columns per chunk
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int WN = D / NWARPS;    // output columns per warp
-constexpr int WT = WN / 16;       // 16-wide output tiles per warp
-constexpr int RT = BM / 16;       // 16-high row tiles per block
-constexpr int MAX_SPLITS = 16;
+typedef __nv_bfloat16 bf16;
 
-constexpr size_t SMEM_H = size_t(BM) * D * sizeof(__nv_bfloat16);
-constexpr size_t SMEM_P = size_t(2) * BM * IC * sizeof(float);
-constexpr size_t SMEM_G = size_t(BM) * IC * sizeof(__nv_bfloat16);
-constexpr size_t SMEM_BYTES = SMEM_H + SMEM_P + SMEM_G;
+constexpr int D = 512;        // model width (the only width this build takes)
+constexpr int BK = 64;        // K columns per stage: one 128-byte swizzled row
+constexpr int BM1 = 128;      // GEMM1 rows per block (two consumer warpgroups)
+constexpr int BJ = 64;        // GEMM1 inner columns per block: 64 value + 64 gate
+constexpr int LN_ROWS = 8;    // LN rows per block, one warp each
+constexpr int STAGES1 = 3;    // GEMM1 stages (K = D: 8 slices)
+constexpr int STAGES2 = 4;    // GEMM2 stages (K = inner)
+
+enum Epi { GEGLU = 0, OUT = 1, OUT_RESID = 2 };
+
+// shared memory of a GEMM block: STAGES x (A tile of WG*64 rows, B tile of N
+// rows), each BK columns of bf16, then the barriers; + 1 KB to align the
+// tiles to the 1024-byte swizzle atom
+template <int WG, int N, int STAGES>
+struct Smem {
+  static constexpr int A = WG * 64 * BK * 2;
+  static constexpr int B = N * BK * 2;
+  static constexpr int STAGE = A + B;
+  static constexpr int BYTES = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+};
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// grid (row tiles, batch, splits); part is (splits, batch, n_pad, D) f32.
-// Without LN (geglu_ff): grid (row tiles, output column blocks, splits), x
-// (n_tok, D) is h, and part is (splits, n_pad, col_blocks * D) f32.
-template <bool LN>
-__global__ void __launch_bounds__(NTHREADS, 2)
-ln_geglu_partial_kernel(const __nv_bfloat16* __restrict__ x,
-                        const __nv_bfloat16* __restrict__ s,
-                        const __nv_bfloat16* __restrict__ b,
-                        long long mod_bstride,
-                        const __nv_bfloat16* __restrict__ w1,
-                        const __nv_bfloat16* __restrict__ b1,
-                        const __nv_bfloat16* __restrict__ w2,
-                        float* __restrict__ part,
-                        int n_tok, int n_pad, int inner, int out_dim, int scale_shift_mod,
-                        float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* h_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* pv_s = reinterpret_cast<float*>(smem + SMEM_H);
-  float* pg_s = pv_s + BM * IC;
-  __nv_bfloat16* g_s = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_H + SMEM_P);
+// (value, gate) product sums -> the gated value, at the plain version's
+// rounding points; the caller rounds the result
+__device__ __forceinline__ float geglu(float v, float g, float bv, float bg) {
+  const float val = bf16_round(v + bv);
+  const float gate = bf16_round(g + bg);
+  const float gl = bf16_round(0.5f * gate * (1.f + erff(gate * 0.7071067811865476f)));
+  return val * gl;
+}
+
+// ---- stage 1: h = bf16(mod(LN(x))), one warp per row; lane l holds columns
+// [8l, 8l+8) and [256+8l, 256+8l+8)
+__global__ void __launch_bounds__(LN_ROWS * 32)
+ln_mod_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s, const bf16* __restrict__ b,
+              long long mod_bstride, int n_tok, int rows, int scale_shift_mod, float eps,
+              bf16* __restrict__ h) {
+  const int row = blockIdx.x * LN_ROWS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const bf16* xr = x + (long long)row * D;
+  float v[16];
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const uint4 q = *reinterpret_cast<const uint4*>(xr + half * (D / 2) + 8 * lane);
+    const __nv_bfloat162* qh = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(qh[i]);
+      v[half * 8 + 2 * i] = f.x;
+      v[half * 8 + 2 * i + 1] = f.y;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    sum += v[i];
+    sq += v[i] * v[i];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  }
+  const float mean = sum / D;
+  const float var = sq / D - mean * mean;
+  const float inv = rsqrtf(var + eps);
+  const long long mo = (long long)(row / n_tok) * mod_bstride;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int c0 = half * (D / 2) + 8 * lane;
+    uint4 o;
+    __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float hv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 2 * i + e;
+        const float sc = __bfloat162float(s[mo + c]);
+        const float sh = __bfloat162float(b[mo + c]);
+        const float t = (v[half * 8 + 2 * i + e] - mean) * inv;
+        hv[e] = scale_shift_mod ? t * (1.f + sc) + sh : t * sc + sh;
+      }
+      oh[i] = __floats2bfloat162_rn(hv[0], hv[1]);
+    }
+    *reinterpret_cast<uint4*>(h + (long long)row * D + c0) = o;
+  }
+}
+
+// ---- stages 2 and 3: C = A B^T, A (rows, K) and B (*, K) bf16 K-major
+// through TMA maps, one (WG*64)-row tile of A and one N-row tile of B per
+// block. GEGLU: B is W1, the N = 128 rows of a tile are the value rows
+// [n0, n0+64) and the gate rows [inner+n0, inner+n0+64); out is g (rows,
+// inner). OUT / OUT_RESID: B is W2 (ncols, K); out (rows, ncols) =
+// bf16(C + bias (+ resid)).
+template <int EPI, int WG, int N, int STAGES>
+__global__ void __launch_bounds__(WG * 128 + 32, EPI == GEGLU ? 2 : 1)
+gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+            int rows, int k_tiles, int inner, int ncols, const bf16* __restrict__ bias,
+            const bf16* __restrict__ resid, bf16* __restrict__ out) {
+  using S = Smem<WG, N, STAGES>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * S::STAGE);
+  uint64_t* empty = full + STAGES;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int batch = LN ? blockIdx.y : 0;
-  const int col0 = LN ? 0 : blockIdx.y * D;  // this block's first output column
-  const int row0 = blockIdx.x * BM;
-  const int share = inner / gridDim.z;  // a multiple of IC (launcher)
-  const int j_begin = blockIdx.z * share;
-  const __nv_bfloat16* xb = x + (long long)batch * n_tok * D;
-  const __nv_bfloat16* sb = s + (long long)batch * mod_bstride;
-  const __nv_bfloat16* bb = b + (long long)batch * mod_bstride;
+  const int n0 = blockIdx.x * (EPI == GEGLU ? BJ : N);
+  const int m0 = blockIdx.y * WG * 64;
 
-  // ---- LN + mod -> bf16 h tile in shared memory (4 rows per warp); without
-  // LN the x tile itself
-  for (int r = warp; r < BM && !LN; r += NWARPS) {
-    const int row = row0 + r;
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i)
-      h_s[r * D + lane + 32 * i] =
-          row < n_tok ? xb[(long long)row * D + lane + 32 * i] : __float2bfloat16(0.f);
-  }
-  for (int r = warp; r < BM && LN; r += NWARPS) {
-    const int row = row0 + r;
-    float v[D / 32];
-    float sum = 0.f, sq = 0.f;
-#pragma unroll
-    for (int i = 0; i < D / 32; ++i) {
-      v[i] = row < n_tok ? __bfloat162float(xb[(long long)row * D + lane + 32 * i]) : 0.f;
-      sum += v[i];
-      sq += v[i] * v[i];
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], WG * 4);  // one arrival per consumer warp
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    }
-    const float mean = sum / D;
-    const float var = sq / D - mean * mean;
-    const float inv = rsqrtf(var + eps);
-#pragma unroll
-    for (int i = 0; i < D / 32; ++i) {
-      const int c = lane + 32 * i;
-      const float sc = __bfloat162float(sb[c]);
-      const float sh = __bfloat162float(bb[c]);
-      float hv = (v[i] - mean) * inv;
-      hv = scale_shift_mod ? hv * (1.f + sc) + sh : hv * sc + sh;
-      h_s[r * D + c] = __float2bfloat16(hv);
-    }
+    sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT][WT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int t = 0; t < WT; ++t) wmma::fill_fragment(acc[i][t], 0.f);
-
-  const int prt = warp / (IC / 16);  // this warp's (value, gate) tile in a chunk
-  const int pct = warp % (IC / 16);
-
-  for (int j0 = j_begin; j0 < j_begin + share; j0 += IC) {
-    // ---- value / gate chunk: (BM, D) x (D, IC) twice
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bv, bg;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> cv, cg;
-      wmma::fill_fragment(cv, 0.f);
-      wmma::fill_fragment(cg, 0.f);
-      const __nv_bfloat16* wv = w1 + (long long)(j0 + pct * 16) * D;
-      const __nv_bfloat16* wg = w1 + (long long)(inner + j0 + pct * 16) * D;
-#pragma unroll 4
-      for (int k0 = 0; k0 < D; k0 += 16) {
-        wmma::load_matrix_sync(af, h_s + prt * 16 * D + k0, D);
-        wmma::load_matrix_sync(bv, wv + k0, D);
-        wmma::load_matrix_sync(bg, wg + k0, D);
-        wmma::mma_sync(cv, af, bv, cv);
-        wmma::mma_sync(cg, af, bg, cg);
-      }
-      wmma::store_matrix_sync(pv_s + prt * 16 * IC + pct * 16, cv, IC, wmma::mem_row_major);
-      wmma::store_matrix_sync(pg_s + prt * 16 * IC + pct * 16, cg, IC, wmma::mem_row_major);
-    }
-    __syncthreads();
-    // ---- bias, GELU(gate), gate product -> bf16 chunk
-    for (int idx = threadIdx.x; idx < BM * IC; idx += NTHREADS) {
-      const int j = idx % IC;
-      const float val = bf16_round(pv_s[idx] + __bfloat162float(b1[j0 + j]));
-      const float gate = bf16_round(pg_s[idx] + __bfloat162float(b1[inner + j0 + j]));
-      const float gl = bf16_round(0.5f * gate * (1.f + erff(gate * 0.7071067811865476f)));
-      g_s[idx] = __float2bfloat16(val * gl);
-    }
-    __syncthreads();
-    // ---- accumulate (BM, IC) x (IC, D) into the register tile
-#pragma unroll
-    for (int kk = 0; kk < IC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> ga[RT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) wmma::load_matrix_sync(ga[i], g_s + i * 16 * IC + kk, IC);
-#pragma unroll
-      for (int t = 0; t < WT; ++t) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> wb;
-        const int d0 = col0 + warp * WN + t * 16;
-        if (d0 >= out_dim) continue;  // uniform over the warp
-        wmma::load_matrix_sync(wb, w2 + (long long)d0 * inner + j0 + kk, inner);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) wmma::mma_sync(acc[i][t], ga[i], wb, acc[i][t]);
+  if (warp == WG * 4) {
+    // producer warp: one thread issues every TMA load of the block
+    if (lane == 0) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) sm90::mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
+        uint8_t* a = smem + s * S::STAGE;
+        uint8_t* bt = a + S::A;
+        sm90::mbar_arrive_expect_tx(&full[s], S::STAGE);
+        sm90::tma_load_2d(a, &map_a, &full[s], kt * BK, m0);
+        if constexpr (EPI == GEGLU) {
+          sm90::tma_load_2d(bt, &map_b, &full[s], kt * BK, n0);
+          sm90::tma_load_2d(bt + BJ * BK * 2, &map_b, &full[s], kt * BK, inner + n0);
+        } else {
+          sm90::tma_load_2d(bt, &map_b, &full[s], kt * BK, n0);
+        }
       }
     }
-    // the next chunk's first __syncthreads orders these g_s reads before
-    // its g_s writes
+    return;
   }
 
-  // partial rows are D (LN) or col_blocks * D (no LN) floats apart
-  const long long ldp = (long long)(LN ? 1 : gridDim.y) * D;
-  float* pb = part + ((long long)blockIdx.z * (LN ? gridDim.y : 1) + batch) * n_pad * ldp +
-              (long long)row0 * ldp + col0;
+  // consumer warpgroup wg: rows [m0 + 64 wg, m0 + 64 wg + 64) of the tile
+  const int wg = warp >> 2;
+  float acc[N / 2];
 #pragma unroll
-  for (int i = 0; i < RT; ++i)
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % STAGES;
+    sm90::mbar_wait(&full[s], (kt / STAGES) & 1);
+    const uint8_t* a = smem + s * S::STAGE + wg * 64 * BK * 2;
+    const uint64_t da = sm90::desc_sw128(a);
+    const uint64_t db = sm90::desc_sw128(smem + s * S::STAGE + S::A);
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < WT; ++t)
-      wmma::store_matrix_sync(pb + i * 16 * ldp + warp * WN + t * 16, acc[i][t], (unsigned)ldp,
-                              wmma::mem_row_major);
-}
+    for (int k = 0; k < BK / 16; ++k)
+      sm90::wgmma_bf16(acc, sm90::desc_advance_k(da, k), sm90::desc_advance_k(db, k));
+    sm90::wgmma_commit();
+    sm90::fence_regs(acc);
+    // the previous stage's products are done: hand its buffers back
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(acc);
+    if (kt > 0 && lane == 0) sm90::mbar_arrive(&empty[(kt - 1) % STAGES]);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
 
-// out = bf16(sum_s part[s] + b2 + x), partials summed in split order
-__global__ void geglu_finalize_kernel(const float* __restrict__ part,
-                                      const __nv_bfloat16* __restrict__ x,
-                                      const __nv_bfloat16* __restrict__ b2,
-                                      __nv_bfloat16* __restrict__ out, int batch, int n_tok,
-                                      int n_pad, int splits) {
-  const long long total = (long long)batch * n_tok * D;
-  const long long split_stride = (long long)batch * n_pad * D;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % D);
-    const long long row = i / D;  // batch * n_tok + token
-    const long long bi = row / n_tok;
-    const long long p = (bi * n_pad + (row - bi * n_tok)) * D + c;
-    float y = part[p];
-    for (int sp = 1; sp < splits; ++sp) y += part[p + sp * split_stride];
-    out[i] = __float2bfloat16(y + __bfloat162float(b2[c]) + __bfloat162float(x[i]));
+  // accumulator layout of m64nNk16: register 4j + 2i + e holds row
+  // 16 (warp % 4) + lane / 4 + 8 i, column 8 j + 2 (lane % 4) + e
+  const int r0 = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  if constexpr (EPI == GEGLU) {
+#pragma unroll
+    for (int j = 0; j < BJ / 8; ++j) {
+      const int c = n0 + 8 * j + cq;  // inner column; its gate is N/2 registers on
+      const float bv0 = __bfloat162float(bias[c]), bv1 = __bfloat162float(bias[c + 1]);
+      const float bg0 = __bfloat162float(bias[inner + c]);
+      const float bg1 = __bfloat162float(bias[inner + c + 1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + 8 * i;
+        if (r < rows) {
+          const int q = 4 * j + 2 * i;
+          *reinterpret_cast<__nv_bfloat162*>(out + (long long)r * inner + c) =
+              __floats2bfloat162_rn(geglu(acc[q], acc[N / 4 + q], bv0, bg0),
+                                    geglu(acc[q + 1], acc[N / 4 + q + 1], bv1, bg1));
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = n0 + 8 * j + cq;
+      if (c >= ncols) continue;  // ncols % 16 == 0: uniform over the 8-column group
+      const float bb0 = __bfloat162float(bias[c]), bb1 = __bfloat162float(bias[c + 1]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + 8 * i;
+        if (r >= rows) continue;
+        const int q = 4 * j + 2 * i;
+        float y0 = acc[q] + bb0, y1 = acc[q + 1] + bb1;
+        if constexpr (EPI == OUT_RESID) {
+          const float2 xr = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(resid + (long long)r * ncols + c));
+          y0 += xr.x;
+          y1 += xr.y;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + (long long)r * ncols + c) =
+            __floats2bfloat162_rn(y0, y1);
+      }
+    }
   }
 }
 
-// geglu_ff: out (n_tok, out_dim) = bf16(sum_s part[s] + b2), partials
-// (splits, n_pad, ldp) summed in split order
-__global__ void geglu_ff_finalize_kernel(const float* __restrict__ part,
-                                         const __nv_bfloat16* __restrict__ b2,
-                                         __nv_bfloat16* __restrict__ out, int n_tok, int n_pad,
-                                         int out_dim, int ldp, int splits) {
-  const long long total = (long long)n_tok * out_dim;
-  const long long split_stride = (long long)n_pad * ldp;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % out_dim);
-    const long long p = (i / out_dim) * ldp + c;
-    float y = part[p];
-    for (int sp = 1; sp < splits; ++sp) y += part[p + sp * split_stride];
-    out[i] = __float2bfloat16(y + __bfloat162float(b2[c]));
+template <int EPI, int WG, int N, int STAGES>
+cudaError_t launch_gemm(const CUtensorMap& map_a, const CUtensorMap& map_b, int rows, int k,
+                        int inner, int ncols, const void* bias, const void* resid, void* out,
+                        cudaStream_t st) {
+  using S = Smem<WG, N, STAGES>;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(gemm_kernel<EPI, WG, N, STAGES>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               S::BYTES);
+    if (e != cudaSuccess) return e;
+    attr = true;
   }
+  const int col_tiles = EPI == GEGLU ? inner / BJ : (ncols + N - 1) / N;
+  const dim3 grid(col_tiles, (rows + WG * 64 - 1) / (WG * 64));
+  gemm_kernel<EPI, WG, N, STAGES><<<grid, WG * 128 + 32, S::BYTES, st>>>(
+      map_a, map_b, rows, k / BK, inner, ncols, (const bf16*)bias, (const bf16*)resid,
+      (bf16*)out);
+  return cudaGetLastError();
 }
 
-template <bool LN>
-cudaError_t partial_attr() {
-  static bool done = false;
-  if (done) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(ln_geglu_partial_kernel<LN>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)SMEM_BYTES);
-  done = e == cudaSuccess;
-  return e;
-}
+bool tile_ok(int bm, int bn) { return (bm == 64 || bm == 128) && (bn == 64 || bn == 128); }
 
-int finalize_blocks(long long total) {
-  return (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 1;
-  }
-  return n;
+// GEMM2 on (bm, bn) tiles; map_a's boxes are bm rows, map_b's bn rows
+template <int EPI>
+cudaError_t launch_out(int bm, int bn, const CUtensorMap& map_a, const CUtensorMap& map_b,
+                       int rows, int inner, int ncols, const void* bias, const void* resid,
+                       void* out, cudaStream_t st) {
+  if (bm == 128 && bn == 128)
+    return launch_gemm<EPI, 2, 128, STAGES2>(map_a, map_b, rows, inner, inner, ncols, bias,
+                                             resid, out, st);
+  if (bm == 128)
+    return launch_gemm<EPI, 2, 64, STAGES2>(map_a, map_b, rows, inner, inner, ncols, bias, resid,
+                                            out, st);
+  if (bn == 128)
+    return launch_gemm<EPI, 1, 128, STAGES2>(map_a, map_b, rows, inner, inner, ncols, bias,
+                                             resid, out, st);
+  return launch_gemm<EPI, 1, 64, STAGES2>(map_a, map_b, rows, inner, inner, ncols, bias, resid,
+                                          out, st);
 }
 
 }  // namespace
 
 extern "C" int rald_geglu_width() { return D; }
 
-extern "C" int rald_geglu_row_tile() { return BM; }
+// inner must be a multiple of this: GEMM1's value / gate column tile and
+// GEMM2's K slice
+extern "C" int rald_geglu_inner_multiple() { return BJ; }
 
-// How many blocks share one token tile's inner axis: doubled (while it
-// divides the chunk count) until about two blocks per SM are in flight.
-extern "C" int rald_geglu_splits(int batch, int n_tok, int inner) {
-  const long long tiles = (long long)batch * ((n_tok + BM - 1) / BM);
-  const int chunks = inner / IC;
-  int splits = 1;
-  while (splits * 2 <= MAX_SPLITS && chunks % (splits * 2) == 0 &&
-         tiles * splits * 2 <= 2LL * sm_count())
-    splits *= 2;
-  return splits;
-}
-
-// part: workspace of rald_geglu_splits(...) * batch * n_pad * D floats, with
-// n_pad = n_tok rounded up to rald_geglu_row_tile()
+// x (batch, n_tok, D); s, b: mod rows, batch * mod_bstride apart; w1
+// (2*inner, D), w2 (D, inner); scratch h (batch * n_tok, D) and g
+// (batch * n_tok, inner); GEMM2 tiles (bm, bn) in {64, 128}^2. x, w1, w2, h
+// and g 16-byte aligned.
 extern "C" int rald_fused_ln_geglu_residual_bf16(
-    const void* x, const void* s, const void* b, long long mod_bstride,
-    const void* w1, const void* b1, const void* w2, const void* b2, void* part, void* out,
-    int batch, int n_tok, int inner, int splits, int scale_shift_mod, float eps, void* stream) {
-  cudaError_t e = partial_attr<true>();
-  if (e != cudaSuccess) return (int)e;
-  if (inner % IC != 0 || n_tok <= 0 || batch <= 0 || splits <= 0 ||
-      (inner / IC) % splits != 0)
+    const void* x, const void* s, const void* b, long long mod_bstride, const void* w1,
+    const void* b1, const void* w2, const void* b2, void* h, void* g, void* out, int batch,
+    int n_tok, int inner, int bm, int bn, int scale_shift_mod, float eps, void* stream) {
+  const long long rows_ll = (long long)batch * n_tok;
+  if (inner <= 0 || inner % BJ != 0 || n_tok <= 0 || batch <= 0 || rows_ll > (1 << 30) ||
+      !tile_ok(bm, bn) || reinterpret_cast<uintptr_t>(x) % 16)
     return (int)cudaErrorInvalidValue;
-  const int tiles = (n_tok + BM - 1) / BM;
-  const int n_pad = tiles * BM;
-  cudaStream_t st = (cudaStream_t)stream;
-  ln_geglu_partial_kernel<true><<<dim3(tiles, batch, splits), NTHREADS, SMEM_BYTES, st>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)s, (const __nv_bfloat16*)b, mod_bstride,
-      (const __nv_bfloat16*)w1, (const __nv_bfloat16*)b1, (const __nv_bfloat16*)w2,
-      (float*)part, n_tok, n_pad, inner, D, scale_shift_mod, eps);
-  e = cudaGetLastError();
+  const int rows = (int)rows_ll;
+  CUtensorMap map_h, map_w1, map_g, map_w2;
+  cudaError_t e = sm90::cached_map_bf16(&map_h, h, rows, D, BM1);
+  if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_w1, w1, 2 * (uint64_t)inner, D, BJ);
+  if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_g, g, rows, inner, bm);
+  if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_w2, w2, D, inner, bn);
   if (e != cudaSuccess) return (int)e;
-  const long long total = (long long)batch * n_tok * D;
-  geglu_finalize_kernel<<<finalize_blocks(total), 256, 0, st>>>(
-      (const float*)part, (const __nv_bfloat16*)x, (const __nv_bfloat16*)b2, (__nv_bfloat16*)out,
-      batch, n_tok, n_pad, splits);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  ln_mod_kernel<<<(rows + LN_ROWS - 1) / LN_ROWS, LN_ROWS * 32, 0, st>>>(
+      (const bf16*)x, (const bf16*)s, (const bf16*)b, mod_bstride, n_tok, rows, scale_shift_mod,
+      eps, (bf16*)h);
+  e = cudaGetLastError();
+  if (e == cudaSuccess)
+    e = launch_gemm<GEGLU, 2, 2 * BJ, STAGES1>(map_h, map_w1, rows, D, inner, 0, b1, nullptr, g,
+                                               st);
+  if (e == cudaSuccess)
+    e = launch_out<OUT_RESID>(bm, bn, map_g, map_w2, rows, inner, D, b2, x, out, st);
+  return (int)e;
 }
 
-// geglu_ff: x (n_tok, D), w1 (2*inner, D), w2 (out_dim, inner), out
-// (n_tok, out_dim); part: workspace of splits * n_pad * col_blocks * D floats
-// with col_blocks = ceil(out_dim / D) and splits = rald_geglu_splits(col_blocks,
-// n_tok, inner)
+// geglu_ff: x (n_tok, D), w1 (2*inner, D), w2 (out_dim, inner), scratch g
+// (n_tok, inner), out (n_tok, out_dim); out_dim a multiple of 16; GEMM2 tiles
+// (bm, bn) in {64, 128}^2. x, w1, w2 and g 16-byte aligned.
 extern "C" int rald_geglu_ff_bf16(const void* x, const void* w1, const void* b1, const void* w2,
-                                  const void* b2, void* part, void* out, int n_tok, int inner,
-                                  int out_dim, int splits, void* stream) {
-  cudaError_t e = partial_attr<false>();
-  if (e != cudaSuccess) return (int)e;
-  if (inner % IC != 0 || n_tok <= 0 || out_dim <= 0 || out_dim % 16 != 0 || splits <= 0 ||
-      (inner / IC) % splits != 0)
+                                  const void* b2, void* g, void* out, int n_tok, int inner,
+                                  int out_dim, int bm, int bn, void* stream) {
+  if (inner <= 0 || inner % BJ != 0 || n_tok <= 0 || out_dim <= 0 || out_dim % 16 != 0 ||
+      !tile_ok(bm, bn))
     return (int)cudaErrorInvalidValue;
-  const int tiles = (n_tok + BM - 1) / BM;
-  const int n_pad = tiles * BM;
-  const int col_blocks = (out_dim + D - 1) / D;
-  cudaStream_t st = (cudaStream_t)stream;
-  ln_geglu_partial_kernel<false><<<dim3(tiles, col_blocks, splits), NTHREADS, SMEM_BYTES, st>>>(
-      (const __nv_bfloat16*)x, nullptr, nullptr, 0, (const __nv_bfloat16*)w1,
-      (const __nv_bfloat16*)b1, (const __nv_bfloat16*)w2, (float*)part, n_tok, n_pad, inner,
-      out_dim, 0, 0.f);
-  e = cudaGetLastError();
+  CUtensorMap map_x, map_w1, map_g, map_w2;
+  cudaError_t e = sm90::cached_map_bf16(&map_x, x, n_tok, D, BM1);
+  if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_w1, w1, 2 * (uint64_t)inner, D, BJ);
+  if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_g, g, n_tok, inner, bm);
+  if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_w2, w2, out_dim, inner, bn);
   if (e != cudaSuccess) return (int)e;
-  geglu_ff_finalize_kernel<<<finalize_blocks((long long)n_tok * out_dim), 256, 0, st>>>(
-      (const float*)part, (const __nv_bfloat16*)b2, (__nv_bfloat16*)out, n_tok, n_pad, out_dim,
-      col_blocks * D, splits);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  e = launch_gemm<GEGLU, 2, 2 * BJ, STAGES1>(map_x, map_w1, n_tok, D, inner, 0, b1, nullptr, g,
+                                             st);
+  if (e == cudaSuccess)
+    e = launch_out<OUT>(bm, bn, map_g, map_w2, n_tok, inner, out_dim, b2, nullptr, out, st);
+  return (int)e;
 }

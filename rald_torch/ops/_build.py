@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -30,8 +31,11 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# ptxas register / shared-memory / spill report of each build, by source
+# ptxas register / shared-memory / spill report of each build, by source,
+# with any advisory that wgmma instructions were serialized, and each
+# nvcc's wall time in seconds
 ptxas_report: dict[str, str] = {}
+build_seconds: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -58,16 +62,16 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    return out, (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return out, (tmp, proc, time.perf_counter())
 
 
-def _finish(job) -> str:
-    """Wait for one ``nvcc``; returns its log ('' when nothing was built)."""
-    if job is None:
-        return ""
-    _, proc = job
-    log, _ = proc.communicate()
-    return log
+def _finish(name: str, job, logs: dict) -> None:
+    """Wait for one ``nvcc``; its log into ``logs``, its wall time into
+    ``build_seconds``."""
+    _, proc, t0 = job
+    logs[name], _ = proc.communicate()
+    build_seconds[name] = time.perf_counter() - t0
 
 
 def build_all(names=SOURCES) -> None:
@@ -76,16 +80,24 @@ def build_all(names=SOURCES) -> None:
     Every started ``nvcc`` is waited for before a failure is raised."""
     with _lock:
         jobs = {n: _start(n) for n in names if n not in _libs}
-        logs = {n: _finish(job) for n, (_, job) in jobs.items()}
+        logs: dict = {}
+        waits = [threading.Thread(target=_finish, args=(n, job, logs))
+                 for n, (_, job) in jobs.items() if job is not None]
+        for t in waits:
+            t.start()
+        for t in waits:
+            t.join()
         for n, (out, job) in jobs.items():
             if job is None:
                 continue
-            tmp, proc = job
+            tmp, proc, _ = job
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f"rald_torch: nvcc failed for csrc/{n}.cu:\n{logs[n]}")
             ptxas_report[n] = "\n".join(
-                l for l in logs[n].splitlines() if "registers" in l or "spill" in l
+                l for l in logs[n].splitlines()
+                if any(k in l for k in ("entry function", "registers", "spill", "wgmma",
+                                        "Performance"))
             )
             os.replace(tmp, out)
         for n, (out, _) in jobs.items():

@@ -74,6 +74,32 @@ def fused_ln_geglu_residual_plain(
     return out.to(dt)
 
 
+# GEMM2 output tiles (rows, columns), largest first: each block runs one
+# K loop over all ``inner`` columns, so a small batch needs smaller tiles to
+# give every SM a block
+GEMM2_TILES = ((128, 128), (128, 64), (64, 128), (64, 64))
+
+
+def gemm2_tile(rows: int, cols: int, sms: int) -> tuple:
+    """The output GEMM's tile for a (rows, cols) output on a card of ``sms``
+    SMs: the largest tile whose grid gives every SM a block, else the
+    smallest."""
+    for bm, bn in GEMM2_TILES:
+        if -(-rows // bm) * -(-cols // bn) >= sms:
+            return bm, bn
+    return GEMM2_TILES[-1]
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _check_tma(name: str, tensors) -> None:
+    """TMA reads its operands from 16-byte-aligned addresses."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: x and the weights must be 16-byte aligned (TMA)")
+
+
 def fused_ln_geglu_residual(
     x, scale, shift, w1, b1, w2, b2, scale_shift_mod: bool = True, ln_eps: float = 1e-5
 ):
@@ -82,15 +108,17 @@ def fused_ln_geglu_residual(
     x: (B, N, D); scale/shift: one modulation row per batch element
     (B, 1, D) or one row for all (1, D) / (1, 1, D); AdaLN
     ``h*(1+scale)+shift`` when ``scale_shift_mod``, else ``h*scale+shift``.
-    On the card: bf16, D = 512, inner a multiple of 64; anything else raises.
+    On the card: bf16, D = 512, inner a multiple of 64, x and the weights
+    16-byte aligned; anything else raises.
     """
+    name = "fused_ln_geglu_residual"
     if x.dim() != 3:
-        raise ValueError(f"fused_ln_geglu_residual: x must be (B, N, D), got {tuple(x.shape)}")
+        raise ValueError(f"{name}: x must be (B, N, D), got {tuple(x.shape)}")
     bsz, n, dim = x.shape
     inner = w1.shape[0] // 2
     if w1.shape != (2 * inner, dim) or w2.shape != (dim, inner):
         raise ValueError(
-            f"fused_ln_geglu_residual: w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} "
+            f"{name}: w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} "
             f"do not match D={dim} (torch layout: w1 (2*inner, D), w2 (D, inner))"
         )
     s_rows = _mod_rows(scale, bsz, dim, "scale")
@@ -100,42 +128,42 @@ def fused_ln_geglu_residual(
             x, scale, shift, w1, b1, w2, b2, scale_shift_mod, ln_eps
         )
     if x.device.type != "cuda":
-        raise ValueError(f"fused_ln_geglu_residual: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
     lib = _build.load("geglu")
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused_ln_geglu_residual: the CUDA kernel takes bf16, got {x.dtype}")
-    if dim != lib.rald_geglu_width() or inner % 64 or n == 0:
+        raise TypeError(f"{name}: the CUDA kernel takes bf16, got {x.dtype}")
+    mult = lib.rald_geglu_inner_multiple()
+    if dim != lib.rald_geglu_width() or inner % mult or n == 0:
         raise ValueError(
-            f"fused_ln_geglu_residual: the CUDA kernel takes D={lib.rald_geglu_width()} "
-            f"and inner % 64 == 0, got D={dim}, inner={inner}, N={n}"
+            f"{name}: the CUDA kernel takes D={lib.rald_geglu_width()} "
+            f"and inner % {mult} == 0, got D={dim}, inner={inner}, N={n}"
         )
     if s_rows.shape[0] != b_rows.shape[0]:
-        raise ValueError("fused_ln_geglu_residual: scale and shift rows differ in count")
+        raise ValueError(f"{name}: scale and shift rows differ in count")
     args = [x, s_rows, b_rows, w1, b1, w2, b2]
     for t in args:
         if t.device != x.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(
-                "fused_ln_geglu_residual: every operand must be a contiguous bf16 "
-                f"tensor on {x.device}"
+                f"{name}: every operand must be a contiguous bf16 tensor on {x.device}"
             )
-    if w1.data_ptr() % 32 or w2.data_ptr() % 32:
-        raise ValueError("fused_ln_geglu_residual: weights must be 32-byte aligned")
-    splits = lib.rald_geglu_splits(bsz, n, inner)
-    n_pad = -(-n // lib.rald_geglu_row_tile()) * lib.rald_geglu_row_tile()
-    part = torch.empty((splits, bsz, n_pad, dim), dtype=torch.float32, device=x.device)
+    _check_tma(name, (x, w1, w2))
+    rows = bsz * n
+    h = torch.empty((rows, dim), dtype=x.dtype, device=x.device)
+    g = torch.empty((rows, inner), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    bm, bn = gemm2_tile(rows, dim, _sm_count(x.device))
     fn = lib.rald_fused_ln_geglu_residual_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     rc = fn(
         x.data_ptr(), s_rows.data_ptr(), b_rows.data_ptr(),
         0 if s_rows.shape[0] == 1 else dim,
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), part.data_ptr(),
-        out.data_ptr(), bsz, n, inner, splits, int(bool(scale_shift_mod)), float(ln_eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), h.data_ptr(), g.data_ptr(),
+        out.data_ptr(), bsz, n, inner, bm, bn, int(bool(scale_shift_mod)),
+        float(ln_eps), torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _build.check(rc, "fused_ln_geglu_residual")
+    _build.check(rc, name)
     fused_ln_geglu_residual.launches += 1
     return out
 
@@ -163,7 +191,8 @@ def geglu_ff(x, w1, b1, w2, b2):
     """``(proj_in -> GEGLU -> proj_out)(x)`` in one kernel: x (..., D), w1
     (2*inner, D), b1 (2*inner,), w2 (out_dim, inner), b2 (out_dim,) in the
     torch layout; the leading axes are flattened into tokens. On the card:
-    bf16, D = 512, inner a multiple of 64, out_dim a multiple of 16."""
+    bf16, D = 512, inner a multiple of 64, out_dim a multiple of 16, x and
+    the weights 16-byte aligned."""
     name = "geglu_ff"
     dim = x.shape[-1]
     inner = w1.shape[0] // 2
@@ -185,27 +214,25 @@ def geglu_ff(x, w1, b1, w2, b2):
     lead = x.shape[:-1]
     xt = x.reshape(-1, dim).contiguous()
     n = xt.shape[0]
-    if dim != lib.rald_geglu_width() or inner % 64 or out_dim % 16 or n == 0:
+    mult = lib.rald_geglu_inner_multiple()
+    if dim != lib.rald_geglu_width() or inner % mult or out_dim % 16 or n == 0:
         raise ValueError(
-            f"{name}: the CUDA kernel takes D={lib.rald_geglu_width()}, inner % 64 == 0 and "
+            f"{name}: the CUDA kernel takes D={lib.rald_geglu_width()}, inner % {mult} == 0 and "
             f"out_dim % 16 == 0, got D={dim}, inner={inner}, out_dim={out_dim}, tokens={n}"
         )
     args = [xt] + [t.to(torch.bfloat16).contiguous() for t in (w1, b1, w2, b2)]
     for t in args:
         if t.device != x.device:
             raise ValueError(f"{name}: every operand must be on {x.device}")
-    if args[1].data_ptr() % 32 or args[3].data_ptr() % 32:
-        raise ValueError(f"{name}: weights must be 32-byte aligned")
-    col_blocks = -(-out_dim // dim)
-    splits = lib.rald_geglu_splits(col_blocks, n, inner)
-    n_pad = -(-n // lib.rald_geglu_row_tile()) * lib.rald_geglu_row_tile()
-    part = torch.empty((splits, n_pad, col_blocks * dim), dtype=torch.float32, device=x.device)
+    _check_tma(name, (args[0], args[1], args[3]))
+    g = torch.empty((n, inner), dtype=x.dtype, device=x.device)
     out = torch.empty((n, out_dim), dtype=x.dtype, device=x.device)
+    bm, bn = gemm2_tile(n, out_dim, _sm_count(x.device))
     fn = lib.rald_geglu_ff_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    rc = fn(*(t.data_ptr() for t in args), part.data_ptr(), out.data_ptr(), n, inner, out_dim,
-            splits, torch.cuda.current_stream(x.device).cuda_stream)
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    rc = fn(*(t.data_ptr() for t in args), g.data_ptr(), out.data_ptr(), n, inner, out_dim,
+            bm, bn, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, name)
     geglu_ff.launches += 1
     return out.reshape(*lead, out_dim)

@@ -99,6 +99,48 @@ def test_bf16_rounding_points_match_pallas():
     np.testing.assert_allclose(got.float().numpy(), want, atol=2 ** -8 * np.abs(want).max(), rtol=0)
 
 
+def test_per_frame_rows_move_output_past_the_card_bar():
+    """With one modulation row per frame, giving every frame frame 0's row
+    moves the output past the card's 2e-2 * max|out| bar (so the card test
+    catches a kernel that indexes the rows wrongly), and the CPU dispatch
+    applies each frame its own row."""
+    x, s, b, w1, b1, w2, b2 = _torch_args(*_inputs(3, 20, 32, 64, True, seed=5,
+                                                   row_per_batch=True))
+    want = tg.fused_ln_geglu_residual(x, s, b, w1, b1, w2, b2)
+    for i in range(3):
+        one = tg.fused_ln_geglu_residual_plain(x[i:i + 1], s[i:i + 1], b[i:i + 1], w1, b1, w2, b2)
+        torch.testing.assert_close(want[i:i + 1], one, rtol=0, atol=1e-6)
+    frame0 = tg.fused_ln_geglu_residual_plain(x, s[:1].expand_as(s), b[:1].expand_as(b),
+                                              w1, b1, w2, b2)
+    assert (frame0 - want).abs().max() > 2e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("rows,cols,sms,tile", [
+    (512, 512, 132, (64, 64)),      # batch 1: 64 blocks, the most the tiles give
+    (4096, 512, 132, (128, 64)),    # batch 8: 128 x 128 would leave 4 SMs idle
+    (8192, 512, 132, (128, 128)),
+    (4096, 768, 132, (128, 128)),   # geglu_ff's out_dim 768
+    (154, 512, 132, (64, 64)),      # (2, 77): ragged
+    (4096, 512, 64, (128, 128)),    # a smaller card fills with the largest tile
+])
+def test_gemm2_tile_fills_the_card(rows, cols, sms, tile):
+    assert tg.gemm2_tile(rows, cols, sms) == tile
+    bm, bn = tile
+    assert tile in tg.GEMM2_TILES
+    # every larger tile leaves SMs without a block
+    for big in tg.GEMM2_TILES[:tg.GEMM2_TILES.index(tile)]:
+        assert -(-rows // big[0]) * -(-cols // big[1]) < sms
+
+
+def test_tma_alignment_check():
+    """TMA needs 16-byte-aligned operands: the wrapper's check raises on an
+    offset view before anything launches."""
+    ok = torch.zeros(64, dtype=torch.bfloat16)
+    tg._check_tma("fused_ln_geglu_residual", (ok, ok))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tg._check_tma("fused_ln_geglu_residual", (ok, ok[1:]))
+
+
 def test_wrapper_rejects_bad_modulation_rows():
     x, s, b, w1, b1, w2, b2 = _torch_args(*_inputs(2, 8, 32, 64, True))
     per_token = torch.zeros(2, 8, 32)
@@ -108,22 +150,37 @@ def test_wrapper_rejects_bad_modulation_rows():
         tg.fused_ln_geglu_residual(x, s, b, w1[:, :16], b1, w2, b2)
 
 
+def _case(bsz, n, adaln, per_batch=False):
+    return pytest.param(bsz, n, adaln, per_batch,
+                        id=f"{bsz}-{n}-{adaln}" + ("-per_batch_rows" if per_batch else ""))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("bsz,n,adaln", [(1, 512, True), (8, 512, True), (1, 512, False),
-                                         (8, 512, False), (3, 300, True), (2, 77, False)])
-def test_cuda_kernel_matches_plain(cuda, bsz, n, adaln):
+@pytest.mark.parametrize("bsz,n,adaln,per_batch", [
+    _case(1, 512, True), _case(8, 512, True), _case(1, 512, False), _case(8, 512, False),
+    _case(3, 300, True), _case(2, 77, False),
+    # one AdaLN row per frame, as the DiT passes them; at (3, 300) the
+    # kernel's 128-row tiles straddle frames
+    _case(8, 512, True, True), _case(3, 300, True, True)])
+def test_cuda_kernel_matches_plain(cuda, bsz, n, adaln, per_batch):
     """Main-path shapes in bf16; bf16 keeps ~3 significant digits over the
     512/2048-term sums, so the bar is 2e-2 of max|out|."""
     ops = tuple(t.to(cuda, torch.bfloat16).contiguous()
-                for t in _torch_args(*_inputs(bsz, n, 512, 2048, adaln, seed=bsz + n)))
-    ops = (ops[0], ops[1].reshape(1, 512), ops[2].reshape(1, 512)) + ops[3:]
+                for t in _torch_args(*_inputs(bsz, n, 512, 2048, adaln, seed=bsz + n,
+                                              row_per_batch=per_batch)))
+    if not per_batch:
+        ops = (ops[0], ops[1].reshape(1, 512), ops[2].reshape(1, 512)) + ops[3:]
     before = tg.fused_ln_geglu_residual.launches
     got = tg.fused_ln_geglu_residual(*ops, scale_shift_mod=adaln)
     want = tg.fused_ln_geglu_residual_plain(*ops, scale_shift_mod=adaln)
     torch.cuda.synchronize()
     assert tg.fused_ln_geglu_residual.launches == before + 1
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= 2e-2 * want.float().abs().max().item()
+    bar = 2e-2 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= bar
+    if per_batch:  # the bar catches a kernel that gives every frame frame 0's row
+        row0 = tuple(t[:1].expand_as(t) for t in ops[1:3])
+        frame0 = tg.fused_ln_geglu_residual_plain(ops[0], *row0, *ops[3:], scale_shift_mod=adaln)
+        assert (frame0.float() - want.float()).abs().max().item() > bar
 
 
 @pytest.mark.gpu
