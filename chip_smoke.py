@@ -12,15 +12,16 @@ Phases, each printed before the last line:
    register / shared-memory / spill report.
 3. kernels: each of the nine kernels against its plain PyTorch version at
    main-path shapes, batch 1 and 8 (and a ragged batch; geglu_ff also at an
-   out_dim of 768; fused_ln_geglu_residual also with one AdaLN row per
-   frame), with checks that the bar catches a kernel dropping a bias or a
-   scale row, computing the other mod mode or applying frame 0's
-   modulation row to every frame (the nearest-neighbour kernels: bitwise,
-   and nn_min_sq_batch bitwise equal to nn_min_sq_both's rows), then timed
-   with CUDA events beside the plain version, a composite of library calls
-   the port never makes (``library_ms``) and the card's bound for the same
-   work; the two bf16 FF kernels and their composites also with cold
-   weights (``ms_cold``: 24 weight sets in turn, more than the L2 holds).
+   out_dim of 768; fused_ln_geglu_residual and the three attention kernels
+   also with one AdaLN row per frame), with checks that the bar catches a
+   kernel dropping a bias or a scale row, computing the other mod mode or
+   applying frame 0's modulation row to every frame (the nearest-neighbour
+   kernels: bitwise, and nn_min_sq_batch bitwise equal to nn_min_sq_both's
+   rows), then timed with CUDA events beside the plain version, a composite
+   of library calls the port never makes (``library_ms``) and the card's
+   bound for the same work; the two bf16 FF kernels, the three attention
+   kernels and their composites also with cold weights (``ms_cold``: 24
+   weight sets in turn, one per DiT layer).
 4. main path: the product eval chain of
    ``configs/generation/ge_indoor_unfreeze_enc_ints_only_eval.yml`` at full
    width (DiT dim 512 x 24 blocks, VAE dim 512 x 24 blocks, bf16) on seeded
@@ -50,9 +51,11 @@ Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
 
 One-offs outside the default run: ``nn_library_b8()`` times the
-nearest-neighbour library yardsticks at batch 8, ``ff_breakdown()`` splits
-the bf16 FF calls into host and device time, and ``trace_sample()`` traces
-the product sampler (device busy time and idle share at batch 1 and 8).
+nearest-neighbour library yardsticks at batch 8, ``ff_breakdown()`` and
+``attn_breakdown()`` split the bf16 FF calls and the three attention calls
+into host and device time and per-launch device time, and
+``trace_sample()`` traces the product sampler, as shipped or in a kernel
+mode (device busy time and idle share at batch 1 and 8).
 """
 from __future__ import annotations
 
@@ -180,10 +183,11 @@ def _geglu_bound(bsz: int, n: int):
     return bound(n_bytes, flops, PEAK_BF16)
 
 
-# Cold weights: the main path reads each of its 24 layers' FF weights (6 MB
-# bf16) once per NFE, from HBM rather than L2. Rotating through 24 weight
-# sets (144 MB, beyond the 50 MB L2) times the FF kernels and their library
-# composites that way (ms_cold / library_ms_cold).
+# Cold weights: the main path reads each of its 24 layers' weights once per
+# NFE, from HBM rather than L2. Rotating through 24 weight sets (FF: 144 MB,
+# beyond the 50 MB L2; self-attention: 48 MB bf16 or 24-36 MB int8, within
+# it, so some of those reads may still hit L2) times the kernels and their
+# library composites that way (ms_cold / library_ms_cold).
 COLD_SETS = 24
 
 
@@ -252,14 +256,15 @@ def _int8_static_inputs(ff_args):
             inv127(ag))
 
 
-def _int8_attn_inputs(bsz: int, n: int, vout: bool, gen: torch.Generator):
+def _int8_attn_inputs(bsz: int, n: int, vout: bool, gen: torch.Generator, per_batch=False):
     from rald_torch.ops.geglu_kernel import quantize_cols
 
     def rnd(*shape, std=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * std
 
     x = rnd(bsz, n, D).bfloat16()
-    s, b = rnd(1, D, std=0.1).bfloat16(), rnd(1, D, std=0.1).bfloat16()
+    rows = (bsz, 1, D) if per_batch else (1, D)  # one AdaLN row per frame, or one shared
+    s, b = rnd(*rows, std=0.1).bfloat16(), rnd(*rows, std=0.1).bfloat16()
     w = [rnd(D, D, std=D ** -0.5) for _ in range(4)]
     qk = (w[0].bfloat16(), w[1].bfloat16()) if vout else (*quantize_cols(w[0]),
                                                            *quantize_cols(w[1]))
@@ -356,68 +361,99 @@ def _drop_checks(label, plain, args, want, bar, drops, kw=None) -> dict:
     return moved
 
 
+# the attention kernels also with one AdaLN row per frame, as the DiT
+# passes them, at batch 8 and at (3, 300), where query tiles straddle frames;
+# a drop check gives every frame frame 0's row
+ATTN_FRAME_SHAPES = ((8, 512), (3, 300))
+
+
+def _row0(t):
+    return t[:1].expand_as(t).contiguous()  # frame 0's modulation row for every frame
+
+
+def _attn_weight_sets(gen: torch.Generator, kind: str) -> list:
+    """COLD_SETS weight sets of one self-attention sublayer, in the operand
+    order the kernel takes after (x, scale, shift): bf16 (wq, wk, wv, wo,
+    bo), int8 "full" or "vout" as ``_int8_attn_inputs`` makes them."""
+    from rald_torch.ops.geglu_kernel import quantize_cols
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * std
+
+    sets = []
+    for _ in range(COLD_SETS):
+        w, bo = [rnd(D, D, std=D ** -0.5) for _ in range(4)], rnd(D, std=0.5)
+        if kind == "bf16":
+            sets.append((*(t.bfloat16() for t in w), bo.bfloat16()))
+            continue
+        qk = (w[0].bfloat16(), w[1].bfloat16()) if kind == "vout" else (*quantize_cols(w[0]),
+                                                                         *quantize_cols(w[1]))
+        sets.append((*qk, *quantize_cols(w[2]), *quantize_cols(w[3]), bo))
+    return sets
+
+
+def _cold_lines(line, fn, library, args, bsz: int, wsets) -> None:
+    """``ms_cold`` / ``library_ms_cold``: the call with the next of COLD_SETS
+    weight sets each time, x and the modulation rows fixed."""
+    x, s, b = args[:3]
+    cold = (4 if bsz == 1 else 2) * COLD_SETS
+    line["ms_cold"] = _cold_ms(lambda *w: fn(x, s, b, *w), wsets, cold)
+    line["library_ms_cold"] = _cold_ms(lambda *w: library(x, s, b, *w), wsets, cold)
+
+
 def _int8_kernel_entries(gen: torch.Generator) -> list:
     from rald_torch.ops import attn_kernel as ak
     from rald_torch.ops import geglu_kernel as gk
 
     zero, one = torch.zeros_like, torch.ones_like
-    specs = [  # name, kernel, plain, inputs, library, drop checks, TPU kernel
+    specs = [  # name, kernel, plain, inputs, library, drop checks, TPU kernel, attention
         ("fused_ln_geglu_residual_int8", gk.fused_ln_geglu_residual_int8,
-         gk.fused_ln_geglu_residual_int8_plain, lambda b, n: _int8_ff_inputs(b, n, gen),
+         gk.fused_ln_geglu_residual_int8_plain, lambda b, n, _: _int8_ff_inputs(b, n, gen),
          _int8_ff_library,
          {"b1": (5, zero), "b2": (8, zero), "s1": (4, one), "s2": (7, one)},
-         "rald_tpu/ops/geglu_kernel.py:411", "rald_torch/csrc/geglu_int8.cu"),
+         "rald_tpu/ops/geglu_kernel.py:453", "rald_torch/csrc/geglu_int8.cu", None),
         ("fused_ln_geglu_residual_int8_static", gk.fused_ln_geglu_residual_int8_static,
          gk.fused_ln_geglu_residual_int8_static_plain,
-         lambda b, n: _int8_static_inputs(_int8_ff_inputs(b, n, gen)), _int8_ff_library,
+         lambda b, n, _: _int8_static_inputs(_int8_ff_inputs(b, n, gen)), _int8_ff_library,
          {"b1": (5, zero), "b2": (8, zero), "d1": (4, one), "d2": (7, one),
           "inv_h": (9, one), "inv_g": (10, one)},
-         "rald_tpu/ops/geglu_kernel.py:297", "rald_torch/csrc/geglu_int8.cu"),
+         "rald_tpu/ops/geglu_kernel.py:347", "rald_torch/csrc/geglu_int8.cu", None),
         ("fused_self_attention_block_int8", ak.fused_self_attention_block_int8,
          ak.fused_self_attention_block_int8_plain,
-         lambda b, n: _int8_attn_inputs(b, n, False, gen),
+         lambda b, n, per: _int8_attn_inputs(b, n, False, gen, per),
          lambda *a: _int8_attn_library(*a, vout=False),
          {"bo": (11, zero), "so": (10, one), "sv": (8, one), "sq": (4, one)},
-         "rald_tpu/ops/attn_kernel.py:241", "rald_torch/csrc/attn_int8.cu"),
+         "rald_tpu/ops/attn_kernel.py:274", "rald_torch/csrc/attn.cu", "full"),
         ("fused_self_attention_block_int8_vout", ak.fused_self_attention_block_int8_vout,
          ak.fused_self_attention_block_int8_vout_plain,
-         lambda b, n: _int8_attn_inputs(b, n, True, gen),
+         lambda b, n, per: _int8_attn_inputs(b, n, True, gen, per),
          lambda *a: _int8_attn_library(*a, vout=True),
          {"bo": (9, zero), "so": (8, one), "sv": (6, one)},
-         "rald_tpu/ops/attn_kernel.py:342", "rald_torch/csrc/attn_int8.cu"),
+         "rald_tpu/ops/attn_kernel.py:377", "rald_torch/csrc/attn.cu", "vout"),
     ]
     entries = []
-    for name, fn, plain, make, library, drops, replaces, source in specs:
+    for name, fn, plain, make, library, drops, replaces, source, attn in specs:
         rows = {}
-        for bsz, n in INT8_SHAPES:
-            args = make(bsz, n)
-            got = fn(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ref = want.float().abs().max().item()
-            check(math.isfinite(err) and err <= INT8_BAR * ref,
-                  f"{name} ({bsz},{n},{D}): max err {err:.3e} > {INT8_BAR} * {ref:.3e}")
-            line = {"shape": [bsz, n, D], "max_abs_err": err, "max_abs_out": ref,
-                    "dropped": _drop_checks(f"{name} ({bsz},{n},{D})", plain, args, want,
-                                            INT8_BAR * ref, drops)}
-            if n == 512:
-                iters = 200 if bsz == 1 else 50
-                line["ms"] = cuda_ms(lambda: fn(*args), iters)
-                line["plain_ms"] = cuda_ms(lambda: plain(*args), iters // 4)
-                line["library_ms"] = cuda_ms(lambda: library(*args), iters)
-                line["bound_ms"], line["bound_by"] = _int8_bound(name, bsz, n)
-            rows[bsz] = line
+        wsets = _attn_weight_sets(gen, attn) if attn else None
+        shapes = [(b, n, False) for b, n in INT8_SHAPES]
+        if attn:
+            shapes += [(b, n, True) for b, n in ATTN_FRAME_SHAPES]
+        for bsz, n, per_batch in shapes:
+            args = make(bsz, n, per_batch)
+            label = f"{name} ({bsz},{n},{D})" + (" per-frame rows" if per_batch else "")
+            line = {"shape": [bsz, n, D], "per_frame_rows": per_batch, **_parity(
+                label, fn, plain, args, INT8_BAR,
+                {**drops, "row0": ((1, _row0), (2, _row0))} if per_batch else drops)}
+            if n == 512 and not per_batch:
+                _timed(line, fn, plain, library, args, {}, 200 if bsz == 1 else 50,
+                       _int8_bound(name, bsz, n))
+                if attn:
+                    _cold_lines(line, fn, library, args, bsz, wsets)
+                rows[bsz] = line
+            rows.setdefault((bsz, n, per_batch), line)
             print(f"[kernels] {name} " + json.dumps(line))
-        r1 = rows[1]
-        entries.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "shape": r1["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-            "ms": r1["ms"], "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"],
-            "bound_by": r1["bound_by"], "library_ms": r1["library_ms"], "ms_b8": rows[8]["ms"],
-            "plain_ms_b8": rows[8]["plain_ms"], "bound_ms_b8": rows[8]["bound_ms"],
-            "library_ms_b8": rows[8]["library_ms"],
-        })
+        entry = _entry(name, source, replaces, rows, 1, 8)
+        entries.append(_cold_keys(entry, rows) if attn else entry)
     return entries
 
 
@@ -427,12 +463,13 @@ def _int8_kernel_entries(gen: torch.Generator) -> list:
 ATTN_SHAPES = ((1, 512), (8, 512), (3, 300))
 
 
-def _attn_inputs(bsz: int, n: int, adaln: bool, gen: torch.Generator):
+def _attn_inputs(bsz: int, n: int, adaln: bool, gen: torch.Generator, per_batch=False):
     def rnd(*shape, std=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * std).bfloat16()
 
     x = rnd(bsz, n, D)
-    s, b = (rnd(1, D, std=0.5), rnd(1, D, std=0.1)) if adaln else (
+    rows = (bsz, 1, D) if per_batch else (1, D)  # one AdaLN row per frame, or one shared
+    s, b = (rnd(*rows, std=0.5), rnd(*rows, std=0.1)) if adaln else (
         (1.0 + rnd(D, std=0.1).float()).bfloat16(), rnd(D, std=0.1))
     w = [rnd(D, D, std=D ** -0.5) for _ in range(4)]
     return (x, s, b, *w, rnd(D, std=0.5))
@@ -527,24 +564,28 @@ def _bf16_kernel_entries(gen: torch.Generator, wsets: list) -> list:
     from rald_torch.ops import geglu_kernel as gk
 
     zero = torch.zeros_like
+    wsets_attn = _attn_weight_sets(gen, "bf16")
     rows = {}
-    for bsz, n in ATTN_SHAPES:
-        for adaln in (True, False):
-            args = _attn_inputs(bsz, n, adaln, gen)
-            kw = {"scale_shift_mod": adaln}
-            label = f"fused_self_attention_block ({bsz},{n},{D}) {'adaln' if adaln else 'affine'}"
-            line = {"shape": [bsz, n, D], "mode": "adaln" if adaln else "affine", **_parity(
-                label, ak.fused_self_attention_block, ak.fused_self_attention_block_plain, args,
-                INT8_BAR, {"bo": (7, zero), "scale": (1, zero),
-                           "mode": {"scale_shift_mod": not adaln}}, kw)}
-            if n == 512 and adaln:
-                _timed(line, ak.fused_self_attention_block, ak.fused_self_attention_block_plain,
-                       _attn_library, args, kw, 200 if bsz == 1 else 50, _attn_bound(bsz, n))
-                rows[bsz] = line
-            rows.setdefault((bsz, n, adaln), line)
-            print("[kernels] fused_self_attention_block " + json.dumps(line))
-    attn = _entry("fused_self_attention_block", "rald_torch/csrc/attn_int8.cu",
-                  "rald_tpu/ops/attn_kernel.py:85", rows, 1, 8)
+    cases = [(b, n, adaln, False) for b, n in ATTN_SHAPES for adaln in (True, False)]
+    for bsz, n, adaln, per_batch in cases + [(b, n, True, True) for b, n in ATTN_FRAME_SHAPES]:
+        args = _attn_inputs(bsz, n, adaln, gen, per_batch)
+        kw = {"scale_shift_mod": adaln}
+        mode = ("adaln" if adaln else "affine") + (", per-frame rows" if per_batch else "")
+        drops = {"bo": (7, zero), "scale": (1, zero), "mode": {"scale_shift_mod": not adaln}}
+        if per_batch:
+            drops["row0"] = ((1, _row0), (2, _row0))
+        line = {"shape": [bsz, n, D], "mode": mode, **_parity(
+            f"fused_self_attention_block ({bsz},{n},{D}) {mode}", ak.fused_self_attention_block,
+            ak.fused_self_attention_block_plain, args, INT8_BAR, drops, kw)}
+        if n == 512 and adaln and not per_batch:
+            _timed(line, ak.fused_self_attention_block, ak.fused_self_attention_block_plain,
+                   _attn_library, args, kw, 200 if bsz == 1 else 50, _attn_bound(bsz, n))
+            _cold_lines(line, ak.fused_self_attention_block, _attn_library, args, bsz, wsets_attn)
+            rows[bsz] = line
+        rows.setdefault((bsz, n, mode), line)
+        print("[kernels] fused_self_attention_block " + json.dumps(line))
+    attn = _cold_keys(_entry("fused_self_attention_block", "rald_torch/csrc/attn.cu",
+                             "rald_tpu/ops/attn_kernel.py:121", rows, 1, 8), rows)
     attn["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
 
     rows = {}
@@ -564,7 +605,7 @@ def _bf16_kernel_entries(gen: torch.Generator, wsets: list) -> list:
         rows.setdefault((shape, out_dim), line)
         print("[kernels] geglu_ff " + json.dumps(line))
     ff = _cold_keys(_entry("geglu_ff", "rald_torch/csrc/geglu.cu",
-                           "rald_tpu/ops/geglu_kernel.py:492", rows, 1, 8), rows)
+                           "rald_tpu/ops/geglu_kernel.py:522", rows, 1, 8), rows)
     ff["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
     return [attn, ff]
 
@@ -587,14 +628,13 @@ def _geglu_ln_entry(gen: torch.Generator, wsets: list) -> dict:
     from rald_torch.ops.geglu_kernel import fused_ln_geglu_residual, fused_ln_geglu_residual_plain
 
     zero = torch.zeros_like
-    row0 = lambda t: t[:1].expand_as(t).contiguous()  # frame 0's row for every frame
     rows = {}
     for bsz, n, adaln, per_batch in GEGLU_SHAPES:
         args = _geglu_inputs(bsz, n, adaln, gen, per_batch)
         kw = {"scale_shift_mod": adaln}
         drops = {"b1": (4, zero), "b2": (6, zero)}
         if per_batch:
-            drops["row0"] = ((1, row0), (2, row0))
+            drops["row0"] = ((1, _row0), (2, _row0))
         mode = ("adaln" if adaln else "affine") + (", per-frame rows" if per_batch else "")
         line = {"shape": [bsz, n, D], "mode": mode, **_parity(
             f"fused_ln_geglu_residual ({bsz},{n},{D}) {mode}", fused_ln_geglu_residual,
@@ -613,7 +653,7 @@ def _geglu_ln_entry(gen: torch.Generator, wsets: list) -> dict:
         rows.setdefault((bsz, n, mode), line)
         print("[kernels] fused_ln_geglu_residual " + json.dumps(line))
     return _cold_keys(_entry("fused_ln_geglu_residual", "rald_torch/csrc/geglu.cu",
-                             "rald_tpu/ops/geglu_kernel.py:134", rows, 1, 8), rows)
+                             "rald_tpu/ops/geglu_kernel.py:183", rows, 1, 8), rows)
 
 
 def _nn_inputs(bsz: int, gen: torch.Generator):
@@ -693,11 +733,11 @@ def phase_kernels() -> list:
     entries += _int8_kernel_entries(gen)
     entries += _bf16_kernel_entries(gen, wsets)
     entries.append(_entry("nn_min_sq_batch", "rald_torch/csrc/nn_dist.cu",
-                          "rald_tpu/ops/nn_dist_kernel.py:145", batch_rows, 1, 8))
+                          "rald_tpu/ops/nn_dist_kernel.py:168", batch_rows, 1, 8))
 
     entries.insert(1, {
         "name": "nn_min_sq_both", "route": "cuda", "source": "rald_torch/csrc/nn_dist.cu",
-        "replaces": "rald_tpu/ops/nn_dist_kernel.py:87", "shape": nn_line["shape"],
+        "replaces": "rald_tpu/ops/nn_dist_kernel.py:112", "shape": nn_line["shape"],
         "max_abs_err": max(r["max_abs_err"] for r in nn_rows.values()), "ms": nn_line["ms"],
         "plain_ms": nn_line["plain_ms"], "bound_ms": nn_line["bound_ms"],
         "bound_by": nn_line["bound_by"], "library_ms": nn_line["library_ms"],
@@ -726,19 +766,56 @@ def nn_library_b8() -> dict:
     return line
 
 
+def _breakdown(tag: str, calls: dict, shape: list) -> list:
+    """Host and device time of each call: ``host_ms``, host time per call
+    with no synchronisation in the loop; ``events_ms``, CUDA events around
+    back-to-back calls (phase 3's ``ms``); ``device_ms``, a CUDA graph of 20
+    calls replayed, so no host work between launches; ``launches_ms``, each
+    kernel's device time per call from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lines = []
+    for name, fn in calls.items():
+        line = {"name": name, "shape": shape, "events_ms": cuda_ms(fn, 200)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        line["host_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()
+            torch.cuda.synchronize()
+            with torch.cuda.graph(graph, stream=stream):
+                for _ in range(20):
+                    fn()
+        torch.cuda.synchronize()
+        line["device_ms"] = cuda_ms(graph.replay, 20) / 20
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                key = e.name[:70]  # template arguments included, call arguments cut
+                per[key] = per.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 20e3
+        line["launches_ms"] = per
+        line["nvidia_smi"] = smi_line()
+        print(f"[{tag}] " + json.dumps(line))
+        lines.append(line)
+    return lines
+
+
 def ff_breakdown(batches=(1, 8)) -> list:
     """One-off, outside the default run: the two bf16 FF calls and their
-    library composite split into host and device time, at the main path's
-    batches with one AdaLN row per frame. ``host_ms``: host time per call
-    with no synchronisation in the loop; ``events_ms``: CUDA events around
-    back-to-back calls (phase 3's ``ms``); ``device_ms``: a CUDA graph of
-    20 calls replayed, so no host work between launches; ``launches_ms``:
-    each kernel's device time per call from ``torch.profiler``.
+    library composite split into host and device time (``_breakdown``), at
+    the main path's batches with one AdaLN row per frame.
 
         python3 -c "import chip_smoke as c; c.ff_breakdown()"
     """
-    from torch.profiler import ProfilerActivity, profile
-
     from rald_torch.ops import geglu_kernel as gk
 
     check(torch.cuda.is_available(), "ff_breakdown needs a CUDA device")
@@ -752,48 +829,51 @@ def ff_breakdown(batches=(1, 8)) -> list:
             "library (fused_ln_geglu_residual)": lambda: _geglu_library(x, s, b, w1, b1, w2, b2,
                                                                         True),
         }
-        for name, fn in calls.items():
-            line = {"name": name, "shape": [bsz, 512, D], "events_ms": cuda_ms(fn, 200)}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(200):
-                fn()
-            line["host_ms"] = (time.perf_counter() - t0) / 200 * 1e3
-            torch.cuda.synchronize()
-            graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
-            stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(stream):
-                fn()
-                torch.cuda.synchronize()
-                with torch.cuda.graph(graph, stream=stream):
-                    for _ in range(20):
-                        fn()
-            torch.cuda.synchronize()
-            line["device_ms"] = cuda_ms(graph.replay, 20) / 20
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    fn()
-                torch.cuda.synchronize()
-            per = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    key = e.name[:70]  # template arguments included, call arguments cut
-                    per[key] = per.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 20e3
-            line["launches_ms"] = per
-            line["nvidia_smi"] = smi_line()
-            print("[ff_breakdown] " + json.dumps(line))
-            lines.append(line)
+        lines += _breakdown("ff_breakdown", calls, [bsz, 512, D])
     return lines
 
 
-def trace_sample(batches=(1, 8), fused_attn: bool = False) -> list:
-    """One-off, outside the default run: where the product sampler's time
-    goes. For each batch, ``sample_tokens`` (cube -> 35-NFE tokens) once
-    untraced (wall ms) and once under ``torch.profiler``: the device's busy
-    time (the union of its kernels' intervals), its idle share of the
-    untraced wall time, the kernel launches, and the kernels by device time.
+def attn_breakdown(batches=(1, 8)) -> list:
+    """One-off, outside the default run: the three self-attention kernels
+    and the bf16 and int8 "vout" library composites split into host and
+    device time (``_breakdown``: per call, and each launch -- LN, every
+    GEMM, core, row quantization -- by ``torch.profiler``), at the main
+    path's batches with one AdaLN row per frame.
 
-        python3 -c "import chip_smoke as c; c.trace_sample()"
+        python3 -c "import chip_smoke as c; c.attn_breakdown()"
+    """
+    from rald_torch.ops import attn_kernel as ak
+
+    check(torch.cuda.is_available(), "attn_breakdown needs a CUDA device")
+    gen = torch.Generator("cuda").manual_seed(0)
+    lines = []
+    for bsz in batches:
+        bf = _attn_inputs(bsz, 512, True, gen, per_batch=True)
+        full = _int8_attn_inputs(bsz, 512, False, gen, per_batch=True)
+        vout = _int8_attn_inputs(bsz, 512, True, gen, per_batch=True)
+        calls = {
+            "fused_self_attention_block": lambda: ak.fused_self_attention_block(*bf),
+            "fused_self_attention_block_int8": lambda: ak.fused_self_attention_block_int8(*full),
+            "fused_self_attention_block_int8_vout":
+                lambda: ak.fused_self_attention_block_int8_vout(*vout),
+            "library (fused_self_attention_block)": lambda: _attn_library(*bf),
+            "library (fused_self_attention_block_int8_vout)":
+                lambda: _int8_attn_library(*vout, vout=True),
+        }
+        lines += _breakdown("attn_breakdown", calls, [bsz, 512, D])
+    return lines
+
+
+def trace_sample(batches=(1, 8), fused_attn: bool = False, int8_ff=False, int8_attn=False) -> list:
+    """One-off, outside the default run: where the product sampler's time
+    goes, as shipped or in one of the kernel modes (``use_fused_attn``, or
+    ``eval.inference.int8_ff`` / ``int8_attn``). For each batch,
+    ``sample_tokens`` (cube -> 35-NFE tokens) once untraced (wall ms) and
+    once under ``torch.profiler``: the device's busy time (the union of its
+    kernels' intervals), its idle share of the untraced wall time, the
+    kernel launches, and the kernels by device time.
+
+        python3 -c "import chip_smoke as c; c.trace_sample(int8_ff=True, int8_attn='vout')"
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -801,7 +881,9 @@ def trace_sample(batches=(1, 8), fused_attn: bool = False) -> list:
     from rald_torch.train.gen_engine import GenerationEngine
 
     check(torch.cuda.is_available(), "trace_sample needs a CUDA device")
-    cfg = _product_cfg(fused_attn=fused_attn)
+    cfg = _product_cfg(int8_ff, int8_attn, fused_attn=fused_attn)
+    mode = ("use_fused_attn" if fused_attn else
+            f"int8_ff={int8_ff},int8_attn={int8_attn}" if int8_ff or int8_attn else "bf16")
     rng = np.random.default_rng(cfg.system.seed)
     eng = GenerationEngine(cfg)
     lines = []
@@ -831,7 +913,7 @@ def trace_sample(batches=(1, 8), fused_attn: bool = False) -> list:
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        line = {"mode": "use_fused_attn" if fused_attn else "bf16", "batch": bsz,
+        line = {"mode": mode, "batch": bsz,
                 "wall_ms": wall, "traced_wall_ms": traced, "device_busy_ms": busy / 1e3,
                 "device_idle_share": 1.0 - busy / 1e3 / wall, "kernels": len(spans),
                 "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},

@@ -44,14 +44,14 @@
 //     loop over all inner columns in order (no split-K partials), on 64- or
 //     128-row by 64- or 128-column tiles chosen by the wrapper so that the
 //     grid fills the card (geglu_kernel.py gemm2_tile).
-// Both GEMMs are warp-specialised: one producer warp keeps TMA loads of the
-// A tile and the weight boxes in flight through a ring of shared-memory
-// stages (128-byte swizzle, one full and one empty mbarrier per stage), and
-// one or two consumer warpgroups of 64 rows each run wgmma with f32
-// accumulators in registers, releasing a stage as soon as the products that
-// read it are done. Rows past the end read as zeros (TMA) and are not
-// stored. No sum uses atomics, so the output is the same from run to run.
-// GEMM1's K loop is short (8 slices of 64), so a block spends much of its
+// Both GEMMs are sm90_gemm.cuh's warp-specialised GEMM (shared with
+// attn.cu): one producer warp keeps TMA loads of the A tile and the weight
+// boxes in flight through a ring of shared-memory stages (128-byte swizzle,
+// one full and one empty mbarrier per stage), and one or two consumer
+// warpgroups of 64 rows each run wgmma with f32 accumulators in registers,
+// releasing a stage as soon as the products that read it are done. Rows past
+// the end read as zeros (TMA) and are not stored. No sum uses atomics, so the
+// output is the same from run to run. GEMM1's K loop is short (8 slices of 64), so a block spends much of its
 // time filling the ring and in the GELU epilogue; it is compiled for two
 // resident blocks per SM (__launch_bounds__ min 2: no spills on sm_90a), so
 // one block's epilogue overlaps the other's products. (A persistent grid,
@@ -61,45 +61,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "sm90_common.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using sm90::bf16;
+using sm90::BJ;
 
 constexpr int D = 512;        // model width (the only width this build takes)
-constexpr int BK = 64;        // K columns per stage: one 128-byte swizzled row
 constexpr int BM1 = 128;      // GEMM1 rows per block (two consumer warpgroups)
-constexpr int BJ = 64;        // GEMM1 inner columns per block: 64 value + 64 gate
 constexpr int LN_ROWS = 8;    // LN rows per block, one warp each
 constexpr int STAGES1 = 3;    // GEMM1 stages (K = D: 8 slices)
 constexpr int STAGES2 = 4;    // GEMM2 stages (K = inner)
-
-enum Epi { GEGLU = 0, OUT = 1, OUT_RESID = 2 };
-
-// shared memory of a GEMM block: STAGES x (A tile of WG*64 rows, B tile of N
-// rows), each BK columns of bf16, then the barriers; + 1 KB to align the
-// tiles to the 1024-byte swizzle atom
-template <int WG, int N, int STAGES>
-struct Smem {
-  static constexpr int A = WG * 64 * BK * 2;
-  static constexpr int B = N * BK * 2;
-  static constexpr int STAGE = A + B;
-  static constexpr int BYTES = STAGES * STAGE + 2 * STAGES * 8 + 1024;
-};
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// (value, gate) product sums -> the gated value, at the plain version's
-// rounding points; the caller rounds the result
-__device__ __forceinline__ float geglu(float v, float g, float bv, float bg) {
-  const float val = bf16_round(v + bv);
-  const float gate = bf16_round(g + bg);
-  const float gl = bf16_round(0.5f * gate * (1.f + erff(gate * 0.7071067811865476f)));
-  return val * gl;
-}
 
 // ---- stage 1: h = bf16(mod(LN(x))), one warp per row; lane l holds columns
 // [8l, 8l+8) and [256+8l, 256+8l+8)
@@ -160,171 +133,38 @@ ln_mod_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s, const bf16
   }
 }
 
-// ---- stages 2 and 3: C = A B^T, A (rows, K) and B (*, K) bf16 K-major
-// through TMA maps, one (WG*64)-row tile of A and one N-row tile of B per
-// block. GEGLU: B is W1, the N = 128 rows of a tile are the value rows
-// [n0, n0+64) and the gate rows [inner+n0, inner+n0+64); out is g (rows,
-// inner). OUT / OUT_RESID: B is W2 (ncols, K); out (rows, ncols) =
-// bf16(C + bias (+ resid)).
-template <int EPI, int WG, int N, int STAGES>
-__global__ void __launch_bounds__(WG * 128 + 32, EPI == GEGLU ? 2 : 1)
-gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-            int rows, int k_tiles, int inner, int ncols, const bf16* __restrict__ bias,
-            const bf16* __restrict__ resid, bf16* __restrict__ out) {
-  using S = Smem<WG, N, STAGES>;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * S::STAGE);
-  uint64_t* empty = full + STAGES;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n0 = blockIdx.x * (EPI == GEGLU ? BJ : N);
-  const int m0 = blockIdx.y * WG * 64;
-
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], WG * 4);  // one arrival per consumer warp
-    }
-    sm90::fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (warp == WG * 4) {
-    // producer warp: one thread issues every TMA load of the block
-    if (lane == 0) {
-      for (int kt = 0; kt < k_tiles; ++kt) {
-        const int s = kt % STAGES;
-        if (kt >= STAGES) sm90::mbar_wait(&empty[s], ((kt / STAGES) - 1) & 1);
-        uint8_t* a = smem + s * S::STAGE;
-        uint8_t* bt = a + S::A;
-        sm90::mbar_arrive_expect_tx(&full[s], S::STAGE);
-        sm90::tma_load_2d(a, &map_a, &full[s], kt * BK, m0);
-        if constexpr (EPI == GEGLU) {
-          sm90::tma_load_2d(bt, &map_b, &full[s], kt * BK, n0);
-          sm90::tma_load_2d(bt + BJ * BK * 2, &map_b, &full[s], kt * BK, inner + n0);
-        } else {
-          sm90::tma_load_2d(bt, &map_b, &full[s], kt * BK, n0);
-        }
-      }
-    }
-    return;
-  }
-
-  // consumer warpgroup wg: rows [m0 + 64 wg, m0 + 64 wg + 64) of the tile
-  const int wg = warp >> 2;
-  float acc[N / 2];
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int s = kt % STAGES;
-    sm90::mbar_wait(&full[s], (kt / STAGES) & 1);
-    const uint8_t* a = smem + s * S::STAGE + wg * 64 * BK * 2;
-    const uint64_t da = sm90::desc_sw128(a);
-    const uint64_t db = sm90::desc_sw128(smem + s * S::STAGE + S::A);
-    sm90::fence_regs(acc);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < BK / 16; ++k)
-      sm90::wgmma_bf16(acc, sm90::desc_advance_k(da, k), sm90::desc_advance_k(db, k));
-    sm90::wgmma_commit();
-    sm90::fence_regs(acc);
-    // the previous stage's products are done: hand its buffers back
-    sm90::wgmma_wait<1>();
-    sm90::fence_regs(acc);
-    if (kt > 0 && lane == 0) sm90::mbar_arrive(&empty[(kt - 1) % STAGES]);
-  }
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(acc);
-
-  // accumulator layout of m64nNk16: register 4j + 2i + e holds row
-  // 16 (warp % 4) + lane / 4 + 8 i, column 8 j + 2 (lane % 4) + e
-  const int r0 = m0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
-  const int cq = 2 * (lane & 3);
-  if constexpr (EPI == GEGLU) {
-#pragma unroll
-    for (int j = 0; j < BJ / 8; ++j) {
-      const int c = n0 + 8 * j + cq;  // inner column; its gate is N/2 registers on
-      const float bv0 = __bfloat162float(bias[c]), bv1 = __bfloat162float(bias[c + 1]);
-      const float bg0 = __bfloat162float(bias[inner + c]);
-      const float bg1 = __bfloat162float(bias[inner + c + 1]);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = r0 + 8 * i;
-        if (r < rows) {
-          const int q = 4 * j + 2 * i;
-          *reinterpret_cast<__nv_bfloat162*>(out + (long long)r * inner + c) =
-              __floats2bfloat162_rn(geglu(acc[q], acc[N / 4 + q], bv0, bg0),
-                                    geglu(acc[q + 1], acc[N / 4 + q + 1], bv1, bg1));
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const int c = n0 + 8 * j + cq;
-      if (c >= ncols) continue;  // ncols % 16 == 0: uniform over the 8-column group
-      const float bb0 = __bfloat162float(bias[c]), bb1 = __bfloat162float(bias[c + 1]);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = r0 + 8 * i;
-        if (r >= rows) continue;
-        const int q = 4 * j + 2 * i;
-        float y0 = acc[q] + bb0, y1 = acc[q + 1] + bb1;
-        if constexpr (EPI == OUT_RESID) {
-          const float2 xr = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(resid + (long long)r * ncols + c));
-          y0 += xr.x;
-          y1 += xr.y;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)r * ncols + c) =
-            __floats2bfloat162_rn(y0, y1);
-      }
-    }
-  }
+// GEMM1: h (rows, D) x W1 -> g (rows, inner) with the GEGLU epilogue
+cudaError_t launch_geglu(const CUtensorMap& map_a, const CUtensorMap& map_w1, int rows, int inner,
+                         const void* b1, void* g, cudaStream_t st) {
+  sm90::Maps maps = {};
+  maps.a = map_a;
+  maps.b[0] = map_w1;
+  sm90::GemmArgs p = {};
+  p.rows = rows;
+  p.k_tiles = D * 2 / sm90::BK_BYTES;
+  p.inner = inner;
+  p.bias = b1;
+  p.out[0] = g;
+  return sm90::launch_gemm<bf16, sm90::GEGLU, 2, 2 * BJ, STAGES1>(maps, p, 1, st);
 }
 
-template <int EPI, int WG, int N, int STAGES>
-cudaError_t launch_gemm(const CUtensorMap& map_a, const CUtensorMap& map_b, int rows, int k,
-                        int inner, int ncols, const void* bias, const void* resid, void* out,
-                        cudaStream_t st) {
-  using S = Smem<WG, N, STAGES>;
-  static bool attr = false;
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(gemm_kernel<EPI, WG, N, STAGES>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               S::BYTES);
-    if (e != cudaSuccess) return e;
-    attr = true;
-  }
-  const int col_tiles = EPI == GEGLU ? inner / BJ : (ncols + N - 1) / N;
-  const dim3 grid(col_tiles, (rows + WG * 64 - 1) / (WG * 64));
-  gemm_kernel<EPI, WG, N, STAGES><<<grid, WG * 128 + 32, S::BYTES, st>>>(
-      map_a, map_b, rows, k / BK, inner, ncols, (const bf16*)bias, (const bf16*)resid,
-      (bf16*)out);
-  return cudaGetLastError();
-}
-
-bool tile_ok(int bm, int bn) { return (bm == 64 || bm == 128) && (bn == 64 || bn == 128); }
-
-// GEMM2 on (bm, bn) tiles; map_a's boxes are bm rows, map_b's bn rows
+// GEMM2: g (rows, inner) x W2 -> out (rows, ncols) = bf16(acc + b2 (+ x))
+// on (bm, bn) tiles
 template <int EPI>
 cudaError_t launch_out(int bm, int bn, const CUtensorMap& map_a, const CUtensorMap& map_b,
                        int rows, int inner, int ncols, const void* bias, const void* resid,
                        void* out, cudaStream_t st) {
-  if (bm == 128 && bn == 128)
-    return launch_gemm<EPI, 2, 128, STAGES2>(map_a, map_b, rows, inner, inner, ncols, bias,
-                                             resid, out, st);
-  if (bm == 128)
-    return launch_gemm<EPI, 2, 64, STAGES2>(map_a, map_b, rows, inner, inner, ncols, bias, resid,
-                                            out, st);
-  if (bn == 128)
-    return launch_gemm<EPI, 1, 128, STAGES2>(map_a, map_b, rows, inner, inner, ncols, bias,
-                                             resid, out, st);
-  return launch_gemm<EPI, 1, 64, STAGES2>(map_a, map_b, rows, inner, inner, ncols, bias, resid,
-                                          out, st);
+  sm90::Maps maps = {};
+  maps.a = map_a;
+  maps.b[0] = map_b;
+  sm90::GemmArgs p = {};
+  p.rows = rows;
+  p.k_tiles = inner * 2 / sm90::BK_BYTES;
+  p.ncols = ncols;
+  p.bias = bias;
+  p.resid = static_cast<const bf16*>(resid);
+  p.out[0] = out;
+  return sm90::launch_tiled<bf16, EPI, STAGES2>(bm, bn, maps, p, 1, st);
 }
 
 }  // namespace
@@ -345,7 +185,7 @@ extern "C" int rald_fused_ln_geglu_residual_bf16(
     int n_tok, int inner, int bm, int bn, int scale_shift_mod, float eps, void* stream) {
   const long long rows_ll = (long long)batch * n_tok;
   if (inner <= 0 || inner % BJ != 0 || n_tok <= 0 || batch <= 0 || rows_ll > (1 << 30) ||
-      !tile_ok(bm, bn) || reinterpret_cast<uintptr_t>(x) % 16)
+      !sm90::tile_ok(bm, bn) || reinterpret_cast<uintptr_t>(x) % 16)
     return (int)cudaErrorInvalidValue;
   const int rows = (int)rows_ll;
   CUtensorMap map_h, map_w1, map_g, map_w2;
@@ -360,10 +200,9 @@ extern "C" int rald_fused_ln_geglu_residual_bf16(
       eps, (bf16*)h);
   e = cudaGetLastError();
   if (e == cudaSuccess)
-    e = launch_gemm<GEGLU, 2, 2 * BJ, STAGES1>(map_h, map_w1, rows, D, inner, 0, b1, nullptr, g,
-                                               st);
+    e = launch_geglu(map_h, map_w1, rows, inner, b1, g, st);
   if (e == cudaSuccess)
-    e = launch_out<OUT_RESID>(bm, bn, map_g, map_w2, rows, inner, D, b2, x, out, st);
+    e = launch_out<sm90::OUT_RESID>(bm, bn, map_g, map_w2, rows, inner, D, b2, x, out, st);
   return (int)e;
 }
 
@@ -374,7 +213,7 @@ extern "C" int rald_geglu_ff_bf16(const void* x, const void* w1, const void* b1,
                                   const void* b2, void* g, void* out, int n_tok, int inner,
                                   int out_dim, int bm, int bn, void* stream) {
   if (inner <= 0 || inner % BJ != 0 || n_tok <= 0 || out_dim <= 0 || out_dim % 16 != 0 ||
-      !tile_ok(bm, bn))
+      !sm90::tile_ok(bm, bn))
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_x, map_w1, map_g, map_w2;
   cudaError_t e = sm90::cached_map_bf16(&map_x, x, n_tok, D, BM1);
@@ -383,9 +222,8 @@ extern "C" int rald_geglu_ff_bf16(const void* x, const void* w1, const void* b1,
   if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_w2, w2, out_dim, inner, bn);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  e = launch_gemm<GEGLU, 2, 2 * BJ, STAGES1>(map_x, map_w1, n_tok, D, inner, 0, b1, nullptr, g,
-                                             st);
+  e = launch_geglu(map_x, map_w1, n_tok, inner, b1, g, st);
   if (e == cudaSuccess)
-    e = launch_out<OUT>(bm, bn, map_g, map_w2, n_tok, inner, out_dim, b2, nullptr, out, st);
+    e = launch_out<sm90::OUT>(bm, bn, map_g, map_w2, n_tok, inner, out_dim, b2, nullptr, out, st);
   return (int)e;
 }

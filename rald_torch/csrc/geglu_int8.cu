@@ -68,40 +68,40 @@ extern "C" int rald_fused_ln_geglu_residual_int8(
   }
 
   GemmParams p1 = gemm_params();
-  p1.A = (const unsigned char*)hq;
+  p1.A = (const signed char*)hq;
   p1.lda = D;
   p1.M = rows;
   p1.K = D;
-  p1.B[0] = (const unsigned char*)w1q;
+  p1.B = (const signed char*)w1q;
   p1.ldb = D;
   p1.half = inner;
   p1.rowscale = is_static ? nullptr : (const float*)hrow;
-  p1.colscale[0] = (const float*)c1;
+  p1.colscale = (const float*)c1;
   p1.bias = (const float*)b1;
   p1.g = (float*)g;
   p1.g_rowmax = (float*)grow;
   p1.gq = (signed char*)gq;
   p1.inv_g = is_static ? (const float*)inv_g : nullptr;
-  e = launch_gemm<true, EPI_GEGLU>(p1, 2 * inner, 1, st);
+  e = launch_gemm<EPI_GEGLU>(p1, 2 * inner, st);
   if (e != cudaSuccess) return (int)e;
 
   if (!is_static) {
-    e = launch_quant_rows(g, rows, inner, grow, gq, st);
+    e = launch_quant_rows(g, rows, inner, grow, 1, gq, grow, st);
     if (e != cudaSuccess) return (int)e;
   }
 
   GemmParams p2 = gemm_params();
-  p2.A = (const unsigned char*)gq;
+  p2.A = (const signed char*)gq;
   p2.lda = inner;
   p2.M = rows;
   p2.K = inner;
-  p2.B[0] = (const unsigned char*)w2q;
+  p2.B = (const signed char*)w2q;
   p2.ldb = inner;
   p2.rowscale = is_static ? nullptr : (const float*)grow;
-  p2.colscale[0] = (const float*)c2;
+  p2.colscale = (const float*)c2;
   p2.bias = (const float*)b2;
   p2.resid = (const bf16*)x;
-  p2.out[0] = out;
+  p2.out = (bf16*)out;
   p2.ldo = D;
-  return (int)launch_gemm<true, EPI_RESID>(p2, D, 1, st);
+  return (int)launch_gemm<EPI_RESID>(p2, D, st);
 }

@@ -1,8 +1,9 @@
-// Building blocks shared by the int8 kernels (geglu_int8.cu, attn_int8.cu):
+// Building blocks shared by the int8 kernels (geglu_int8.cu, attn.cu):
 // LayerNorm/mod + per-row int8 quantization, per-row quantization of an f32
-// matrix, and a tiled tensor-core GEMM (mma.sync: int8 m16n8k32 -> s32, or
-// bf16 m16n8k16 -> f32) whose epilogue dequantizes, adds bias / residual and
-// stores in the layout the next stage wants.
+// matrix, the mma.sync and cp.async helpers (attn.cu's attention core uses
+// the bf16 m16n8k16 one), and geglu_int8.cu's tiled int8 GEMM (mma.sync
+// m16n8k32 -> s32) whose epilogue dequantizes and adds bias / residual or
+// forms the gated product.
 //
 // Rounding points follow the TPU kernels (rald_tpu/ops/geglu_kernel.py
 // _ln_int8_kernel, attn_kernel.py _int8_kernel) and the plain PyTorch
@@ -17,8 +18,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace rald {
 
@@ -171,17 +170,21 @@ __global__ void ln_quant_kernel(const bf16* __restrict__ x, const bf16* __restri
 
 // ------------------------------------------------------------- row quantize
 // One warp per row of an f32 (rows, cols) matrix (cols % 128 == 0): codes
-// round(v * (127/amax)) with amax = max(rowmax[row], 1e-6), where rowmax
-// holds max|v| of the row; rowmax[row] is then replaced by amax/127, the
-// row's dequant scale.
+// round(v * (127/amax)) with amax = max(max|v| of the row, 1e-6), where
+// rowmax (rows, parts) holds max|v| over `parts` pieces of the row (the
+// whole row, or one head each); scale[row] then receives amax/127, the
+// row's dequant scale (scale may be rowmax itself when parts == 1).
 __global__ void quant_rows_kernel(const float* __restrict__ v, int rows, int cols,
-                                  float* __restrict__ rowmax, signed char* __restrict__ q) {
+                                  const float* rowmax, int parts, signed char* __restrict__ q,
+                                  float* scale) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * (blockDim.x >> 5) + warp;
   if (row >= rows) return;
-  const float amax = fmaxf(rowmax[row], 1e-6f);
+  float amax = 0.f;
+  for (int i = lane; i < parts; i += 32) amax = fmaxf(amax, rowmax[(long long)row * parts + i]);
+  amax = fmaxf(warp_max(amax), 1e-6f);
   const float mult = __fdiv_rn(127.f, amax);
-  __syncwarp();
+  __syncwarp();  // every lane has read rowmax before lane 0 may overwrite it
   const float4* src = reinterpret_cast<const float4*>(v + (long long)row * cols);
   char4* dst = reinterpret_cast<char4*>(q + (long long)row * cols);
   for (int c = lane; c < cols / 4; c += 32) {
@@ -189,44 +192,39 @@ __global__ void quant_rows_kernel(const float* __restrict__ v, int rows, int col
     dst[c] = make_char4(q8(__fmul_rn(f.x, mult)), q8(__fmul_rn(f.y, mult)),
                         q8(__fmul_rn(f.z, mult)), q8(__fmul_rn(f.w, mult)));
   }
-  if (lane == 0) rowmax[row] = __fdiv_rn(amax, 127.f);
+  if (lane == 0) scale[row] = __fdiv_rn(amax, 127.f);
 }
 
 // --------------------------------------------------------------------- GEMM
-// C (M, N) = A (M, K) . B (N, K)^T, A and B row-major (B in the torch
-// weight layout), K counted in bytes (int8: K values, bf16: K/2). A block
-// of 4 warps owns a 64 x 64 tile of C (each warp 32 x 32 = 2 x 4 mma tiles);
-// 64-byte K slices of A and B stream through a 3-stage cp.async ring in
-// shared memory, rows padded to 80 bytes so the fragment loads hit 32
-// different banks. blockIdx.z picks one of up to three B matrices (and
-// their column scales and outputs): the q / k / v projections in one launch.
+// C (M, N) = A (M, K) . B (N, K)^T, int8, A and B row-major (B in the torch
+// weight layout). A block of 4 warps owns a 64 x 64 tile of C (each warp
+// 32 x 32 = 2 x 4 mma tiles); 64-byte K slices of A and B stream through a
+// 3-stage cp.async ring in shared memory, rows padded to 80 bytes so the
+// fragment loads hit 32 different banks.
 constexpr int BM = 64, BN = 64, BK = 64, LDS = BK + 16, NST = 3, GT = 128;
 constexpr int TILE = BM * LDS;
 constexpr size_t GEMM_SMEM = size_t(NST) * 2 * TILE;
 
 enum Epi {
-  EPI_STORE = 0,  // bf16 out = (acc [* rowscale]) [* colscale], row-major or per-batch transposed
   EPI_RESID = 1,  // bf16 out = (acc [* rowscale]) * colscale + bias + resid
   EPI_GEGLU = 2,  // paired value/gate columns -> g = val * gelu_poly(gate)
 };
 
 struct GemmParams {
-  const unsigned char* A;
-  long long lda;  // bytes
-  int M, K;       // K in bytes, a multiple of BK
-  const unsigned char* B[3];
-  long long ldb;  // bytes
+  const signed char* A;
+  long long lda;
+  int M, K;  // K a multiple of BK
+  const signed char* B;
+  long long ldb;
   // EPI_GEGLU: tile columns [0, BN/2) are B rows n0/2 + c (values), the rest
   // B rows half + n0/2 + c - BN/2 (gates)
   int half;
-  const float* rowscale;     // (M) or null
-  const float* colscale[3];  // (N) or null
-  const float* bias;         // (N) or null
-  const bf16* resid;         // (M, ldo) or null
-  void* out[3];
-  int transposed[3];  // EPI_STORE: out[b][col][n_pad] with row = b * n_tok + n
-  long long ldo;      // elements per output row (EPI_STORE: also the width of a transposed out)
-  int n_tok, n_pad;
+  const float* rowscale;  // (M) or null
+  const float* colscale;  // (N)
+  const float* bias;      // (N)
+  const bf16* resid;      // (M, ldo)
+  bf16* out;
+  long long ldo;          // elements per output row
   // EPI_GEGLU: dynamic (inv_g null) writes g f32 (M, half) and max|g| per row
   // into g_rowmax; static writes codes round(clip(g * inv_g, +-127)) to gq
   float* g;
@@ -235,15 +233,13 @@ struct GemmParams {
   const float* inv_g;
 };
 
-template <bool INT8, int EPI>
+template <int EPI>
 __global__ void __launch_bounds__(GT) gemm_kernel(const GemmParams p) {
-  typedef typename std::conditional<INT8, int, float>::type Acc;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, z = blockIdx.z;
-  const unsigned char* Bz = p.B[z];
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
 
   auto load = [&](int st, int kt) {
     unsigned char* as = smem + st * 2 * TILE;
@@ -257,11 +253,11 @@ __global__ void __launch_bounds__(GT) gemm_kernel(const GemmParams p) {
       cp_async16(as + r * LDS + c, p.A + (long long)(ok ? gm : 0) * p.lda + kb + c, ok ? 16 : 0);
       int brow = n0 + r;
       if (EPI == EPI_GEGLU) brow = r < BN / 2 ? n0 / 2 + r : p.half + n0 / 2 + r - BN / 2;
-      cp_async16(bs + r * LDS + c, Bz + (long long)brow * p.ldb + kb + c, 16);
+      cp_async16(bs + r * LDS + c, p.B + (long long)brow * p.ldb + kb + c, 16);
     }
   };
 
-  Acc acc[2][4][4];
+  int acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -326,7 +322,7 @@ __global__ void __launch_bounds__(GT) gemm_kernel(const GemmParams p) {
           for (int e = 0; e < 2; ++e) {
             float f = (float)acc[i][j][2 * h + e];
             if (p.rowscale != nullptr) f = __fmul_rn(f, gm < p.M ? p.rowscale[gm] : 0.f);
-            P[r * PLD + c + e] = __fadd_rn(__fmul_rn(f, p.colscale[0][gc + e]), p.bias[gc + e]);
+            P[r * PLD + c + e] = __fadd_rn(__fmul_rn(f, p.colscale[gc + e]), p.bias[gc + e]);
           }
         }
     __syncthreads();
@@ -377,20 +373,11 @@ __global__ void __launch_bounds__(GT) gemm_kernel(const GemmParams p) {
         for (int e = 0; e < 2; ++e) {
           f[e] = (float)acc[i][j][2 * h + e];
           if (p.rowscale != nullptr) f[e] = __fmul_rn(f[e], p.rowscale[gm]);
-          if (p.colscale[z] != nullptr) f[e] = __fmul_rn(f[e], p.colscale[z][col + e]);
-          if (EPI == EPI_RESID)
-            f[e] = __fadd_rn(__fadd_rn(f[e], p.bias[col + e]),
-                             __bfloat162float(p.resid[(long long)gm * p.ldo + col + e]));
+          f[e] = __fadd_rn(__fadd_rn(__fmul_rn(f[e], p.colscale[col + e]), p.bias[col + e]),
+                           __bfloat162float(p.resid[(long long)gm * p.ldo + col + e]));
         }
-        bf16* out = reinterpret_cast<bf16*>(p.out[z]);
-        if (EPI == EPI_STORE && p.transposed[z]) {
-          const long long bi = gm / p.n_tok, n = gm - bi * p.n_tok;
-          out[(bi * p.ldo + col) * p.n_pad + n] = __float2bfloat16(f[0]);
-          out[(bi * p.ldo + col + 1) * p.n_pad + n] = __float2bfloat16(f[1]);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(out + (long long)gm * p.ldo + col) =
-              __floats2bfloat162_rn(f[0], f[1]);
-        }
+        *reinterpret_cast<__nv_bfloat162*>(p.out + (long long)gm * p.ldo + col) =
+            __floats2bfloat162_rn(f[0], f[1]);
       }
 }
 
@@ -399,10 +386,10 @@ inline GemmParams gemm_params() {
   return p;
 }
 
-template <bool INT8, int EPI>
-inline cudaError_t launch_gemm(const GemmParams& p, int n_cols, int nz, cudaStream_t st) {
-  const dim3 grid((p.M + BM - 1) / BM, n_cols / BN, nz);
-  gemm_kernel<INT8, EPI><<<grid, GT, GEMM_SMEM, st>>>(p);
+template <int EPI>
+inline cudaError_t launch_gemm(const GemmParams& p, int n_cols, cudaStream_t st) {
+  const dim3 grid((p.M + BM - 1) / BM, n_cols / BN);
+  gemm_kernel<EPI><<<grid, GT, GEMM_SMEM, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -416,10 +403,11 @@ inline cudaError_t launch_ln_quant(const void* x, const void* s, const void* b,
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_quant_rows(const void* v, int rows, int cols, void* rowmax, void* q,
-                                     cudaStream_t st) {
+inline cudaError_t launch_quant_rows(const void* v, int rows, int cols, const void* rowmax,
+                                     int parts, void* q, void* scale, cudaStream_t st) {
   quant_rows_kernel<<<(rows + 7) / 8, 256, 0, st>>>((const float*)v, rows, cols,
-                                                    (float*)rowmax, (signed char*)q);
+                                                    (const float*)rowmax, parts, (signed char*)q,
+                                                    (float*)scale);
   return cudaGetLastError();
 }
 

@@ -2,15 +2,18 @@
 // Accelerator (TMA) and computed by warpgroup matrix multiplies (wgmma):
 // mbarrier operations, 2D TMA tile loads, shared-memory matrix descriptors
 // for the 128-byte swizzle, the wgmma issue / fence / commit / wait
-// instructions, and the host side that encodes a TMA descriptor.
+// instructions (bf16 -> f32 and int8 -> s32), and the host side that encodes
+// a bf16 or int8 TMA descriptor. sm90_gemm.cuh builds the GEMM from them.
 //
-// Layout these helpers assume: a bf16 operand tile of R rows x 64 columns
-// (128 bytes a row, K-major), loaded by one TMA box with
+// Layout these helpers assume: an operand tile of R rows x 128 bytes
+// (64 bf16 or 128 int8 columns, K-major), loaded by one TMA box with
 // CU_TENSOR_MAP_SWIZZLE_128B into shared memory at a 1024-byte-aligned
 // address. Eight rows make one 1024-byte swizzle atom, so the descriptor's
-// stride between 8-row groups is 1024 bytes; the 16-wide K slices of the
-// tile are reached by advancing the descriptor's start address 32 bytes at a
-// time (the hardware applies the swizzle to the address it computes).
+// stride between 8-row groups is 1024 bytes; the 32-byte K slices of the
+// tile (16 bf16 or 32 int8 values, one wgmma's depth) are reached by
+// advancing the descriptor's start address 32 bytes at a time (the hardware
+// applies the swizzle to the address it computes). 8-bit wgmma takes both
+// operands K-major only, which this layout is.
 #pragma once
 
 #include <cuda.h>
@@ -76,8 +79,8 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
 }
 
 // ----------------------------------------------------------------- wgmma
-// descriptor of a K-major bf16 tile, 128-byte rows under the 128-byte
-// swizzle: start address >> 4, leading offset 1 (unused for this layout),
+// descriptor of a K-major tile (bf16 or int8), 128-byte rows under the
+// 128-byte swizzle: start address >> 4, leading offset 1 (unused for this layout),
 // stride 1024 bytes between 8-row groups, layout type 1 (SWIZZLE_128B)
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   const uint64_t a = smem_addr(tile);
@@ -85,7 +88,7 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
          (uint64_t(1) << 62);
 }
 
-// the k-th 16-column slice of a desc_sw128 tile (32 bytes on)
+// the k-th 32-byte K slice of a desc_sw128 tile (16 bf16 / 32 int8 columns)
 __device__ __forceinline__ uint64_t desc_advance_k(uint64_t desc, int k) {
   return desc + uint64_t(2 * k);
 }
@@ -107,6 +110,11 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // D (64 x 64, f32, registers) += A (64 x 16, smem) * B (64 x 16, smem)^T, both
@@ -143,6 +151,42 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "n"(1));
 }
 
+// D (64 x 64, s32, registers) += A (64 x 32, smem) * B (64 x 32, smem)^T, both
+// operands K-major int8 under the descriptors' swizzle (8-bit wgmma has no
+// transpose or scale immediates). The s32 sums are exact, so they equal the
+// mma.sync path's in any order; D's register layout is the f32 one.
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "n"(1));
+}
+
+// D (64 x 128, s32, registers) += A (64 x 32, smem) * B (128 x 32, smem)^T,
+// both operands K-major int8, as above
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "n"(1));
+}
+
 // ------------------------------------------------------------ host side
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -167,59 +211,71 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// TMA descriptor of a row-major bf16 (rows, cols) matrix read in boxes of
-// box_rows x 64 columns under the 128-byte swizzle; rows past `rows` read as
-// zeros. The base must be 16-byte aligned and cols a multiple of 8.
-inline cudaError_t make_map_bf16(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                                 uint32_t box_rows) {
+// TMA descriptor of a row-major (rows, cols) matrix of 2-byte bf16
+// (elem_bytes 2) or 1-byte int8 (elem_bytes 1, copied as uint8) values, read
+// in boxes of box_rows x 128 bytes (64 bf16 / 128 int8 columns) under the
+// 128-byte swizzle; rows past `rows` read as zeros. The base must be 16-byte
+// aligned and a row a multiple of 16 bytes.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                            uint32_t box_rows, uint32_t elem_bytes) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(base) % 16 || cols % 8) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(base) % 16 || (cols * elem_bytes) % 16 ||
+      (elem_bytes != 1 && elem_bytes != 2))
+    return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
-  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
+  const cuuint32_t box[2] = {128 / elem_bytes, box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r =
-      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-          elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = enc(
+      map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+      const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// make_map_bf16 cached by (address, shape, box): a descriptor holds nothing
-// but these, so a cached one is right for any tensor at the same address and
-// shape. Weights hit every call; activations and scratch whenever the
-// allocator hands back an address it handed out before.
-inline cudaError_t cached_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
-                                   uint64_t cols, uint32_t box_rows) {
+// make_map cached by (address, shape, box, element size): a descriptor holds
+// nothing but these, so a cached one is right for any tensor at the same
+// address and shape. Weights hit every call; activations and scratch
+// whenever the allocator hands back an address it handed out before.
+inline cudaError_t cached_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                              uint32_t box_rows, uint32_t elem_bytes) {
   struct Key {
     const void* base;
     uint64_t rows, cols;
-    uint32_t box;
+    uint32_t box, elem;
     bool operator==(const Key& o) const {
-      return base == o.base && rows == o.rows && cols == o.cols && box == o.box;
+      return base == o.base && rows == o.rows && cols == o.cols && box == o.box &&
+             elem == o.elem;
     }
   };
   struct Hash {
     size_t operator()(const Key& k) const {
       return std::hash<const void*>()(k.base) ^ (k.rows * 0x9E3779B97F4A7C15ull) ^
-             (k.cols << 20) ^ k.box;
+             (k.cols << 20) ^ k.box ^ (uint64_t(k.elem) << 40);
     }
   };
   static std::mutex mu;
   static std::unordered_map<Key, CUtensorMap, Hash> cache;
-  const Key key{base, rows, cols, box_rows};
+  const Key key{base, rows, cols, box_rows, elem_bytes};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it != cache.end()) {
     *map = it->second;
     return cudaSuccess;
   }
-  const cudaError_t e = make_map_bf16(map, base, rows, cols, box_rows);
+  const cudaError_t e = make_map(map, base, rows, cols, box_rows, elem_bytes);
   if (e != cudaSuccess) return e;
   if (cache.size() >= 4096) cache.clear();
   cache.emplace(key, *map);
   return cudaSuccess;
 }
+
+inline cudaError_t cached_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
+                                   uint64_t cols, uint32_t box_rows) {
+  return cached_map(map, base, rows, cols, box_rows, 2);
+}
+
 
 }  // namespace sm90

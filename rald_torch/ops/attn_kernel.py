@@ -18,8 +18,11 @@ Counterparts of ``rald_tpu/ops/attn_kernel.py``:
   :func:`merge_int8_trees` (:194-235).
 
 All compute ``x + Wo MHA(mod(LN x)) + bo`` for one batch element at a
-time in the JAX package; here the CUDA kernels (``rald_torch/csrc/
-attn_int8.cu``, the bf16 one a mode of it) tile it over the card. Rounding
+time in the JAX package; here the CUDA kernels (``rald_torch/csrc/attn.cu``:
+an LN pass, TMA-fed ``wgmma`` projection GEMMs, an exact two-pass softmax
+core, a row quantizer for the int8 modes and an out-projection GEMM) tile
+it over the card, with tile sizes chosen here (:func:`core_rows`,
+``geglu_kernel.gemm2_tile``) so that every launch fills the card. Rounding
 points of the int8 kernels, which the plain versions repeat one by one:
 h = LN + mod in f32, quantized per row once
 (``round(h * (127/hmax))``, half to even) and shared by the int8
@@ -41,7 +44,15 @@ import ctypes
 import torch
 
 from rald_torch.ops import _build
-from rald_torch.ops.geglu_kernel import _mod_rows, int_matmul, ln_mod_f32, quant_rows, quantize_cols
+from rald_torch.ops.geglu_kernel import (
+    _mod_rows,
+    _sm_count,
+    gemm2_tile,
+    int_matmul,
+    ln_mod_f32,
+    quant_rows,
+    quantize_cols,
+)
 
 _PROJ = (("to_q", "to_q"), ("to_k", "to_k"), ("to_v", "to_v"), ("to_out", "to_out.0"))
 
@@ -186,11 +197,37 @@ def _check_operands(name, x, want, what):
             raise ValueError(f"{name}: operands must be 16-byte aligned")
 
 
+# query rows per block of the attention core (16 a warp), largest first:
+# each block reads all keys of one head of one frame (K twice, V once), so
+# the largest block reads the least, and a small batch needs a smaller block
+# to give every SM one
+CORE_ROWS = (128, 64, 32)
+
+
+def core_rows(bsz: int, n: int, heads: int, sms: int) -> int:
+    """The attention core's query rows per block for (bsz, n) tokens on a
+    card of ``sms`` SMs: the largest whose grid gives every SM a block, else
+    the smallest."""
+    for rows in CORE_ROWS:
+        if -(-n // rows) * heads * bsz >= sms:
+            return rows
+    return CORE_ROWS[-1]
+
+
+def launch_tiles(bsz: int, n: int, d: int, heads: int, nproj: int, sms: int) -> tuple:
+    """``(core warps, (pm, pn), (om, on))``: the core's block and the
+    projection GEMM's (``nproj`` weights of ``d`` columns in one launch) and
+    the out GEMM's tiles, each filling a card of ``sms`` SMs."""
+    rows = bsz * n
+    return (core_rows(bsz, n, heads, sms) // 16, gemm2_tile(rows, nproj * d, sms),
+            gemm2_tile(rows, d, sms))
+
+
 def _launch(name, x, s_rows, b_rows, projs, wo, so, bo, heads, vout, scale_shift_mod, ln_eps):
-    """Shared launcher: ``projs`` = ((wq, sq), (wk, sk), (wv, sv)), with
-    ``sq`` / ``sk`` None for vout's bf16 q / k weights."""
+    """Shared launcher of the int8 kernels: ``projs`` = ((wq, sq), (wk, sk),
+    (wv, sv)), with ``sq`` / ``sk`` None for vout's bf16 q / k weights."""
     bsz, n, d = x.shape
-    lib = _build.load("attn_int8")
+    lib = _build.load("attn")
     _check_card(name, lib, x, heads)
     if s_rows.shape[0] != b_rows.shape[0]:
         raise ValueError(f"{name}: scale and shift rows differ in count")
@@ -201,31 +238,27 @@ def _launch(name, x, s_rows, b_rows, projs, wo, so, bo, heads, vout, scale_shift
     _check_operands(name, x, want, f"bf16 x / scale / shift{' / wq / wk' if vout else ''}, "
                                    "int8 weights, f32 scales and bias")
     m, dev = bsz * n, x.device
-    n_pad = -(-n // 64) * 64
-    hq = torch.empty((m, d), dtype=torch.int8, device=dev)
-    hrow = torch.empty((m,), dtype=torch.float32, device=dev)
-    hb = torch.empty((m, d) if vout else (1,), dtype=torch.bfloat16, device=dev)
-    q = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
-    k = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
-    vt = torch.empty((bsz, d, n_pad), dtype=torch.bfloat16, device=dev)
+    warps, (pm, pn), (om, on) = launch_tiles(bsz, n, d, heads, 2 if vout else 3, _sm_count(dev))
+    hb, q, k, v = torch.empty((4, m, d), dtype=torch.bfloat16, device=dev).unbind(0)
+    hq, aq = torch.empty((2, m, d), dtype=torch.int8, device=dev).unbind(0)
     o = torch.empty((m, d), dtype=torch.float32, device=dev)
-    arow = torch.empty((m,), dtype=torch.float32, device=dev)
-    aq = torch.empty((m, d), dtype=torch.int8, device=dev)
+    hmax = torch.empty((m, heads), dtype=torch.float32, device=dev)
+    hrow, arow = torch.empty((2, m), dtype=torch.float32, device=dev).unbind(0)
     out = torch.empty_like(x)
     fn = lib.rald_fused_self_attention_block_int8
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 19 + [
-        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 20 + [
+        ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     (wq, sq), (wk, sk), (wv, sv) = projs
     ptr = lambda t: 0 if t is None else t.data_ptr()
     rc = fn(
         x.data_ptr(), s_rows.data_ptr(), b_rows.data_ptr(), 0 if s_rows.shape[0] == 1 else d,
         wq.data_ptr(), ptr(sq), wk.data_ptr(), ptr(sk), wv.data_ptr(), sv.data_ptr(),
         wo.data_ptr(), so.data_ptr(), bo.data_ptr(),
-        hq.data_ptr(), hrow.data_ptr(), hb.data_ptr(), q.data_ptr(), k.data_ptr(),
-        vt.data_ptr(), o.data_ptr(), arow.data_ptr(), aq.data_ptr(), out.data_ptr(),
-        bsz, n, heads, int(vout), int(bool(scale_shift_mod)), float(ln_eps),
-        torch.cuda.current_stream(dev).cuda_stream,
+        hq.data_ptr(), hrow.data_ptr(), hb.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), hmax.data_ptr(), arow.data_ptr(), aq.data_ptr(), out.data_ptr(),
+        bsz, n, heads, int(vout), warps, pm, pn, om, on, int(bool(scale_shift_mod)),
+        float(ln_eps), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, name)
     return out
@@ -254,31 +287,30 @@ def fused_self_attention_block(
                                                 ln_eps, scale_shift_mod)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    lib = _build.load("attn_int8")
+    lib = _build.load("attn")
     _check_card(name, lib, x, heads)
     if s_rows.shape[0] != b_rows.shape[0]:
         raise ValueError(f"{name}: scale and shift rows differ in count")
     bsz, n, d = x.shape
     s_rows, b_rows = _bf16_rows(s_rows), _bf16_rows(b_rows)
     ws = [w.to(torch.bfloat16).contiguous() for w in (wq, wk, wv, wo)]
-    bo32 = bo.reshape(-1).to(torch.bfloat16).float()  # the bias rounded to x's dtype
+    bo16 = bo.reshape(-1).to(torch.bfloat16).contiguous()  # the bias rounded to x's dtype
     _check_operands(name, x, [(x, torch.bfloat16), (s_rows, torch.bfloat16),
-                              (b_rows, torch.bfloat16), (bo32, torch.float32)]
+                              (b_rows, torch.bfloat16), (bo16, torch.bfloat16)]
                     + [(w, torch.bfloat16) for w in ws], "bf16 x / scale / shift / weights")
     m, dev = bsz * n, x.device
-    n_pad = -(-n // 64) * 64
-    hb, q, k, o = (torch.empty((m, d), dtype=torch.bfloat16, device=dev) for _ in range(4))
-    vt = torch.empty((bsz, d, n_pad), dtype=torch.bfloat16, device=dev)
+    warps, (pm, pn), (om, on) = launch_tiles(bsz, n, d, heads, 3, _sm_count(dev))
+    hb, q, k, v, o = torch.empty((5, m, d), dtype=torch.bfloat16, device=dev).unbind(0)
     out = torch.empty_like(x)
     fn = lib.rald_fused_self_attention_block_bf16
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 11 + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     rc = fn(
         x.data_ptr(), s_rows.data_ptr(), b_rows.data_ptr(), 0 if s_rows.shape[0] == 1 else d,
-        *(w.data_ptr() for w in ws), bo32.data_ptr(), hb.data_ptr(), q.data_ptr(), k.data_ptr(),
-        vt.data_ptr(), o.data_ptr(), out.data_ptr(), bsz, n, heads, int(bool(scale_shift_mod)),
-        float(ln_eps), torch.cuda.current_stream(dev).cuda_stream,
+        *(w.data_ptr() for w in ws), bo16.data_ptr(), hb.data_ptr(), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), out.data_ptr(), bsz, n, heads, warps, pm, pn, om, on,
+        int(bool(scale_shift_mod)), float(ln_eps), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, name)
     fused_self_attention_block.launches += 1

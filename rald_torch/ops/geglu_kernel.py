@@ -28,6 +28,7 @@ carry one f32 scale per output row (the JAX layout's per-column scale).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -90,6 +91,7 @@ def gemm2_tile(rows: int, cols: int, sms: int) -> tuple:
     return GEMM2_TILES[-1]
 
 
+@functools.lru_cache(maxsize=None)
 def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 

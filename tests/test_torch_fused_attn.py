@@ -109,18 +109,75 @@ def test_wrapper_rejects_bad_operands():
         ta.fused_self_attention_block(x, s, b, wq, wk, wv, wo, bo, heads=5)
 
 
+def test_per_frame_rows_move_output_past_the_card_bar():
+    """With one AdaLN row per frame, giving every frame frame 0's row moves
+    the output past the card's 2e-2 * max|out| bar (so the card test catches
+    a kernel that reads the wrong frame's row), and the CPU dispatch applies
+    each frame its own row."""
+    t = [torch.from_numpy(a) for a in _inputs(3, 20, 64, True, seed=8)]
+    want = ta.fused_self_attention_block(*t, heads=4)
+    for i in range(3):
+        one = ta.fused_self_attention_block_plain(t[0][i:i + 1], t[1][i:i + 1], t[2][i:i + 1],
+                                                  *t[3:], heads=4)
+        torch.testing.assert_close(want[i:i + 1], one, rtol=0, atol=1e-6)
+    row0 = [a[:1].expand_as(a) for a in t[1:3]]
+    frame0 = ta.fused_self_attention_block_plain(t[0], *row0, *t[3:], heads=4)
+    assert (frame0 - want).abs().max() > 2e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("bsz,n,heads,sms,rows", [
+    (1, 512, 8, 132, 32),    # batch 1: 64-row blocks would give 64 blocks for 132 SMs
+    (8, 512, 8, 132, 128),   # batch 8: 256 blocks of 128 rows
+    (4, 512, 8, 132, 64),    # 128 blocks of 128 rows would leave 4 SMs idle
+    (3, 300, 8, 132, 32),    # ragged: 5 x 8 x 3 = 120 blocks of 64 rows
+    (1, 832, 8, 132, 32),
+    (1, 512, 8, 64, 64),     # a smaller card fills with a larger block
+])
+def test_core_rows_fill_the_card(bsz, n, heads, sms, rows):
+    assert ta.core_rows(bsz, n, heads, sms) == rows
+    for big in ta.CORE_ROWS[:ta.CORE_ROWS.index(rows)]:  # every larger block leaves SMs idle
+        assert -(-n // big) * heads * bsz < sms
+
+
+def test_launch_tiles_follow_the_rules():
+    """The core's warps and both GEMM tiles, each chosen to fill the card:
+    the q / k / v launch counts its three weights' columns."""
+    from rald_torch.ops.geglu_kernel import gemm2_tile
+
+    assert ta.launch_tiles(1, 512, 512, 8, 3, 132) == (2, (64, 64), (64, 64))
+    assert ta.launch_tiles(8, 512, 512, 8, 3, 132) == (8, (128, 128), (128, 64))
+    for bsz, n, nproj in ((1, 512, 2), (3, 300, 3), (8, 512, 2)):
+        warps, proj, out = ta.launch_tiles(bsz, n, 512, 8, nproj, 132)
+        assert warps == ta.core_rows(bsz, n, 8, 132) // 16
+        assert proj == gemm2_tile(bsz * n, nproj * 512, 132)
+        assert out == gemm2_tile(bsz * n, 512, 132)
+
+
+def _case(adaln, bsz, n, per_batch=False):
+    return pytest.param(adaln, bsz, n, per_batch,
+                        id=f"{adaln}-{bsz}-{n}" + ("-per_frame_rows" if per_batch else ""))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("bsz,n", [(1, 512), (8, 512), (3, 300)])
-@pytest.mark.parametrize("adaln", [True, False])
-def test_cuda_kernel_matches_plain(cuda, bsz, n, adaln):
+@pytest.mark.parametrize("adaln,bsz,n,per_batch", [
+    _case(True, 1, 512), _case(True, 8, 512), _case(True, 3, 300),
+    _case(False, 1, 512), _case(False, 8, 512), _case(False, 3, 300),
+    # one AdaLN row per frame, as the DiT passes them; at (3, 300) the
+    # core's query tiles and the GEMMs' row tiles straddle frames
+    _case(True, 8, 512, True), _case(True, 3, 300, True)])
+def test_cuda_kernel_matches_plain(cuda, bsz, n, adaln, per_batch):
     args = [torch.from_numpy(a).to(cuda).bfloat16()
-            for a in _inputs(bsz, n, 512, adaln, seed=bsz * n)]
-    if adaln:  # one row shared by the batch, as the sampler's mod table gives
+            for a in _inputs(bsz, n, 512, adaln, seed=bsz * n + per_batch)]
+    if adaln and not per_batch:  # one row shared by the batch, as the sampler's mod table gives
         args[1], args[2] = args[1][:1], args[2][:1]
     before = ta.fused_self_attention_block.launches
     got = ta.fused_self_attention_block(*args, scale_shift_mod=adaln)
     want = ta.fused_self_attention_block_plain(*args, scale_shift_mod=adaln)
     torch.cuda.synchronize()
     assert ta.fused_self_attention_block.launches == before + 1
-    ref = want.float().abs().max().item()
-    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * ref
+    bar = 2e-2 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= bar
+    if per_batch:  # the bar catches a kernel that gives every frame frame 0's row
+        row0 = [a[:1].expand_as(a) for a in args[1:3]]
+        frame0 = ta.fused_self_attention_block_plain(args[0], *row0, *args[3:])
+        assert (frame0.float() - want.float()).abs().max().item() > bar

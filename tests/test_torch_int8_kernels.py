@@ -211,12 +211,12 @@ def test_wrappers_reject_bad_operands():
 
 
 # ----------------------------------------------------------------- on card
-def _card_mods(bsz, n, adaln, rnd):
+def _card_mods(bsz, n, adaln, rnd, per_batch=False):
     """One AdaLN row shared by the batch, one per batch element for the
-    ragged shape, or the affine LayerNorm's weight and bias."""
+    ragged shape or when asked, or the affine LayerNorm's weight and bias."""
     if not adaln:
         return 1.0 + rnd(512, std=0.1), rnd(512, std=0.1)
-    rows = (bsz, 1, 512) if n % 64 else (1, 512)
+    rows = (bsz, 1, 512) if n % 64 or per_batch else (1, 512)
     return rnd(*rows, std=0.1), rnd(*rows, std=0.1)
 
 
@@ -231,10 +231,10 @@ def _card_ff(bsz, n, adaln, gen, dev):
     return x, s.bfloat16(), b.bfloat16(), w1q, s1, rnd(4096, std=0.5), w2q, s2, rnd(512, std=0.5)
 
 
-def _card_attn(bsz, n, adaln, vout, gen, dev):
+def _card_attn(bsz, n, adaln, vout, gen, dev, per_batch=False):
     rnd = lambda *s, std=1.0: torch.randn(s, generator=gen, device=dev) * std
     x = rnd(bsz, n, 512).bfloat16()
-    s, b = _card_mods(bsz, n, adaln, rnd)
+    s, b = _card_mods(bsz, n, adaln, rnd, per_batch)
     w = [rnd(512, 512, std=512 ** -0.5) for _ in range(4)]
     qk = (w[0].bfloat16(), w[1].bfloat16()) if vout else (*tg.quantize_cols(w[0]),
                                                            *tg.quantize_cols(w[1]))
@@ -242,14 +242,21 @@ def _card_attn(bsz, n, adaln, vout, gen, dev):
             rnd(512, std=0.5))
 
 
-def _card_check(fn, plain, args, **kw):
+def _card_check(fn, plain, args, row0=False, **kw):
+    """Kernel against plain version within 2e-2 * max|out|; ``row0``: and
+    giving every frame frame 0's modulation row moves the plain output past
+    that bar, so a kernel reading the wrong frame's row would fail."""
     before = fn.launches
     got = fn(*args, **kw)
     want = plain(*args, **kw)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= 2e-2 * want.float().abs().max().item(), err
+    bar = 2e-2 * want.float().abs().max().item()
+    assert err <= bar, err
+    if row0:
+        frame0 = plain(args[0], *(a[:1].expand_as(a) for a in args[1:3]), *args[3:], **kw)
+        assert (frame0.float() - want.float()).abs().max().item() > bar
 
 
 SHAPES = [(1, 512, True), (8, 512, True), (3, 300, True), (2, 77, False)]
@@ -273,16 +280,24 @@ def test_cuda_int8_ff_matches_plain(cuda, bsz, n, adaln):
                 static, scale_shift_mod=adaln)
 
 
+def _attn_case(bsz, n, adaln, per_batch=False):
+    return pytest.param(bsz, n, adaln, per_batch,
+                        id=f"{bsz}-{n}-{adaln}" + ("-per_frame_rows" if per_batch else ""))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("vout", [False, True])
-@pytest.mark.parametrize("bsz,n,adaln", SHAPES)
-def test_cuda_int8_attn_matches_plain(cuda, bsz, n, adaln, vout):
-    gen = torch.Generator(cuda).manual_seed(bsz * 1000 + n + vout)
-    args = _card_attn(bsz, n, adaln, vout, gen, cuda)
+@pytest.mark.parametrize("bsz,n,adaln,per_batch", [
+    *(_attn_case(*shape) for shape in SHAPES),
+    # one AdaLN row per frame, as the DiT passes them, with the frame-0 check
+    _attn_case(8, 512, True, True), _attn_case(3, 300, True, True)])
+def test_cuda_int8_attn_matches_plain(cuda, bsz, n, adaln, per_batch, vout):
+    gen = torch.Generator(cuda).manual_seed(bsz * 1000 + n + vout + 7 * per_batch)
+    args = _card_attn(bsz, n, adaln, vout, gen, cuda, per_batch)
     fn, plain = ((ta.fused_self_attention_block_int8_vout, ta.fused_self_attention_block_int8_vout_plain)
                  if vout else (ta.fused_self_attention_block_int8,
                                ta.fused_self_attention_block_int8_plain))
-    _card_check(fn, plain, args, scale_shift_mod=adaln)
+    _card_check(fn, plain, args, row0=per_batch, scale_shift_mod=adaln)
 
 
 @pytest.mark.gpu
