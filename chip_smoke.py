@@ -19,9 +19,12 @@ Phases, each printed before the last line:
    kernels: bitwise, and nn_min_sq_batch bitwise equal to nn_min_sq_both's
    rows), then timed with CUDA events beside the plain version, a composite
    of library calls the port never makes (``library_ms``) and the card's
-   bound for the same work; the two bf16 FF kernels, the three attention
-   kernels and their composites also with cold weights (``ms_cold``: 24
-   weight sets in turn, one per DiT layer).
+   bound for the same work; the FF and attention kernels and their
+   composites also with cold weights (``ms_cold``: 24 weight sets in turn,
+   one per DiT layer). Then the float32 instantiations of the seven FF and
+   attention kernels (x in f32, ``matmul_precision: highest``) against
+   their plain versions in f32 at the same shapes, with their drop checks,
+   timed against the f32 bound.
 4. main path: the product eval chain of
    ``configs/generation/ge_indoor_unfreeze_enc_ints_only_eval.yml`` at full
    width (DiT dim 512 x 24 blocks, VAE dim 512 x 24 blocks, bf16) on seeded
@@ -39,21 +42,29 @@ Phases, each printed before the last line:
    at batch 1; with ``ar_model.overrides: {use_fused_attn: true}`` at
    batch 1 and 8 and through the CLI; ``GEGLUFeedForward(use_fused=True)``
    once; and ``system.fast_inference: false`` at batch 1 (plain modules,
-   unfolded decode). Launch counters are zeroed just before each run and
-   read just after, and every kernel's count is checked exactly.
+   unfolded decode). Then the chain in float32 at batch 1
+   (``compute_dtype: float32``, ``matmul_precision: highest`` applied by
+   ``rald_torch.apply_matmul_precision``): as shipped, with
+   ``use_fused_attn``, int8 dynamic + vout and int8 static + full, plus the
+   CLI on that YAML (which must set both torch precision switches) and
+   ``GEGLUFeedForward(use_fused=True)`` in f32. Launch counters are zeroed
+   just before each run and read just after, and every kernel's count is
+   checked exactly.
 5. reference: reduced-depth chains (bf16; bf16 + use_fused_attn; int8
-   dynamic + vout; int8 static + full) each run twice on the card, once
-   through the kernels and once through their plain versions; tokens and
-   Chamfer must agree. Then the host ``chamfer_and_fscore`` once on the
-   card against the CPU.
+   dynamic + vout; int8 static + full; f32 + use_fused_attn, held to a
+   strict bar) each run twice on the card, once through the kernels and
+   once through their plain versions; tokens and Chamfer must agree. Then
+   the host ``chamfer_and_fscore`` once on the card against the CPU.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
 
 One-offs outside the default run: ``nn_library_b8()`` times the
 nearest-neighbour library yardsticks at batch 8, ``ff_breakdown()`` and
-``attn_breakdown()`` split the bf16 FF calls and the three attention calls
-into host and device time and per-launch device time, and
+``attn_breakdown()`` split the four FF calls (bf16 and int8) and the three
+attention calls into host and device time and per-launch device time,
+``int8_ff_dump()`` compares the int8 FF kernels' outputs with another
+tree's (bitwise), and
 ``trace_sample()`` traces the product sampler, as shipped or in a kernel
 mode (device busy time and idle share at batch 1 and 8).
 """
@@ -146,11 +157,10 @@ def phase_build() -> None:
 
 
 # --------------------------------------------------------------- phase 3
-def _geglu_inputs(bsz: int, n: int, adaln: bool, gen: torch.Generator, per_batch=False):
-    dev, bf = "cuda", torch.bfloat16
-
+def _geglu_inputs(bsz: int, n: int, adaln: bool, gen: torch.Generator, per_batch=False,
+                  dtype=torch.bfloat16):
     def rnd(*shape, std=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(bf)
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
 
     x = rnd(bsz, n, D)
     if adaln:  # DiT: AdaLN (scale, shift) rows, one per frame or one shared
@@ -176,11 +186,18 @@ def _geglu_library(x, s, b, w1, b1, w2, b2, adaln: bool):
     return x + F.linear(a * F.gelu(g), w2, b2)
 
 
-def _geglu_bound(bsz: int, n: int):
+def _esz_peak(dtype):
+    """Bytes per activation or weight value and the peak rate of the float
+    products, for activations of ``dtype`` (f32: the CUDA cores)."""
+    return (4, PEAK_F32) if dtype == torch.float32 else (2, PEAK_BF16)
+
+
+def _geglu_bound(bsz: int, n: int, dtype=torch.bfloat16):
+    esz, peak = _esz_peak(dtype)
     rows = bsz * n
     flops = rows * (2 * D * 2 * INNER + 2 * INNER * D)
-    n_bytes = 2 * (2 * rows * D + 3 * D * INNER + 2 * INNER + 3 * D)
-    return bound(n_bytes, flops, PEAK_BF16)
+    n_bytes = esz * (2 * rows * D + 3 * D * INNER + 2 * INNER + 3 * D)
+    return bound(n_bytes, flops, peak)
 
 
 # Cold weights: the main path reads each of its 24 layers' weights once per
@@ -231,14 +248,16 @@ INT8_SHAPES = ((1, 512), (8, 512), (3, 300))
 INT8_BAR = 2e-2  # bf16 output over dequantized 512/2048-term sums, as geglu
 
 
-def _int8_ff_inputs(bsz: int, n: int, gen: torch.Generator):
+def _int8_ff_inputs(bsz: int, n: int, gen: torch.Generator, per_batch=False,
+                    dtype=torch.bfloat16):
     from rald_torch.ops.geglu_kernel import quantize_cols
 
     def rnd(*shape, std=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * std
 
-    x = rnd(bsz, n, D).bfloat16()
-    s, b = rnd(1, D, std=0.1).bfloat16(), rnd(1, D, std=0.1).bfloat16()
+    x = rnd(bsz, n, D).to(dtype)
+    rows = (bsz, 1, D) if per_batch else (1, D)  # one AdaLN row per frame, or one shared
+    s, b = rnd(*rows, std=0.1).to(dtype), rnd(*rows, std=0.1).to(dtype)
     w1q, s1 = quantize_cols(rnd(2 * INNER, D, std=D ** -0.5))
     w2q, s2 = quantize_cols(rnd(D, INNER, std=INNER ** -0.5))
     return x, s, b, w1q, s1, rnd(2 * INNER, std=0.5), w2q, s2, rnd(D, std=0.5)
@@ -256,18 +275,19 @@ def _int8_static_inputs(ff_args):
             inv127(ag))
 
 
-def _int8_attn_inputs(bsz: int, n: int, vout: bool, gen: torch.Generator, per_batch=False):
+def _int8_attn_inputs(bsz: int, n: int, vout: bool, gen: torch.Generator, per_batch=False,
+                      dtype=torch.bfloat16):
     from rald_torch.ops.geglu_kernel import quantize_cols
 
     def rnd(*shape, std=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * std
 
-    x = rnd(bsz, n, D).bfloat16()
+    x = rnd(bsz, n, D).to(dtype)
     rows = (bsz, 1, D) if per_batch else (1, D)  # one AdaLN row per frame, or one shared
-    s, b = rnd(*rows, std=0.1).bfloat16(), rnd(*rows, std=0.1).bfloat16()
+    s, b = rnd(*rows, std=0.1).to(dtype), rnd(*rows, std=0.1).to(dtype)
     w = [rnd(D, D, std=D ** -0.5) for _ in range(4)]
-    qk = (w[0].bfloat16(), w[1].bfloat16()) if vout else (*quantize_cols(w[0]),
-                                                           *quantize_cols(w[1]))
+    qk = (w[0].to(dtype), w[1].to(dtype)) if vout else (*quantize_cols(w[0]),
+                                                         *quantize_cols(w[1]))
     return (x, s, b, *qk, *quantize_cols(w[2]), *quantize_cols(w[3]), rnd(D, std=0.5))
 
 
@@ -309,11 +329,11 @@ def _int8_attn_library(x, s, b, *w, vout: bool):
     hq, hr = _quant_lib(h)
 
     def proj(wq8, sc):
-        return (torch._int_mm(hq, wq8.t()).float() * hr * sc).bfloat16()
+        return (torch._int_mm(hq, wq8.t()).float() * hr * sc).to(x.dtype)
 
     if vout:
         (wq, wk), (wv, sv, wo, so, bo) = w[:2], w[2:]
-        q, k = F.linear(h.bfloat16(), wq), F.linear(h.bfloat16(), wk)
+        q, k = F.linear(h.to(x.dtype), wq), F.linear(h.to(x.dtype), wk)
     else:
         (wq, sq, wk, sk), (wv, sv, wo, so, bo) = w[:4], w[4:]
         q, k = proj(wq, sq), proj(wk, sk)
@@ -324,21 +344,22 @@ def _int8_attn_library(x, s, b, *w, vout: bool):
     return y.to(x.dtype).reshape(x.shape)
 
 
-def _int8_bound(name: str, bsz: int, n: int):
+def _int8_bound(name: str, bsz: int, n: int, dtype=torch.bfloat16):
+    esz, peak = _esz_peak(dtype)
     rows = bsz * n
-    act_bytes = 2 * (2 * rows * D) + 2 * 2 * D  # x in, out (bf16), mod rows
+    act_bytes = esz * (2 * rows * D) + esz * 2 * D  # x in, out, mod rows (x's type)
     if name.startswith("fused_ln_geglu_residual_int8"):
         int8_ops = rows * (2 * D * 2 * INNER + 2 * INNER * D)
         n_bytes = act_bytes + 3 * D * INNER + 4 * (2 * 2 * INNER + 2 * D)
         return bound_t(n_bytes, int8_ops / PEAK_INT8)
-    attn_ops = 2 * 2 * bsz * n * n * D  # q.k^T and a.v over all heads, bf16
+    attn_ops = 2 * 2 * bsz * n * n * D  # q.k^T and a.v over all heads, x's type
     if name.endswith("_vout"):
-        int8_ops, bf16_ops = 2 * 2 * rows * D * D, 2 * 2 * rows * D * D + attn_ops
-        n_bytes = act_bytes + 2 * 2 * D * D + 2 * D * D + 4 * 3 * D
+        int8_ops, float_ops = 2 * 2 * rows * D * D, 2 * 2 * rows * D * D + attn_ops
+        n_bytes = act_bytes + esz * 2 * D * D + 2 * D * D + 4 * 3 * D
     else:
-        int8_ops, bf16_ops = 4 * 2 * rows * D * D, attn_ops
+        int8_ops, float_ops = 4 * 2 * rows * D * D, attn_ops
         n_bytes = act_bytes + 4 * D * D + 4 * 5 * D
-    return bound_t(n_bytes, int8_ops / PEAK_INT8 + bf16_ops / PEAK_BF16)
+    return bound_t(n_bytes, int8_ops / PEAK_INT8 + float_ops / peak)
 
 
 def _drop_checks(label, plain, args, want, bar, drops, kw=None) -> dict:
@@ -392,6 +413,17 @@ def _attn_weight_sets(gen: torch.Generator, kind: str) -> list:
     return sets
 
 
+def _int8_ff_weight_sets(gen: torch.Generator, static: bool) -> list:
+    """COLD_SETS int8 FF weight sets (3 MB of int8 each, 72 MB in all:
+    beyond the 50 MB L2) in the operand order after (x, scale, shift), as
+    ``_int8_ff_inputs`` (and ``_int8_static_inputs``) make them."""
+    sets = []
+    for _ in range(COLD_SETS):
+        ops = _int8_ff_inputs(1, 1, gen)
+        sets.append((_int8_static_inputs(ops) if static else ops)[3:])
+    return sets
+
+
 def _cold_lines(line, fn, library, args, bsz: int, wsets) -> None:
     """``ms_cold`` / ``library_ms_cold``: the call with the next of COLD_SETS
     weight sets each time, x and the modulation rows fixed."""
@@ -434,7 +466,8 @@ def _int8_kernel_entries(gen: torch.Generator) -> list:
     entries = []
     for name, fn, plain, make, library, drops, replaces, source, attn in specs:
         rows = {}
-        wsets = _attn_weight_sets(gen, attn) if attn else None
+        wsets = (_attn_weight_sets(gen, attn) if attn else
+                 _int8_ff_weight_sets(gen, static=name.endswith("_static")))
         shapes = [(b, n, False) for b, n in INT8_SHAPES]
         if attn:
             shapes += [(b, n, True) for b, n in ATTN_FRAME_SHAPES]
@@ -447,13 +480,11 @@ def _int8_kernel_entries(gen: torch.Generator) -> list:
             if n == 512 and not per_batch:
                 _timed(line, fn, plain, library, args, {}, 200 if bsz == 1 else 50,
                        _int8_bound(name, bsz, n))
-                if attn:
-                    _cold_lines(line, fn, library, args, bsz, wsets)
+                _cold_lines(line, fn, library, args, bsz, wsets)
                 rows[bsz] = line
             rows.setdefault((bsz, n, per_batch), line)
             print(f"[kernels] {name} " + json.dumps(line))
-        entry = _entry(name, source, replaces, rows, 1, 8)
-        entries.append(_cold_keys(entry, rows) if attn else entry)
+        entries.append(_cold_keys(_entry(name, source, replaces, rows, 1, 8), rows))
     return entries
 
 
@@ -463,14 +494,15 @@ def _int8_kernel_entries(gen: torch.Generator) -> list:
 ATTN_SHAPES = ((1, 512), (8, 512), (3, 300))
 
 
-def _attn_inputs(bsz: int, n: int, adaln: bool, gen: torch.Generator, per_batch=False):
+def _attn_inputs(bsz: int, n: int, adaln: bool, gen: torch.Generator, per_batch=False,
+                 dtype=torch.bfloat16):
     def rnd(*shape, std=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda") * std).bfloat16()
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
 
     x = rnd(bsz, n, D)
     rows = (bsz, 1, D) if per_batch else (1, D)  # one AdaLN row per frame, or one shared
     s, b = (rnd(*rows, std=0.5), rnd(*rows, std=0.1)) if adaln else (
-        (1.0 + rnd(D, std=0.1).float()).bfloat16(), rnd(D, std=0.1))
+        (1.0 + rnd(D, std=0.1).float()).to(dtype), rnd(D, std=0.1))
     w = [rnd(D, D, std=D ** -0.5) for _ in range(4)]
     return (x, s, b, *w, rnd(D, std=0.5))
 
@@ -489,11 +521,12 @@ def _attn_library(x, s, b, wq, wk, wv, wo, bo, scale_shift_mod=True):
     return x + F.linear(o.transpose(1, 2).reshape(bsz, n, D), wo, bo)
 
 
-def _attn_bound(bsz: int, n: int):
+def _attn_bound(bsz: int, n: int, dtype=torch.bfloat16):
+    esz, peak = _esz_peak(dtype)
     rows = bsz * n
     flops = 4 * 2 * rows * D * D + 2 * 2 * bsz * n * n * D
-    n_bytes = 2 * (2 * rows * D + 4 * D * D + D + 2 * D)
-    return bound(n_bytes, flops, PEAK_BF16)
+    n_bytes = esz * (2 * rows * D + 4 * D * D + D + 2 * D)
+    return bound(n_bytes, flops, peak)
 
 
 # geglu_ff: token-flattened x (the main-path widths, a ragged count and an
@@ -501,9 +534,9 @@ def _attn_bound(bsz: int, n: int):
 GEGLU_FF_SHAPES = (((1, 512, D), D), ((8, 512, D), D), ((1000, D), D), ((2, 256, D), 768))
 
 
-def _geglu_ff_inputs(shape, out_dim: int, gen: torch.Generator):
+def _geglu_ff_inputs(shape, out_dim: int, gen: torch.Generator, dtype=torch.bfloat16):
     def rnd(*sh, std=1.0):
-        return (torch.randn(sh, generator=gen, device="cuda") * std).bfloat16()
+        return (torch.randn(sh, generator=gen, device="cuda") * std).to(dtype)
 
     return (rnd(*shape), rnd(2 * INNER, D, std=D ** -0.5), rnd(2 * INNER, std=0.5),
             rnd(out_dim, INNER, std=INNER ** -0.5), rnd(out_dim, std=0.5))
@@ -515,10 +548,11 @@ def _geglu_ff_library(x, w1, b1, w2, b2):
     return F.linear(a * F.gelu(g), w2, b2)
 
 
-def _geglu_ff_bound(rows: int, out_dim: int):
+def _geglu_ff_bound(rows: int, out_dim: int, dtype=torch.bfloat16):
+    esz, peak = _esz_peak(dtype)
     flops = rows * (2 * D * 2 * INNER + 2 * INNER * out_dim)
-    n_bytes = 2 * (rows * (D + out_dim) + 2 * INNER * D + INNER * out_dim + 2 * INNER + out_dim)
-    return bound(n_bytes, flops, PEAK_BF16)
+    n_bytes = esz * (rows * (D + out_dim) + 2 * INNER * D + INNER * out_dim + 2 * INNER + out_dim)
+    return bound(n_bytes, flops, peak)
 
 
 def _parity(label, fn, plain, args, bar_rel, drops, kw=None) -> dict:
@@ -672,6 +706,119 @@ def _nn_inputs(bsz: int, gen: torch.Generator):
     return a, b
 
 
+# float32 activations (JAX's compute_dtype float32 with matmul_precision
+# "highest"): each kernel's f32 instantiation against its plain version in
+# f32 on the card. Rows 1, 6 and 7 compute exact f32 products on the CUDA
+# cores, so only the order of their f32 sums (and the A&S erf's 1.5e-7 and
+# expf's last bits) separates them from the plain versions: 1e-4 of
+# max|out|. The int8 rows keep their codes, but an LN or softmax sum taken in
+# another order can move a code across a .5 tie, and a flipped h code that
+# moves a row's max|g| re-scales that row's g codes: up to about one int8
+# step (1/127) of max|out|, so 1e-2 (measured on an H100: at most 3.5e-3).
+# Every drop check must clear the bar.
+F32_BAR, F32_INT8_BAR = 1e-4, 1e-2
+F32 = torch.float32
+
+
+def _f32_kernel_entries(gen: torch.Generator) -> dict:
+    """The f32 cases of rows 1 and 4-9, timed against the f32 bound at
+    batch 1 and 8; returns each kernel's f32 entries by name."""
+    from rald_torch import apply_matmul_precision
+    from rald_torch.ops import attn_kernel as ak
+    from rald_torch.ops import geglu_kernel as gk
+
+    apply_matmul_precision("highest")
+    zero, one = torch.zeros_like, torch.ones_like
+    frames = [(b, n, True, True) for b, n in ATTN_FRAME_SHAPES]
+    int8_shapes = [(b, n, True, False) for b, n in INT8_SHAPES]
+    std = lambda a: {"scale_shift_mod": a}
+
+    def geglu_ff_make(shape_out):
+        shape, out_dim = shape_out
+        return _geglu_ff_inputs(shape, out_dim, gen, F32), {}
+
+    specs = [  # name, kernel, plain, make, library, drops, bound, bar, cases
+        ("fused_ln_geglu_residual", gk.fused_ln_geglu_residual, gk.fused_ln_geglu_residual_plain,
+         lambda b, n, a, per: (_geglu_inputs(b, n, a, gen, per, F32), std(a)),
+         lambda *x, scale_shift_mod: _geglu_library(*x, scale_shift_mod),
+         {"b1": (4, zero), "b2": (6, zero)}, lambda b, n: _geglu_bound(b, n, F32), F32_BAR,
+         [(1, 512, True, False), (8, 512, True, False), (1, 512, False, False),
+          (3, 300, True, False), (2, 77, False, False)] + frames),
+        ("fused_ln_geglu_residual_int8", gk.fused_ln_geglu_residual_int8,
+         gk.fused_ln_geglu_residual_int8_plain,
+         lambda b, n, a, per: (_int8_ff_inputs(b, n, gen, per, F32), {}), _int8_ff_library,
+         {"b1": (5, zero), "b2": (8, zero), "s1": (4, one), "s2": (7, one)},
+         lambda b, n: _int8_bound("fused_ln_geglu_residual_int8", b, n, F32), F32_INT8_BAR,
+         int8_shapes),
+        ("fused_ln_geglu_residual_int8_static", gk.fused_ln_geglu_residual_int8_static,
+         gk.fused_ln_geglu_residual_int8_static_plain,
+         lambda b, n, a, per: (_int8_static_inputs(_int8_ff_inputs(b, n, gen, per, F32)), {}),
+         _int8_ff_library,
+         {"b1": (5, zero), "b2": (8, zero), "d1": (4, one), "d2": (7, one), "inv_h": (9, one),
+          "inv_g": (10, one)},
+         lambda b, n: _int8_bound("fused_ln_geglu_residual_int8", b, n, F32), F32_INT8_BAR,
+         int8_shapes),
+        ("geglu_ff", gk.geglu_ff, gk.geglu_ff_plain, geglu_ff_make, _geglu_ff_library,
+         {"b1": (2, zero), "b2": (4, zero)},
+         lambda shape, out_dim: _geglu_ff_bound(math.prod(shape[:-1]), out_dim, F32), F32_BAR,
+         list(GEGLU_FF_SHAPES)),
+        ("fused_self_attention_block", ak.fused_self_attention_block,
+         ak.fused_self_attention_block_plain,
+         lambda b, n, a, per: (_attn_inputs(b, n, a, gen, per, F32), std(a)), _attn_library,
+         {"bo": (7, zero), "scale": (1, zero)}, lambda b, n: _attn_bound(b, n, F32), F32_BAR,
+         [(b, n, a, False) for b, n in ATTN_SHAPES for a in (True, False)] + frames),
+        ("fused_self_attention_block_int8", ak.fused_self_attention_block_int8,
+         ak.fused_self_attention_block_int8_plain,
+         lambda b, n, a, per: (_int8_attn_inputs(b, n, False, gen, per, F32), {}),
+         lambda *x: _int8_attn_library(*x, vout=False),
+         {"bo": (11, zero), "so": (10, one), "sv": (8, one), "sq": (4, one)},
+         lambda b, n: _int8_bound("fused_self_attention_block_int8", b, n, F32), F32_INT8_BAR,
+         int8_shapes + frames),
+        ("fused_self_attention_block_int8_vout", ak.fused_self_attention_block_int8_vout,
+         ak.fused_self_attention_block_int8_vout_plain,
+         lambda b, n, a, per: (_int8_attn_inputs(b, n, True, gen, per, F32), {}),
+         lambda *x: _int8_attn_library(*x, vout=True),
+         {"bo": (9, zero), "so": (8, one), "sv": (6, one)},
+         lambda b, n: _int8_bound("fused_self_attention_block_int8_vout", b, n, F32), F32_INT8_BAR,
+         int8_shapes + frames),
+    ]
+    out = {}
+    for name, fn, plain, make, library, drops, bnd, bar, cases in specs:
+        rows = {}
+        for case in cases:
+            if name == "geglu_ff":
+                (shape, out_dim), per = case, False
+                args, kw = make(case)
+                timed = shape[0] if len(shape) == 3 and out_dim == D else None
+                label, key = f"{shape} -> {out_dim}", (shape, out_dim)
+                bound_case, line_shape = (shape, out_dim), list(shape)
+            else:
+                bsz, n, adaln, per = case
+                args, kw = make(bsz, n, adaln, per)
+                timed = bsz if n == 512 and adaln and not per else None
+                label = f"({bsz},{n},{D})" + ("" if adaln else " affine") + (
+                    " per-frame rows" if per else "")
+                key, bound_case, line_shape = case, (bsz, n), [bsz, n, D]
+            case_drops = dict(drops)
+            if name == "fused_self_attention_block":  # the other mod mode, as in bf16
+                case_drops["mode"] = {"scale_shift_mod": not kw["scale_shift_mod"]}
+            if per:
+                case_drops["row0"] = ((1, _row0), (2, _row0))
+            line = {"shape": line_shape, "case": label, "dtype": "float32", "bar_rel": bar,
+                    **_parity(f"{name} f32 {label}", fn, plain, args, bar, case_drops, kw)}
+            if timed is not None:
+                _timed(line, fn, plain, library, args, kw, 20 if timed == 1 else 10,
+                       bnd(*bound_case))
+                rows[timed] = line
+            rows.setdefault(key, line)
+            print(f"[kernels] {name} " + json.dumps(line))
+        e = _entry(name, "", "", rows, 1, 8)
+        out[name] = {k: e[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "ms_b8", "plain_ms_b8", "bound_ms_b8")}
+        out[name].update(bar_rel=bar, bound_by_b8=rows[8]["bound_by"])
+    return out
+
+
 def phase_kernels() -> list:
     from rald_torch.ops.nn_dist_kernel import (
         nn_min_sq_batch,
@@ -734,6 +881,7 @@ def phase_kernels() -> list:
     entries += _bf16_kernel_entries(gen, wsets)
     entries.append(_entry("nn_min_sq_batch", "rald_torch/csrc/nn_dist.cu",
                           "rald_tpu/ops/nn_dist_kernel.py:168", batch_rows, 1, 8))
+    f32 = _f32_kernel_entries(gen)
 
     entries.insert(1, {
         "name": "nn_min_sq_both", "route": "cuda", "source": "rald_torch/csrc/nn_dist.cu",
@@ -745,6 +893,9 @@ def phase_kernels() -> list:
     })
     for e in entries:
         e["max_err"] = e["max_abs_err"]
+        # the nearest-neighbour kernels take f32 points only: their entries
+        # above are f32
+        e["f32"] = f32.get(e["name"], "f32 only: the entries above")
     return entries
 
 
@@ -810,9 +961,12 @@ def _breakdown(tag: str, calls: dict, shape: list) -> list:
 
 
 def ff_breakdown(batches=(1, 8)) -> list:
-    """One-off, outside the default run: the two bf16 FF calls and their
-    library composite split into host and device time (``_breakdown``), at
-    the main path's batches with one AdaLN row per frame.
+    """One-off, outside the default run: the two bf16 FF calls, the two
+    int8 FF calls (dynamic and static scales) and their library composites
+    split into host and device time (``_breakdown``: per call, and each
+    launch -- LN / quantization, GEMM1, row quantization, GEMM2 -- by
+    ``torch.profiler``), at the main path's batches with one AdaLN row per
+    frame.
 
         python3 -c "import chip_smoke as c; c.ff_breakdown()"
     """
@@ -829,8 +983,54 @@ def ff_breakdown(batches=(1, 8)) -> list:
             "library (fused_ln_geglu_residual)": lambda: _geglu_library(x, s, b, w1, b1, w2, b2,
                                                                         True),
         }
+        q8 = _int8_ff_inputs(bsz, 512, gen, per_batch=True)
+        st = _int8_static_inputs(q8)
+        calls.update({
+            "fused_ln_geglu_residual_int8": lambda: gk.fused_ln_geglu_residual_int8(*q8),
+            "fused_ln_geglu_residual_int8_static":
+                lambda: gk.fused_ln_geglu_residual_int8_static(*st),
+            "library (fused_ln_geglu_residual_int8)": lambda: _int8_ff_library(*q8),
+        })
         lines += _breakdown("ff_breakdown", calls, [bsz, 512, D])
     return lines
+
+
+INT8_FF_CASES = ((1, 512, False), (8, 512, False), (3, 300, False), (8, 512, True),
+                 (3, 300, True))
+
+
+def int8_ff_dump(path: str, compare: str = None) -> dict:
+    """One-off, outside the default run: the bf16 outputs of the two int8
+    FF kernels on seeded inputs (phase 3's shapes, shared and per-frame
+    AdaLN rows) saved to ``path``; with ``compare``, the file another tree
+    wrote on the same card (the parent commit unpacked into
+    ``build/parent``), each case bitwise equal or its max |difference|. The
+    int8 sums are exact and the rounding points the same, so a redesign
+    that keeps them matches its parent bit for bit.
+
+        python3 -c "import chip_smoke as c; c.int8_ff_dump('out.pt', 'build/parent/out.pt')"
+    """
+    from rald_torch.ops import geglu_kernel as gk
+
+    check(torch.cuda.is_available(), "int8_ff_dump needs a CUDA device")
+    gen = torch.Generator("cuda").manual_seed(0)
+    outs = {}
+    for bsz, n, per in INT8_FF_CASES:
+        dyn = _int8_ff_inputs(bsz, n, gen, per)
+        key = f"({bsz},{n},{D})" + (" per-frame rows" if per else "")
+        outs["int8 " + key] = gk.fused_ln_geglu_residual_int8(*dyn).cpu()
+        outs["static " + key] = gk.fused_ln_geglu_residual_int8_static(
+            *_int8_static_inputs(dyn)).cpu()
+    torch.save(outs, path)
+    line = {"path": path, "nvidia_smi": smi_line()}
+    if compare:
+        ref = torch.load(compare)
+        line["vs"] = compare
+        line["cases"] = {k: {"bitwise_equal": torch.equal(v, ref[k]),
+                             "max_abs_diff": (v.float() - ref[k].float()).abs().max().item()}
+                         for k, v in outs.items()}
+    print("[int8_ff_dump] " + json.dumps(line))
+    return line
 
 
 def attn_breakdown(batches=(1, 8)) -> list:
@@ -974,16 +1174,26 @@ def _run_step(eng, inputs, seed: int, timings=None, **kw):
     return out
 
 
-def _product_cfg(int8_ff=False, int8_attn=False, act_scales=None, fused_attn=False, fast=True):
+def _product_cfg(int8_ff=False, int8_attn=False, act_scales=None, fused_attn=False, fast=True,
+                 f32=False, depth=None):
+    """The product YAML in one of its modes; ``f32``: JAX's strict-parity
+    setting, ``compute_dtype: float32`` with ``matmul_precision: highest``;
+    ``depth``: both models cut to that many blocks (width unchanged)."""
     from rald_torch.config import load_config
 
     cfg = load_config(PRODUCT_CFG)
+    if f32:
+        cfg.system.compute_dtype = "float32"
+        cfg.system.matmul_precision = "highest"
     cfg.eval.inference.int8_ff = int8_ff
     cfg.eval.inference.int8_attn = int8_attn
     if act_scales is not None:
         cfg.eval.inference.int8_act_scales = str(act_scales)
     if fused_attn:
         cfg.ar_model.overrides = {"use_fused_attn": True}
+    if depth is not None:
+        cfg.ar_model.overrides = {**cfg.ar_model.get("overrides", {}), "depth": depth}
+        cfg.lidar_ae.overrides = {**cfg.lidar_ae.get("overrides", {}), "depth": depth}
     if not fast:
         cfg.system.fast_inference = False
     return cfg
@@ -1047,7 +1257,9 @@ def _cli_run(eng, cfg, label: str, src: Path, bsz: int = 8) -> dict:
     threshold sits at the 90th percentile of the first frame's logits, so
     the clouds are real; the first batch's point counts must equal
     (decode > threshold).sum() of a separate pass, and every kernel count
-    is exact."""
+    is exact. Where the YAML sets ``matmul_precision: highest``, both torch
+    precision switches are set away from it before the run and must read it
+    after (the CLI applies the YAML's value)."""
     import shutil
 
     from rald_torch.cli import infer
@@ -1064,10 +1276,18 @@ def _cli_run(eng, cfg, label: str, src: Path, bsz: int = 8) -> dict:
     logits = eng.decode_queries(eng.sample_tokens(cubes, list(range(bsz))), grid)
     thr = float(torch.quantile(logits[0, ::16], 0.9))
     want_points = (logits > thr).sum(1).tolist()
+    precision_check = cfg.system.get("matmul_precision") == "highest"
+    if precision_check:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cudnn.allow_tf32 = True
     reset_launch_counts()
     stats = infer.run(cfg, str(src), str(out), batch=bsz, threshold=thr, engine=eng,
                       print_fn=lambda *_: None)
     counts = launch_counts()
+    switches = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    if precision_check:
+        check(switches == ("highest", False),
+              f"cli {label}: matmul_precision highest not applied, switches {switches}")
     n_batches = -(-len(files) // bsz)
     want = {name: 0 for name in KERNEL_NAMES}
     per_nfe, vdepth = _per_nfe(eng), len(eng.vae.layers)
@@ -1087,7 +1307,8 @@ def _cli_run(eng, cfg, label: str, src: Path, bsz: int = 8) -> dict:
     check(sum(stats["points"]) > 0, f"cli {label}: every cloud is empty")
     line = {"mode": label, "batch": bsz, "files": stats["files"], "threshold": thr,
             "points": stats["points"], "seconds": stats["seconds"],
-            "frames_per_s": stats["frames_per_sec"], "launches": counts}
+            "frames_per_s": stats["frames_per_sec"], "launches": counts,
+            "float32_matmul_precision": switches[0], "cudnn_allow_tf32": switches[1]}
     print("[cli] " + json.dumps(line))
     return line
 
@@ -1133,15 +1354,16 @@ def _build(cfg, label: str, batches):
     return eng
 
 
-def _geglu_ff_module_run(eng) -> dict:
+def _geglu_ff_module_run(eng, label="GEGLUFeedForward(use_fused=True)", bar=INT8_BAR) -> dict:
     """``GEGLUFeedForward(use_fused=True)``: the module that reaches
     geglu_ff (no inference chain of the JAX package does), at full width
-    with the DiT's block-0 FF weights, against the unfused module."""
+    with the DiT's block-0 FF weights, in the engine's dtype, against the
+    unfused module."""
     from rald_torch.ops import launch_counts, reset_launch_counts
 
     ff = eng.model.model.transformer_blocks[0].ff
     x = torch.randn((8, 512, D), generator=torch.Generator("cuda").manual_seed(5),
-                    device="cuda").bfloat16()
+                    device="cuda").to(eng.dtype)
     want = ff(x)
     reset_launch_counts()
     ff.use_fused = True
@@ -1153,17 +1375,16 @@ def _geglu_ff_module_run(eng) -> dict:
     counts = launch_counts()
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
-    check(err <= INT8_BAR * ref, f"GEGLUFeedForward(use_fused=True): err {err:.3e} vs {ref:.3e}")
-    _check_counts(counts, {name: int(name == "geglu_ff") for name in KERNEL_NAMES},
-                  "GEGLUFeedForward(use_fused=True)")
-    line = {"mode": "GEGLUFeedForward(use_fused=True)", "shape": [8, 512, D],
-            "max_abs_err_vs_unfused": err, "launches": counts}
+    check(err <= bar * ref, f"{label}: err {err:.3e} vs {ref:.3e}")
+    _check_counts(counts, {name: int(name == "geglu_ff") for name in KERNEL_NAMES}, label)
+    line = {"mode": label, "shape": [8, 512, D], "max_abs_err_vs_unfused": err,
+            "launches": counts}
     print("[main] " + json.dumps(line))
     return line
 
 
 def phase_main() -> dict:
-    """Returns the runs by (mode, batch)."""
+    """Returns the runs by (mode, batch), the f32 runs included."""
     cfg = _product_cfg()
     rng = np.random.default_rng(cfg.system.seed)
     inputs = {b: _inputs(cfg, b, rng) for b in (1, 8)}
@@ -1222,17 +1443,71 @@ def phase_main() -> dict:
                                                   _want_launches(eng))
     del eng
     torch.cuda.empty_cache()
+    runs.update(phase_main_f32(inputs, cli_src))
+    return runs
+
+
+# DiT and VAE blocks of the f32 runs of phase 4: full width, depth cut from
+# 24 so that the four f32 engines keep the script near its time budget
+F32_DEPTH = 6
+
+
+def phase_main_f32(inputs: dict, cli_src: Path) -> dict:
+    """The chain in float32 at batch 1, full width, F32_DEPTH blocks:
+    ``compute_dtype: float32`` with ``matmul_precision: highest`` applied
+    through ``apply_matmul_precision`` (JAX's strict-parity configuration),
+    as shipped (rows 1 and 2, plus the CLI on that YAML and
+    ``GEGLUFeedForward(use_fused=True)``), with ``use_fused_attn`` (row 7),
+    in int8 dynamic + vout (rows 4, 9) and int8 static + full (rows 5, 8,
+    scales calibrated on the f32 engine). Returns the runs by (mode, batch)."""
+    from rald_torch import apply_matmul_precision
+
+    apply_matmul_precision("highest")
+    runs = {}
+    cfg = _product_cfg(f32=True, depth=F32_DEPTH)
+    eng = _build(cfg, "f32", [inputs[1]])
+    check(eng.dtype == torch.float32, f"f32 engine runs in {eng.dtype}")
+    runs[("f32", 1)] = _main_run(eng, inputs[1], 1, "f32", _want_launches(eng))
+    runs[("cli f32", 8)] = _cli_run(eng, cfg, "f32", cli_src)
+    runs[("f32 GEGLUFeedForward(use_fused=True)", 1)] = _geglu_ff_module_run(
+        eng, "f32 GEGLUFeedForward(use_fused=True)", F32_BAR)
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = _build(_product_cfg(fused_attn=True, f32=True, depth=F32_DEPTH), "f32 use_fused_attn", [inputs[1]])
+    runs[("f32 use_fused_attn", 1)] = _main_run(eng, inputs[1], 1, "f32 use_fused_attn",
+                                                _want_launches(eng))
+    del eng
+    torch.cuda.empty_cache()
+
+    label = "f32 int8_ff=True,int8_attn=vout"
+    eng = _build(_product_cfg(True, "vout", f32=True, depth=F32_DEPTH), label, [inputs[1]])
+    runs[(label, 1)] = _main_run(eng, inputs[1], 1, label, _want_launches(eng))
+    ah, ag = eng.calibrate_act_scales(
+        [{"radar_cube": inputs[1]["radar_cube"], "seeds_or_prior": inputs[1]["seeds_or_prior"]}],
+        num_batches=1, margin=1.1, print_fn=lambda *_: None)
+    scales = SCRATCH / "int8_act_scales_f32.npz"
+    np.savez(scales, ah=ah, ag=ag, num_steps=eng.sampler_kwargs["num_steps"])
+    del eng
+    torch.cuda.empty_cache()
+
+    label = "f32 int8_ff=static,int8_attn=full"
+    eng = _build(_product_cfg("static", "full", scales, f32=True, depth=F32_DEPTH), label, [inputs[1]])
+    runs[(label, 1)] = _main_run(eng, inputs[1], 1, label, _want_launches(eng))
+    del eng
+    torch.cuda.empty_cache()
     return runs
 
 
 # --------------------------------------------------------------- phase 5
 def _reference_chain(int8_ff=False, int8_attn=False, act_scales=None, bf16_tokens=None,
-                     fused_attn=False):
+                     fused_attn=False, f32=False):
     """The chain at depth 2 / 4 steps, once through the kernels and once
     with their plain versions patched in, on the same card and weights.
     ``bf16_tokens``: the plain bf16 chain's tokens (same weights, cube and
     prior), the yardstick of a chain whose attention is a kernel too.
-    Returns the engine, its inputs and the plain tokens."""
+    ``f32``: compute_dtype float32 with matmul_precision highest, held to a
+    strict bar. Returns the engine, its inputs and the plain tokens."""
     import rald_torch.eval.chamfer as chamfer
     import rald_torch.models.latent_dit as latent_dit
     import rald_torch.models.vecset_vae as vecset_vae
@@ -1241,7 +1516,7 @@ def _reference_chain(int8_ff=False, int8_attn=False, act_scales=None, bf16_token
     from rald_torch.ops.nn_dist_kernel import nn_min_sq_both_plain
     from rald_torch.train.gen_engine import GenerationEngine
 
-    cfg = _product_cfg(int8_ff, int8_attn, act_scales)
+    cfg = _product_cfg(int8_ff, int8_attn, act_scales, f32=f32)
     cfg.ar_model.overrides = {"depth": 2, "use_fused_attn": fused_attn}
     cfg.lidar_ae.overrides = {"depth": 2}
     cfg.eval.inference.num_steps = 4
@@ -1276,11 +1551,17 @@ def _reference_chain(int8_ff=False, int8_attn=False, act_scales=None, bf16_token
     tok_rms = tok_p.pow(2).mean().sqrt().item()
     cd_k, cd_p = float(out_k[3][0]), float(out_p[3][0])
     line = {"int8_ff": int8_ff, "int8_attn": int8_attn, "use_fused_attn": fused_attn,
-            "tokens_max_abs_diff": tok_err,
+            "dtype": str(eng.dtype), "tokens_max_abs_diff": tok_err,
             "tokens_rms": tok_rms, "cd_kernels": cd_k, "cd_plain": cd_p,
             "n_pred_kernels": int(out_k[5][0]), "n_pred_plain": int(out_p[5][0])}
     line["tokens_rms_diff"] = (tok_k - tok_p).pow(2).mean().sqrt().item()
-    if bf16_tokens is None:
+    if f32:
+        # f32 chain: the kernels compute exact f32 products, so the two paths
+        # differ only in the order of their f32 sums (relative 1e-7 a
+        # sublayer), not in any rounding to bf16: the bar on the max token
+        # difference is 1e-3 of max(rms, 1), 50x below the bf16 chain's
+        err, bar = tok_err, 1e-3 * max(tok_rms, 1.0)
+    elif bf16_tokens is None:
         # bf16 chain: the two paths round the FF sums in different orders;
         # the bar is scripts/full_parity.py's 5% of max(rms, 1) on the tokens
         err, bar = tok_err, 0.05 * max(tok_rms, 1.0)
@@ -1343,6 +1624,11 @@ def phase_reference() -> dict:
     scales = SCRATCH / "int8_act_scales_depth2.npz"
     np.savez(scales, ah=ah, ag=ag, num_steps=4)
     _reference_chain("static", "full", act_scales=scales, bf16_tokens=tok_bf16)
+    from rald_torch import apply_matmul_precision
+
+    apply_matmul_precision("highest")
+    eng, _, _ = _reference_chain(fused_attn=True, f32=True)
+    del eng
     return _host_chamfer()
 
 
@@ -1357,9 +1643,15 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
     t_start = time.perf_counter()
     phase_build()
+    t = time.perf_counter()
     kernels = phase_kernels()
+    print(f"[time] phase 3 (kernels) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     runs = phase_main()
+    print(f"[time] phase 4 (main path, bf16 and f32) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     runs[("host chamfer_and_fscore", 1)] = phase_reference()
+    print(f"[time] phase 5 (reference) {time.perf_counter() - t:.1f} s")
     # each kernel's launches in the runs of the mode that uses it: the main
     # path's eval step at batch 1 (and 8), or, for the two kernels no
     # inference chain reaches, the module / host API that does
@@ -1371,12 +1663,24 @@ def main() -> int:
                "fused_ln_geglu_residual_int8_static": "int8_ff=static,int8_attn=vout",
                "geglu_ff": "GEGLUFeedForward(use_fused=True)",
                "fused_self_attention_block": "use_fused_attn"}
+    # and in the f32 runs (batch 1) of the mode that uses it
+    f32_mode_of = {"fused_ln_geglu_residual": "f32", "fused_ln_geglu_residual_int8":
+                   "f32 int8_ff=True,int8_attn=vout", "fused_self_attention_block_int8_vout":
+                   "f32 int8_ff=True,int8_attn=vout", "fused_ln_geglu_residual_int8_static":
+                   "f32 int8_ff=static,int8_attn=full", "fused_self_attention_block_int8":
+                   "f32 int8_ff=static,int8_attn=full",
+                   "geglu_ff": "f32 GEGLUFeedForward(use_fused=True)",
+                   "fused_self_attention_block": "f32 use_fused_attn"}
     for k in kernels:
         mode = mode_of[k["name"]]
         k["launches_mode"] = mode
         k["launches"] = runs[(mode, 1)]["launches"][k["name"]]
         if (mode, 8) in runs:
             k["launches_b8"] = runs[(mode, 8)]["launches"][k["name"]]
+        if k["name"] in f32_mode_of:
+            mode = f32_mode_of[k["name"]]
+            k["f32"].update(launches_mode=mode, launches=runs[(mode, 1)]["launches"][k["name"]])
+            check(k["f32"]["launches"] > 0, f"{k['name']}: no f32 launch in {mode}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

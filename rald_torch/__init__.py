@@ -23,3 +23,36 @@ def resolve_device(device=None) -> torch.device:
             "on the CPU explicitly"
         )
     return dev
+
+
+# jax_default_matmul_precision values -> torch.set_float32_matmul_precision
+_MATMUL_PRECISION = {
+    "highest": "highest", "float32": "highest",
+    "high": "high", "tensorfloat32": "high", "bfloat16_3x": "high",
+    "default": "medium", "bfloat16": "medium", "fastest": "medium",
+}
+
+
+def apply_matmul_precision(value) -> str:
+    """What ``jax.config.update("jax_default_matmul_precision", value)`` is
+    to JAX, for PyTorch: sets ``torch.set_float32_matmul_precision`` and
+    ``torch.backends.cudnn.allow_tf32`` (f32 convolutions, such as the
+    radar encoder's ``Conv3d``) for the whole process.
+
+    - ``highest`` / ``float32`` -> ``"highest"``, cuDNN TF32 off;
+    - ``high`` / ``tensorfloat32`` / ``bfloat16_3x`` -> ``"high"``, TF32 on;
+    - ``default`` / ``bfloat16`` / ``fastest`` -> ``"medium"``, TF32 on;
+    - anything else raises ``ValueError``.
+
+    A lower setting grants PyTorch leave to compute f32 products in less
+    precision; it does not require it. The port's own f32 kernels compute
+    exact f32 products under every setting. Returns the torch setting."""
+    key = str(value).lower()
+    if key not in _MATMUL_PRECISION:
+        raise ValueError(
+            f"matmul_precision must be one of {sorted(_MATMUL_PRECISION)}, got {value!r}"
+        )
+    torch_value = _MATMUL_PRECISION[key]
+    torch.set_float32_matmul_precision(torch_value)
+    torch.backends.cudnn.allow_tf32 = torch_value != "highest"
+    return torch_value

@@ -40,6 +40,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from rald_torch import apply_matmul_precision
 from rald_torch import geometry as geo
 from rald_torch.config import Config, load_config
 from rald_torch.data.radar_proc import process_radar_cube
@@ -120,7 +121,11 @@ def run(cfg: Config, inputs: str, out_dir: str, batch: int = 0, threshold: float
     """Cubes matching ``inputs`` -> PLY files under ``out_dir``. ``engine``
     replaces the one built from ``cfg`` (with its weights). Returns the
     file count, per-file point counts, mean points, seconds and frames/s
-    (IO included)."""
+    (IO included). ``system.matmul_precision``, where set, is applied to the
+    process first (:func:`rald_torch.apply_matmul_precision`), as JAX's CLI
+    applies it; the engine itself changes no global state."""
+    if cfg.system.get("matmul_precision"):
+        apply_matmul_precision(cfg.system.matmul_precision)
     if engine is None:
         check_checkpoints(cfg, print_fn)
         engine = GenerationEngine(cfg, device=device)

@@ -1,12 +1,12 @@
 // Fused LayerNorm/AdaLN-mod + multi-head self-attention + residual, bf16 and
-// int8, Hopper (sm_90a).
+// int8, with bf16 or f32 activations, Hopper (sm_90a).
 //
 // Replaces the TPU kernels of rald_tpu/ops/attn_kernel.py:
-//   ::fused_self_attention_block (Pallas body _kernel), all projections bf16
-//     -> rald_fused_self_attention_block_bf16;
+//   ::fused_self_attention_block (Pallas body _kernel), all projections of
+//     x's type -> rald_fused_self_attention_block;
 //   ::fused_self_attention_block_int8 (_int8_kernel), all projections int8,
 //     and ::fused_self_attention_block_int8_vout (_int8_vout_kernel), q / k
-//     bf16, v and out int8 -> rald_fused_self_attention_block_int8.
+//     of x's type, v and out int8 -> rald_fused_self_attention_block_int8.
 // All compute y = x + Wo MHA(mod(LN x)) + bo with 8 heads of 64, at the
 // rounding points of the TPU kernels and of the plain PyTorch versions
 // (rald_torch/ops/attn_kernel.py): h = LN + mod in f32 (rounded to bf16 for a
@@ -60,8 +60,16 @@
 //   5. Out projection on the same GEMM: bf16 OUT_RESID (bf16(acc + bo + x),
 //      geglu.cu's GEMM2 epilogue) or int8 Q8_RESID ((acc * arow) * so + bo + x).
 // Launches per call: bf16 4 (LN, q/k/v, core, out); int8 5; vout 6.
+//
+// With x in f32 (JAX's compute_dtype float32) every rounding to x's type is
+// a no-op and the launches are the same: LN writes h in f32; the f32
+// projections (q / k / v, vout's q / k, the bf16 mode's out) run on the
+// CUDA cores (f32_gemm.cuh, exact f32 products, no TMA); the int8 ones on the
+// same wgmma GEMM with f32 outputs and residual; the core is
+// attn_core_f32_kernel, the same two-pass softmax in f32 on the CUDA cores.
 #include <math.h>
 
+#include "f32_gemm.cuh"
 #include "int8_common.cuh"
 #include "sm90_gemm.cuh"
 
@@ -346,6 +354,163 @@ cudaError_t launch_core(int warps, const void* q, const void* k, const void* v, 
   return launch_core_w<2, BF16_OUT>(q, k, v, o, hmax, batch, n_tok, heads, st);
 }
 
+// ---- f32 core (x in float32): the same exact two-pass softmax on the CUDA
+// cores. A block of 128 threads owns 32 query rows of one head of one frame,
+// four threads a row: thread (r, qd) scores keys 4j + qd of each 64-key tile
+// (j < 16) with the row's q in registers (exact f32 products, FFMA), keeps
+// its running max and rescaled sum in pass 1 (merged over the row's four
+// threads after the last tile), and in pass 2 recomputes the scores, writes
+// a = exp(s - m) / l (__fdiv_rn) to a shared row of weights and sums a . v
+// for head columns [16 qd, 16 qd + 16). o is f32 (rounding a head to x's
+// type is a no-op); hmax, when given, receives each row's max |o| over the
+// head. K and V tiles are staged in shared memory, keys past N as zeros
+// scoring -inf. grid (ceil(N / 32), heads, batch); q, k, v, o (B*N, D) f32.
+constexpr int F32_ROWS = 32;
+constexpr int F32_KLD = DH + 4;  // floats per K / weight row in shared memory
+
+__global__ void __launch_bounds__(F32_ROWS * 4)
+attn_core_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ hmax, int n_tok, float scale) {
+  __shared__ __align__(16) float ks[BKV * F32_KLD];
+  __shared__ __align__(16) float vs[BKV * DH];
+  __shared__ __align__(16) float ps[F32_ROWS * F32_KLD];
+  const int tid = threadIdx.x, r = tid >> 2, qd = tid & 3;
+  const int h = blockIdx.y, heads = gridDim.y;
+  const int row = blockIdx.x * F32_ROWS + r;
+  const long long rowbase = (long long)blockIdx.z * n_tok;
+  const int tiles = (n_tok + BKV - 1) / BKV;
+
+  float qr[DH];
+#pragma unroll
+  for (int d4 = 0; d4 < DH / 4; ++d4) {
+    const float4 f = row < n_tok ? *reinterpret_cast<const float4*>(
+                                       q + (rowbase + row) * D + h * DH + 4 * d4)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    qr[4 * d4] = f.x, qr[4 * d4 + 1] = f.y, qr[4 * d4 + 2] = f.z, qr[4 * d4 + 3] = f.w;
+  }
+  float m = -INFINITY, l = 0.f, acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int tile = 0; tile < tiles; ++tile) {
+      __syncthreads();  // every thread is done with the previous tile
+      for (int i = tid; i < BKV * (DH / 4); i += F32_ROWS * 4) {
+        const int kr = i >> 4, c4 = i & 15;
+        const int key = tile * BKV + kr;
+        const long long off = (rowbase + key) * D + h * DH + 4 * c4;
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(ks + kr * F32_KLD + 4 * c4) =
+            key < n_tok ? *reinterpret_cast<const float4*>(k + off) : zero;
+        if (pass)
+          *reinterpret_cast<float4*>(vs + kr * DH + 4 * c4) =
+              key < n_tok ? *reinterpret_cast<const float4*>(v + off) : zero;
+      }
+      __syncthreads();
+      float s[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) s[j] = 0.f;
+#pragma unroll
+      for (int d4 = 0; d4 < DH / 4; ++d4)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float4 kv = *reinterpret_cast<const float4*>(ks + (4 * j + qd) * F32_KLD + 4 * d4);
+          s[j] = fmaf(qr[4 * d4], kv.x, s[j]);
+          s[j] = fmaf(qr[4 * d4 + 1], kv.y, s[j]);
+          s[j] = fmaf(qr[4 * d4 + 2], kv.z, s[j]);
+          s[j] = fmaf(qr[4 * d4 + 3], kv.w, s[j]);
+        }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        s[j] = __fmul_rn(s[j], scale);
+        if (tile * BKV + 4 * j + qd >= n_tok) s[j] = -INFINITY;
+      }
+      if (pass == 0) {
+        float mx = m;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) mx = fmaxf(mx, s[j]);
+        if (mx != -INFINITY) {
+          float sum = m == -INFINITY ? 0.f : __fmul_rn(l, expf(__fsub_rn(m, mx)));
+#pragma unroll
+          for (int j = 0; j < 16; ++j) sum = __fadd_rn(sum, expf(__fsub_rn(s[j], mx)));
+          m = mx;
+          l = sum;
+        }
+        if (tile == tiles - 1) {
+          // the row's four threads (lanes 4g .. 4g+3): its max, then each
+          // thread's sum rescaled to it
+          float mr = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+          float sum = m == -INFINITY ? 0.f : __fmul_rn(l, expf(__fsub_rn(m, mr)));
+          sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
+          sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
+          m = mr;
+          l = sum;
+        }
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        ps[r * F32_KLD + 4 * j + qd] = __fdiv_rn(expf(__fsub_rn(s[j], m)), l);
+      __syncwarp();  // the row's weights come from its own four threads
+#pragma unroll 4
+      for (int kk = 0; kk < BKV; ++kk) {
+        const float a = ps[r * F32_KLD + kk];
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          const float4 vv = *reinterpret_cast<const float4*>(vs + kk * DH + 16 * qd + 4 * c4);
+          acc[4 * c4] = fmaf(a, vv.x, acc[4 * c4]);
+          acc[4 * c4 + 1] = fmaf(a, vv.y, acc[4 * c4 + 1]);
+          acc[4 * c4 + 2] = fmaf(a, vv.z, acc[4 * c4 + 2]);
+          acc[4 * c4 + 3] = fmaf(a, vv.w, acc[4 * c4 + 3]);
+        }
+      }
+    }
+  }
+
+  float am = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) am = fmaxf(am, fabsf(acc[i]));
+  am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, 1));
+  am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, 2));
+  if (row >= n_tok) return;
+  float* orow = o + (rowbase + row) * D + h * DH + 16 * qd;
+#pragma unroll
+  for (int c4 = 0; c4 < 4; ++c4)
+    *reinterpret_cast<float4*>(orow + 4 * c4) =
+        make_float4(acc[4 * c4], acc[4 * c4 + 1], acc[4 * c4 + 2], acc[4 * c4 + 3]);
+  if (hmax != nullptr && qd == 0) hmax[(rowbase + row) * heads + h] = am;
+}
+
+cudaError_t launch_core_f32(const void* q, const void* k, const void* v, void* o, void* hmax,
+                            int batch, int n_tok, int heads, cudaStream_t st) {
+  const dim3 grid((n_tok + F32_ROWS - 1) / F32_ROWS, heads, batch);
+  attn_core_f32_kernel<<<grid, F32_ROWS * 4, 0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)hmax, n_tok,
+      1.f / sqrtf((float)DH));
+  return cudaGetLastError();
+}
+
+// the f32 projections (f32_gemm.cuh): a (rows, D) times up to three (D, D)
+// weights, with EPI (STORE: out[z] = acc; OUT_RESID: out = acc + bias + resid)
+template <int EPI>
+cudaError_t proj_f32(int bm, int bn, const void* a, const void* const* w, void* const* out,
+                     int nw, const void* bias, const void* resid, int rows, cudaStream_t st) {
+  f32g::Args p = {};
+  p.a = (const float*)a;
+  for (int i = 0; i < nw; ++i) {
+    p.b[i] = (const float*)w[i];
+    p.out[i] = (float*)out[i];
+  }
+  p.bias = (const float*)bias;
+  p.resid = (const float*)resid;
+  p.rows = rows;
+  p.k = D;
+  p.ncols = D;
+  return f32g::launch<EPI>(bm, bn, p, nw, st);
+}
+
 bool shape_ok(int batch, int n_tok, int heads, int warps, int pm, int pn, int om, int on) {
   return heads * DH == D && n_tok > 0 && n_tok <= MAX_TOKENS && batch > 0 &&
          (long long)batch * n_tok <= (1 << 30) && (warps == 2 || warps == 4 || warps == 8) &&
@@ -376,104 +541,135 @@ extern "C" int rald_attn_width() { return D; }
 extern "C" int rald_attn_head_dim() { return DH; }
 extern "C" int rald_attn_max_tokens() { return MAX_TOKENS; }
 
-// bf16 mode (fused_self_attention_block): wq / wk / wv / wo bf16 in the torch
-// layout (out, in), bo bf16, x (batch, n_tok, D) bf16; warps the core's
-// block (2 or 4), (pm, pn) the q / k / v GEMM's tile and (om, on) the out
-// GEMM's, each in {64, 128}^2. Workspaces (caller-allocated, 16-byte
-// aligned): hb, q, k, v, o bf16 (B*N, D).
-extern "C" int rald_fused_self_attention_block_bf16(
+// bf16 / f32 mode (fused_self_attention_block): x (batch, n_tok, D), s, b,
+// wq / wk / wv / wo in the torch layout (out, in) and bo all of x's type
+// (f32 = 1: float32, else bf16); warps the bf16 core's block (2, 4 or 8),
+// (pm, pn) the q / k / v GEMM's tile and (om, on) the out GEMM's, each in
+// {64, 128}^2. Workspaces (caller-allocated, 16-byte aligned, x's type): hb,
+// q, k, v, o (B*N, D).
+extern "C" int rald_fused_self_attention_block(
     const void* x, const void* s, const void* b, long long mod_bstride, const void* wq,
     const void* wk, const void* wv, const void* wo, const void* bo, void* hb, void* q, void* k,
     void* v, void* o, void* out, int batch, int n_tok, int heads, int warps, int pm, int pn,
-    int om, int on, int scale_shift_mod, float eps, void* stream) {
+    int om, int on, int f32, int scale_shift_mod, float eps, void* stream) {
   if (!shape_ok(batch, n_tok, heads, warps, pm, pn, om, on)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = batch * n_tok;
-  sm90::Maps mp = {}, mo = {};
   const void* wqkv[3] = {wq, wk, wv};
+  void* oqkv[3] = {q, k, v};
+  if (f32) {
+    cudaError_t e = rald::launch_ln_quant<float>(x, s, b, mod_bstride, nullptr, nullptr, hb,
+                                                 nullptr, rows, n_tok, scale_shift_mod, eps, st);
+    if (e == cudaSuccess)
+      e = proj_f32<sm90::STORE>(pm, pn, hb, wqkv, oqkv, 3, nullptr, nullptr, rows, st);
+    if (e == cudaSuccess) e = launch_core_f32(q, k, v, o, nullptr, batch, n_tok, heads, st);
+    if (e == cudaSuccess)
+      e = proj_f32<sm90::OUT_RESID>(om, on, o, &wo, &out, 1, bo, x, rows, st);
+    return (int)e;
+  }
+  sm90::Maps mp = {}, mo = {};
   cudaError_t e = proj_maps(&mp, hb, rows, pm, wqkv, 3, pn, 2);
   if (e == cudaSuccess) e = proj_maps(&mo, o, rows, om, &wo, 1, on, 2);
   if (e != cudaSuccess) return (int)e;
 
-  e = rald::launch_ln_quant(x, s, b, mod_bstride, nullptr, nullptr, hb, nullptr, rows, n_tok,
-                            scale_shift_mod, eps, st);
+  e = rald::launch_ln_quant<bf16>(x, s, b, mod_bstride, nullptr, nullptr, hb, nullptr, rows,
+                                  n_tok, scale_shift_mod, eps, st);
   if (e != cudaSuccess) return (int)e;
   sm90::GemmArgs pp = gemm_args(rows, 2);
-  pp.out[0] = q;
-  pp.out[1] = k;
-  pp.out[2] = v;
+  for (int i = 0; i < 3; ++i) pp.out[i] = oqkv[i];
   e = sm90::launch_tiled<bf16, sm90::STORE, PROJ_STAGES>(pm, pn, mp, pp, 3, st);
   if (e != cudaSuccess) return (int)e;
   e = launch_core<true>(warps, q, k, v, o, nullptr, batch, n_tok, heads, st);
   if (e != cudaSuccess) return (int)e;
   sm90::GemmArgs po = gemm_args(rows, 2);
   po.bias = bo;
-  po.resid = (const bf16*)x;
+  po.resid = x;
   po.out[0] = out;
   return (int)sm90::launch_tiled<bf16, sm90::OUT_RESID, PROJ_STAGES>(om, on, mo, po, 1, st);
 }
 
-// int8 modes. vout = 0 (fused_self_attention_block_int8): wq / wk / wv int8
-// with f32 row scales sq / sk / sv; vout = 1: wq / wk bf16 (sq / sk
-// ignored), wv int8. wo int8 with scale so, bo f32. Tiles as above.
-// Workspaces (caller-allocated, 16-byte aligned): hq int8 (B*N, D); hrow f32
-// (B*N); hb bf16 (B*N, D) (vout only); q, k, v bf16 (B*N, D); o f32
+// int8 modes, x (and s, b, out, the workspaces hb, q, k, v) of x's type
+// (f32 = 1: float32, else bf16). vout = 0 (fused_self_attention_block_int8):
+// wq / wk / wv int8 with f32 row scales sq / sk / sv; vout = 1: wq / wk of
+// x's type (sq / sk ignored), wv int8. wo int8 with scale so, bo f32. Tiles
+// as above. Workspaces (caller-allocated, 16-byte aligned): hq int8 (B*N,
+// D); hrow f32 (B*N); hb (B*N, D) (vout only); q, k, v (B*N, D); o f32
 // (B*N, D); hmax f32 (B*N, heads); arow f32 (B*N); aq int8 (B*N, D).
-extern "C" int rald_fused_self_attention_block_int8(
-    const void* x, const void* s, const void* b, long long mod_bstride, const void* wq,
-    const void* sq, const void* wk, const void* sk, const void* wv, const void* sv,
-    const void* wo, const void* so, const void* bo, void* hq, void* hrow, void* hb, void* q,
-    void* k, void* v, void* o, void* hmax, void* arow, void* aq, void* out, int batch,
-    int n_tok, int heads, int vout, int warps, int pm, int pn, int om, int on,
-    int scale_shift_mod, float eps, void* stream) {
-  if (!shape_ok(batch, n_tok, heads, warps, pm, pn, om, on)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+template <typename T>
+cudaError_t run_int8(const void* x, const void* s, const void* b, long long mod_bstride,
+                     const void* wq, const void* sq, const void* wk, const void* sk,
+                     const void* wv, const void* sv, const void* wo, const void* so,
+                     const void* bo, void* hq, void* hrow, void* hb, void* q, void* k, void* v,
+                     void* o, void* hmax, void* arow, void* aq, void* out, int batch, int n_tok,
+                     int heads, int vout, int warps, int pm, int pn, int om, int on,
+                     int scale_shift_mod, float eps, cudaStream_t st) {
+  constexpr bool F32 = std::is_same<T, float>::value;
   const int rows = batch * n_tok;
   sm90::Maps mqk = {}, mv = {}, mo = {};
   const void* wqkv[3] = {wq, wk, wv};
-  cudaError_t e = vout ? proj_maps(&mqk, hb, rows, pm, wqkv, 2, pn, 2)
-                       : proj_maps(&mqk, hq, rows, pm, wqkv, 3, pn, 1);
+  void* oqkv[3] = {q, k, v};
+  cudaError_t e = cudaSuccess;
+  if (vout && !F32) e = proj_maps(&mqk, hb, rows, pm, wqkv, 2, pn, 2);
+  if (!vout) e = proj_maps(&mqk, hq, rows, pm, wqkv, 3, pn, 1);
   if (e == cudaSuccess && vout) e = proj_maps(&mv, hq, rows, pm, &wv, 1, pn, 1);
   if (e == cudaSuccess) e = proj_maps(&mo, aq, rows, om, &wo, 1, on, 1);
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return e;
 
-  e = rald::launch_ln_quant(x, s, b, mod_bstride, hq, hrow, vout ? hb : nullptr, nullptr, rows,
-                            n_tok, scale_shift_mod, eps, st);
-  if (e != cudaSuccess) return (int)e;
+  e = rald::launch_ln_quant<T>(x, s, b, mod_bstride, hq, hrow, vout ? hb : nullptr, nullptr, rows,
+                               n_tok, scale_shift_mod, eps, st);
+  if (e != cudaSuccess) return e;
   if (vout) {
-    sm90::GemmArgs pp = gemm_args(rows, 2);
-    pp.out[0] = q;
-    pp.out[1] = k;
-    e = sm90::launch_tiled<bf16, sm90::STORE, PROJ_STAGES>(pm, pn, mqk, pp, 2, st);
-    if (e != cudaSuccess) return (int)e;
+    if constexpr (F32) {
+      e = proj_f32<sm90::STORE>(pm, pn, hb, wqkv, oqkv, 2, nullptr, nullptr, rows, st);
+    } else {
+      sm90::GemmArgs pp = gemm_args(rows, 2);
+      pp.out[0] = q;
+      pp.out[1] = k;
+      e = sm90::launch_tiled<bf16, sm90::STORE, PROJ_STAGES>(pm, pn, mqk, pp, 2, st);
+    }
+    if (e != cudaSuccess) return e;
     sm90::GemmArgs pv = gemm_args(rows, 1);
     pv.rowscale = (const float*)hrow;
     pv.colscale[0] = (const float*)sv;
     pv.out[0] = v;
-    e = sm90::launch_tiled<int8_t, sm90::Q8_STORE, PROJ_STAGES>(pm, pn, mv, pv, 1, st);
+    e = sm90::launch_tiled<int8_t, sm90::Q8_STORE, PROJ_STAGES, T>(pm, pn, mv, pv, 1, st);
   } else {
     sm90::GemmArgs pp = gemm_args(rows, 1);
     pp.rowscale = (const float*)hrow;
     const void* ss[3] = {sq, sk, sv};
-    void* os[3] = {q, k, v};
     for (int i = 0; i < 3; ++i) {
       pp.colscale[i] = (const float*)ss[i];
-      pp.out[i] = os[i];
+      pp.out[i] = oqkv[i];
     }
-    e = sm90::launch_tiled<int8_t, sm90::Q8_STORE, PROJ_STAGES>(pm, pn, mqk, pp, 3, st);
+    e = sm90::launch_tiled<int8_t, sm90::Q8_STORE, PROJ_STAGES, T>(pm, pn, mqk, pp, 3, st);
   }
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return e;
 
-  e = launch_core<false>(warps, q, k, v, o, hmax, batch, n_tok, heads, st);
-  if (e != cudaSuccess) return (int)e;
+  e = F32 ? launch_core_f32(q, k, v, o, hmax, batch, n_tok, heads, st)
+          : launch_core<false>(warps, q, k, v, o, hmax, batch, n_tok, heads, st);
+  if (e != cudaSuccess) return e;
   e = rald::launch_quant_rows(o, rows, D, hmax, heads, aq, arow, st);
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return e;
 
   sm90::GemmArgs po = gemm_args(rows, 1);
   po.rowscale = (const float*)arow;
   po.colscale[0] = (const float*)so;
   po.bias = bo;
-  po.resid = (const bf16*)x;
+  po.resid = x;
   po.out[0] = out;
-  return (int)sm90::launch_tiled<int8_t, sm90::Q8_RESID, PROJ_STAGES>(om, on, mo, po, 1, st);
+  return sm90::launch_tiled<int8_t, sm90::Q8_RESID, PROJ_STAGES, T>(om, on, mo, po, 1, st);
+}
+
+extern "C" int rald_fused_self_attention_block_int8(
+    const void* x, const void* s, const void* b, long long mod_bstride, const void* wq,
+    const void* sq, const void* wk, const void* sk, const void* wv, const void* sv,
+    const void* wo, const void* so, const void* bo, void* hq, void* hrow, void* hb, void* q,
+    void* k, void* v, void* o, void* hmax, void* arow, void* aq, void* out, int batch,
+    int n_tok, int heads, int vout, int warps, int pm, int pn, int om, int on, int f32,
+    int scale_shift_mod, float eps, void* stream) {
+  if (!shape_ok(batch, n_tok, heads, warps, pm, pn, om, on)) return (int)cudaErrorInvalidValue;
+  const auto run = f32 ? &run_int8<float> : &run_int8<bf16>;
+  return (int)run(x, s, b, mod_bstride, wq, sq, wk, sk, wv, sv, wo, so, bo, hq, hrow, hb, q, k,
+                  v, o, hmax, arow, aq, out, batch, n_tok, heads, vout, warps, pm, pn, om, on,
+                  scale_shift_mod, eps, (cudaStream_t)stream);
 }

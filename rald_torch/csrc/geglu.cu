@@ -1,4 +1,5 @@
-// Fused LayerNorm/AdaLN-mod + GEGLU feed-forward + residual, bf16, Hopper.
+// Fused LayerNorm/AdaLN-mod + GEGLU feed-forward + residual, bf16 or f32,
+// Hopper.
 //
 // Replaces the TPU kernel rald_tpu/ops/geglu_kernel.py::fused_ln_geglu_residual
 // (Pallas body _ln_kernel). For x (B, N, D) it computes
@@ -11,9 +12,9 @@
 // w1 (2*inner, D) with value rows [0, inner) and gate rows [inner, 2*inner),
 // w2 (D, inner). Rounding points mirror the TPU kernel and the plain PyTorch
 // version (rald_torch/ops/geglu_kernel.py): LN statistics in f32 as
-// E[x^2]-E[x]^2; h rounded to bf16 after mod; W1 product + b1 rounded; GELU
-// (exact erf) in f32 then rounded; a * GELU(g) rounded; W2 product + b2 + x
-// summed in f32 and rounded once.
+// E[x^2]-E[x]^2; h rounded to x's type after mod; W1 product + b1 rounded;
+// GELU (exact erf) in f32 then rounded; a * GELU(g) rounded; W2 product + b2
+// + x summed in f32 and rounded once. Every rounding is a no-op for f32 x.
 //
 // The same stages without the LN and the residual replace
 // rald_tpu/ops/geglu_kernel.py::geglu_ff (Pallas body _kernel):
@@ -28,10 +29,11 @@
 // bytes. Only wgmma reaches that rate, and only when its operands arrive in
 // shared memory ahead of it and each weight tile there feeds many rows.
 //
-// Design: three launches per call, each one pass over its rows.
-//  1. LN + mod (fused_ln_geglu_residual only): one warp per token row writes
-//     h = bf16(mod(LN(x))) into a (rows, D) scratch; the modulation row of
-//     token row r is r / N (mod_bstride = D) or row 0 (mod_bstride = 0).
+// Design (bf16): three launches per call, each one pass over its rows.
+//  1. LN + mod (fused_ln_geglu_residual only; int8_common.cuh's
+//     ln_quant_kernel): one warp per token row writes h = bf16(mod(LN(x)))
+//     into a (rows, D) scratch; the modulation row of token row r is r / N
+//     (mod_bstride = D) or row 0 (mod_bstride = 0).
 //  2. GEMM1 with a GEGLU epilogue: P = h W1^T on 128-row tiles. A block's
 //     output tile pairs 64 value columns [j, j+64) with their 64 gate columns
 //     [inner+j, inner+j+64): two TMA boxes of W1 that sit back to back in
@@ -51,87 +53,35 @@
 // warpgroups of 64 rows each run wgmma with f32 accumulators in registers,
 // releasing a stage as soon as the products that read it are done. Rows past
 // the end read as zeros (TMA) and are not stored. No sum uses atomics, so the
-// output is the same from run to run. GEMM1's K loop is short (8 slices of 64), so a block spends much of its
-// time filling the ring and in the GELU epilogue; it is compiled for two
-// resident blocks per SM (__launch_bounds__ min 2: no spills on sm_90a), so
-// one block's epilogue overlaps the other's products. (A persistent grid,
+// output is the same from run to run. GEMM1's K loop is short (8 slices of
+// 64), so a block spends much of its time filling the ring and in the GELU
+// epilogue; it is compiled for two resident blocks per SM
+// (__launch_bounds__ min 2: no spills on sm_90a), so one block's epilogue
+// overlaps the other's products. (A persistent grid,
 // tried on the card, gained nothing over that.) TMA descriptors are encoded
 // on the host and cached by address, shape and box: the weights' hit every
 // call, the scratch buffers' whenever the allocator hands back an address.
+//
+// Design (f32 x): the same three launches in f32, the GEMMs on the CUDA
+// cores (f32_gemm.cuh: exact f32 products, as JAX's matmul_precision
+// "highest" computes them; its GEGLU epilogue takes the TPU kernel's A&S
+// rational erf). No TMA.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "f32_gemm.cuh"
+#include "int8_common.cuh"
 #include "sm90_gemm.cuh"
 
 namespace {
 
 using sm90::bf16;
 using sm90::BJ;
+using rald::D;               // model width (the only width this build takes)
 
-constexpr int D = 512;        // model width (the only width this build takes)
 constexpr int BM1 = 128;      // GEMM1 rows per block (two consumer warpgroups)
-constexpr int LN_ROWS = 8;    // LN rows per block, one warp each
 constexpr int STAGES1 = 3;    // GEMM1 stages (K = D: 8 slices)
 constexpr int STAGES2 = 4;    // GEMM2 stages (K = inner)
-
-// ---- stage 1: h = bf16(mod(LN(x))), one warp per row; lane l holds columns
-// [8l, 8l+8) and [256+8l, 256+8l+8)
-__global__ void __launch_bounds__(LN_ROWS * 32)
-ln_mod_kernel(const bf16* __restrict__ x, const bf16* __restrict__ s, const bf16* __restrict__ b,
-              long long mod_bstride, int n_tok, int rows, int scale_shift_mod, float eps,
-              bf16* __restrict__ h) {
-  const int row = blockIdx.x * LN_ROWS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const bf16* xr = x + (long long)row * D;
-  float v[16];
-  float sum = 0.f, sq = 0.f;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const uint4 q = *reinterpret_cast<const uint4*>(xr + half * (D / 2) + 8 * lane);
-    const __nv_bfloat162* qh = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(qh[i]);
-      v[half * 8 + 2 * i] = f.x;
-      v[half * 8 + 2 * i + 1] = f.y;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    sum += v[i];
-    sq += v[i] * v[i];
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    sq += __shfl_xor_sync(0xffffffffu, sq, o);
-  }
-  const float mean = sum / D;
-  const float var = sq / D - mean * mean;
-  const float inv = rsqrtf(var + eps);
-  const long long mo = (long long)(row / n_tok) * mod_bstride;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int c0 = half * (D / 2) + 8 * lane;
-    uint4 o;
-    __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float hv[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = c0 + 2 * i + e;
-        const float sc = __bfloat162float(s[mo + c]);
-        const float sh = __bfloat162float(b[mo + c]);
-        const float t = (v[half * 8 + 2 * i + e] - mean) * inv;
-        hv[e] = scale_shift_mod ? t * (1.f + sc) + sh : t * sc + sh;
-      }
-      oh[i] = __floats2bfloat162_rn(hv[0], hv[1]);
-    }
-    *reinterpret_cast<uint4*>(h + (long long)row * D + c0) = o;
-  }
-}
 
 // GEMM1: h (rows, D) x W1 -> g (rows, inner) with the GEGLU epilogue
 cudaError_t launch_geglu(const CUtensorMap& map_a, const CUtensorMap& map_w1, int rows, int inner,
@@ -162,9 +112,37 @@ cudaError_t launch_out(int bm, int bn, const CUtensorMap& map_a, const CUtensorM
   p.k_tiles = inner * 2 / sm90::BK_BYTES;
   p.ncols = ncols;
   p.bias = bias;
-  p.resid = static_cast<const bf16*>(resid);
+  p.resid = resid;
   p.out[0] = out;
   return sm90::launch_tiled<bf16, EPI, STAGES2>(bm, bn, maps, p, 1, st);
+}
+
+// the float32 stages: GEMM1 with the GEGLU epilogue on 128 x 128 tiles,
+// GEMM2 with EPI on (bm, bn) tiles (f32_gemm.cuh)
+template <int EPI>
+cudaError_t run_f32(const float* a, const void* w1, const void* b1, const void* w2,
+                    const void* b2, const void* resid, float* g, void* out, int rows, int inner,
+                    int ncols, int bm, int bn, cudaStream_t st) {
+  f32g::Args p1 = {};
+  p1.a = a;
+  p1.b[0] = (const float*)w1;
+  p1.out[0] = g;
+  p1.bias = (const float*)b1;
+  p1.rows = rows;
+  p1.k = D;
+  p1.inner = inner;
+  cudaError_t e = f32g::launch<sm90::GEGLU>(128, 128, p1, 1, st);
+  if (e != cudaSuccess) return e;
+  f32g::Args p2 = {};
+  p2.a = g;
+  p2.b[0] = (const float*)w2;
+  p2.out[0] = (float*)out;
+  p2.bias = (const float*)b2;
+  p2.resid = (const float*)resid;
+  p2.rows = rows;
+  p2.k = inner;
+  p2.ncols = ncols;
+  return f32g::launch<EPI>(bm, bn, p2, 1, st);
 }
 
 }  // namespace
@@ -175,30 +153,37 @@ extern "C" int rald_geglu_width() { return D; }
 // GEMM2's K slice
 extern "C" int rald_geglu_inner_multiple() { return BJ; }
 
-// x (batch, n_tok, D); s, b: mod rows, batch * mod_bstride apart; w1
-// (2*inner, D), w2 (D, inner); scratch h (batch * n_tok, D) and g
-// (batch * n_tok, inner); GEMM2 tiles (bm, bn) in {64, 128}^2. x, w1, w2, h
-// and g 16-byte aligned.
-extern "C" int rald_fused_ln_geglu_residual_bf16(
+// x (batch, n_tok, D) of x's type (f32 = 1: float32, else bf16), and s, b,
+// w1, b1, w2, b2 and the scratch of the same type: s, b mod rows, batch *
+// mod_bstride apart; w1 (2*inner, D), w2 (D, inner); scratch h (batch *
+// n_tok, D) and g (batch * n_tok, inner); GEMM2 tiles (bm, bn) in
+// {64, 128}^2. x, w1, w2, h and g 16-byte aligned.
+extern "C" int rald_fused_ln_geglu_residual(
     const void* x, const void* s, const void* b, long long mod_bstride, const void* w1,
     const void* b1, const void* w2, const void* b2, void* h, void* g, void* out, int batch,
-    int n_tok, int inner, int bm, int bn, int scale_shift_mod, float eps, void* stream) {
+    int n_tok, int inner, int bm, int bn, int f32, int scale_shift_mod, float eps, void* stream) {
   const long long rows_ll = (long long)batch * n_tok;
   if (inner <= 0 || inner % BJ != 0 || n_tok <= 0 || batch <= 0 || rows_ll > (1 << 30) ||
       !sm90::tile_ok(bm, bn) || reinterpret_cast<uintptr_t>(x) % 16)
     return (int)cudaErrorInvalidValue;
   const int rows = (int)rows_ll;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f32) {
+    cudaError_t e = rald::launch_ln_quant<float>(x, s, b, mod_bstride, nullptr, nullptr, h,
+                                                 nullptr, rows, n_tok, scale_shift_mod, eps, st);
+    if (e == cudaSuccess)
+      e = run_f32<sm90::OUT_RESID>((const float*)h, w1, b1, w2, b2, x, (float*)g, out, rows,
+                                   inner, D, bm, bn, st);
+    return (int)e;
+  }
   CUtensorMap map_h, map_w1, map_g, map_w2;
   cudaError_t e = sm90::cached_map_bf16(&map_h, h, rows, D, BM1);
   if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_w1, w1, 2 * (uint64_t)inner, D, BJ);
   if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_g, g, rows, inner, bm);
   if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_w2, w2, D, inner, bn);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
-  ln_mod_kernel<<<(rows + LN_ROWS - 1) / LN_ROWS, LN_ROWS * 32, 0, st>>>(
-      (const bf16*)x, (const bf16*)s, (const bf16*)b, mod_bstride, n_tok, rows, scale_shift_mod,
-      eps, (bf16*)h);
-  e = cudaGetLastError();
+  e = rald::launch_ln_quant<bf16>(x, s, b, mod_bstride, nullptr, nullptr, h, nullptr, rows, n_tok,
+                                  scale_shift_mod, eps, st);
   if (e == cudaSuccess)
     e = launch_geglu(map_h, map_w1, rows, inner, b1, g, st);
   if (e == cudaSuccess)
@@ -207,21 +192,25 @@ extern "C" int rald_fused_ln_geglu_residual_bf16(
 }
 
 // geglu_ff: x (n_tok, D), w1 (2*inner, D), w2 (out_dim, inner), scratch g
-// (n_tok, inner), out (n_tok, out_dim); out_dim a multiple of 16; GEMM2 tiles
-// (bm, bn) in {64, 128}^2. x, w1, w2 and g 16-byte aligned.
-extern "C" int rald_geglu_ff_bf16(const void* x, const void* w1, const void* b1, const void* w2,
-                                  const void* b2, void* g, void* out, int n_tok, int inner,
-                                  int out_dim, int bm, int bn, void* stream) {
+// (n_tok, inner), out (n_tok, out_dim), all of x's type (f32 = 1: float32,
+// else bf16); out_dim a multiple of 16; GEMM2 tiles (bm, bn) in {64, 128}^2.
+// x, w1, w2 and g 16-byte aligned.
+extern "C" int rald_geglu_ff(const void* x, const void* w1, const void* b1, const void* w2,
+                             const void* b2, void* g, void* out, int n_tok, int inner,
+                             int out_dim, int bm, int bn, int f32, void* stream) {
   if (inner <= 0 || inner % BJ != 0 || n_tok <= 0 || out_dim <= 0 || out_dim % 16 != 0 ||
       !sm90::tile_ok(bm, bn))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f32)
+    return (int)run_f32<sm90::OUT>((const float*)x, w1, b1, w2, b2, nullptr, (float*)g, out,
+                                   n_tok, inner, out_dim, bm, bn, st);
   CUtensorMap map_x, map_w1, map_g, map_w2;
   cudaError_t e = sm90::cached_map_bf16(&map_x, x, n_tok, D, BM1);
   if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_w1, w1, 2 * (uint64_t)inner, D, BJ);
   if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_g, g, n_tok, inner, bm);
   if (e == cudaSuccess) e = sm90::cached_map_bf16(&map_w2, w2, out_dim, inner, bn);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t st = (cudaStream_t)stream;
   e = launch_geglu(map_x, map_w1, n_tok, inner, b1, g, st);
   if (e == cudaSuccess)
     e = launch_out<sm90::OUT>(bm, bn, map_g, map_w2, n_tok, inner, out_dim, b2, nullptr, out, st);

@@ -36,6 +36,15 @@ f32 (attn_out); attn_out quantized per row over all heads; ``(acc *
 Weights are in the torch layout (out, in) with one f32 scale per output
 row; ``bo`` is f32. A wrapper launches its kernel for CUDA tensors and runs
 the plain version for CPU tensors; a CUDA tensor never falls back.
+
+On the card x may be bf16 or float32 (JAX's ``compute_dtype``): x's dtype
+picks the instantiation, and the modulation rows and the weights of x's
+type are cast to it, as the JAX wrappers cast them. Under float32 every
+rounding to x's dtype is a no-op, the f32 projections and the attention
+core compute exact f32 products on the CUDA cores, and the int8
+projections keep their codes: whatever
+``torch.get_float32_matmul_precision()`` says, since PyTorch's setting
+grants leave to use less precision and does not require it.
 """
 from __future__ import annotations
 
@@ -45,8 +54,10 @@ import torch
 
 from rald_torch.ops import _build
 from rald_torch.ops.geglu_kernel import (
+    _as_act,
     _mod_rows,
     _sm_count,
+    check_act_dtype,
     gemm2_tile,
     int_matmul,
     ln_mod_f32,
@@ -176,10 +187,10 @@ def _check(name, x, scale, shift, weights, heads):
     return _mod_rows(scale, bsz, d, "scale"), _mod_rows(shift, bsz, d, "shift")
 
 
-def _check_card(name, lib, x, heads):
+def _check_card(name, lib, x, heads) -> int:
+    """The card's shape limits; returns 1 for float32 x, 0 for bf16."""
     bsz, n, d = x.shape
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bf16 activations, got {x.dtype}")
+    f32 = check_act_dtype(name, x)
     if d != lib.rald_attn_width() or d // heads != lib.rald_attn_head_dim() or not (
             0 < n <= lib.rald_attn_max_tokens()):
         raise ValueError(
@@ -187,6 +198,7 @@ def _check_card(name, lib, x, heads):
             f"{lib.rald_attn_head_dim()} and 1..{lib.rald_attn_max_tokens()} tokens, "
             f"got D={d}, heads={heads}, N={n}"
         )
+    return f32
 
 
 def _check_operands(name, x, want, what):
@@ -225,21 +237,22 @@ def launch_tiles(bsz: int, n: int, d: int, heads: int, nproj: int, sms: int) -> 
 
 def _launch(name, x, s_rows, b_rows, projs, wo, so, bo, heads, vout, scale_shift_mod, ln_eps):
     """Shared launcher of the int8 kernels: ``projs`` = ((wq, sq), (wk, sk),
-    (wv, sv)), with ``sq`` / ``sk`` None for vout's bf16 q / k weights."""
+    (wv, sv)), with ``sq`` / ``sk`` None for vout's q / k weights of x's
+    dtype."""
     bsz, n, d = x.shape
     lib = _build.load("attn")
-    _check_card(name, lib, x, heads)
+    f32 = _check_card(name, lib, x, heads)
     if s_rows.shape[0] != b_rows.shape[0]:
         raise ValueError(f"{name}: scale and shift rows differ in count")
-    want = [(x, torch.bfloat16), (s_rows, torch.bfloat16), (b_rows, torch.bfloat16),
+    want = [(x, x.dtype), (s_rows, x.dtype), (b_rows, x.dtype),
             (wo, torch.int8), (so, torch.float32), (bo, torch.float32)]
     for w, s in projs:
-        want += [(w, torch.int8), (s, torch.float32)] if s is not None else [(w, torch.bfloat16)]
-    _check_operands(name, x, want, f"bf16 x / scale / shift{' / wq / wk' if vout else ''}, "
-                                   "int8 weights, f32 scales and bias")
+        want += [(w, torch.int8), (s, torch.float32)] if s is not None else [(w, x.dtype)]
+    _check_operands(name, x, want, f"x / scale / shift{' / wq / wk' if vout else ''} of x's "
+                                   "dtype, int8 weights, f32 scales and bias")
     m, dev = bsz * n, x.device
     warps, (pm, pn), (om, on) = launch_tiles(bsz, n, d, heads, 2 if vout else 3, _sm_count(dev))
-    hb, q, k, v = torch.empty((4, m, d), dtype=torch.bfloat16, device=dev).unbind(0)
+    hb, q, k, v = torch.empty((4, m, d), dtype=x.dtype, device=dev).unbind(0)
     hq, aq = torch.empty((2, m, d), dtype=torch.int8, device=dev).unbind(0)
     o = torch.empty((m, d), dtype=torch.float32, device=dev)
     hmax = torch.empty((m, heads), dtype=torch.float32, device=dev)
@@ -248,7 +261,7 @@ def _launch(name, x, s_rows, b_rows, projs, wo, so, bo, heads, vout, scale_shift
     fn = lib.rald_fused_self_attention_block_int8
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 20 + [
-        ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
     (wq, sq), (wk, sk), (wv, sv) = projs
     ptr = lambda t: 0 if t is None else t.data_ptr()
     rc = fn(
@@ -257,26 +270,24 @@ def _launch(name, x, s_rows, b_rows, projs, wo, so, bo, heads, vout, scale_shift
         wo.data_ptr(), so.data_ptr(), bo.data_ptr(),
         hq.data_ptr(), hrow.data_ptr(), hb.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), hmax.data_ptr(), arow.data_ptr(), aq.data_ptr(), out.data_ptr(),
-        bsz, n, heads, int(vout), warps, pm, pn, om, on, int(bool(scale_shift_mod)),
+        bsz, n, heads, int(vout), warps, pm, pn, om, on, f32, int(bool(scale_shift_mod)),
         float(ln_eps), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, name)
     return out
 
 
-def _bf16_rows(t):
-    return t.to(torch.bfloat16).contiguous()
-
-
 def fused_self_attention_block(
     x, scale, shift, wq, wk, wv, wo, bo, heads: int = 8, ln_eps: float = 1e-5,
     scale_shift_mod: bool = True,
 ):
-    """``x + Wo MHA(mod(LN x)) + bo`` with bf16 (x's dtype) projections.
+    """``x + Wo MHA(mod(LN x)) + bo`` with projections of x's dtype.
     x (B, N, D); scale / shift (B, 1, D) or (1, D) mod rows (AdaLN
     ``h*(1+scale)+shift``, or ``h*scale+shift`` without ``scale_shift_mod``);
     wq / wk / wv / wo (D, D) in the torch layout; bo (D,). On the card: bf16
-    x, D = 512, 8 heads of 64, N up to ``rald_attn_max_tokens()``."""
+    or float32 x (rows, weights and bo cast to it; float32: exact f32
+    products under any matmul precision), D = 512, 8 heads of 64, N up to
+    ``rald_attn_max_tokens()``."""
     name = "fused_self_attention_block"
     s_rows, b_rows = _check(name, x, scale, shift, (("wq", wq), ("wk", wk), ("wv", wv),
                                                     ("wo", wo)), heads)
@@ -288,28 +299,26 @@ def fused_self_attention_block(
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     lib = _build.load("attn")
-    _check_card(name, lib, x, heads)
+    f32 = _check_card(name, lib, x, heads)
     if s_rows.shape[0] != b_rows.shape[0]:
         raise ValueError(f"{name}: scale and shift rows differ in count")
     bsz, n, d = x.shape
-    s_rows, b_rows = _bf16_rows(s_rows), _bf16_rows(b_rows)
-    ws = [w.to(torch.bfloat16).contiguous() for w in (wq, wk, wv, wo)]
-    bo16 = bo.reshape(-1).to(torch.bfloat16).contiguous()  # the bias rounded to x's dtype
-    _check_operands(name, x, [(x, torch.bfloat16), (s_rows, torch.bfloat16),
-                              (b_rows, torch.bfloat16), (bo16, torch.bfloat16)]
-                    + [(w, torch.bfloat16) for w in ws], "bf16 x / scale / shift / weights")
+    # the rows, weights and bias rounded to x's dtype
+    s_rows, b_rows, *ws, bo_x = _as_act(x, (s_rows, b_rows, wq, wk, wv, wo, bo.reshape(-1)))
+    _check_operands(name, x, [(t, x.dtype) for t in (x, s_rows, b_rows, bo_x, *ws)],
+                    "x / scale / shift / weights of x's dtype")
     m, dev = bsz * n, x.device
     warps, (pm, pn), (om, on) = launch_tiles(bsz, n, d, heads, 3, _sm_count(dev))
-    hb, q, k, v, o = torch.empty((5, m, d), dtype=torch.bfloat16, device=dev).unbind(0)
+    hb, q, k, v, o = torch.empty((5, m, d), dtype=x.dtype, device=dev).unbind(0)
     out = torch.empty_like(x)
-    fn = lib.rald_fused_self_attention_block_bf16
+    fn = lib.rald_fused_self_attention_block
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 11 + [
-        ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     rc = fn(
         x.data_ptr(), s_rows.data_ptr(), b_rows.data_ptr(), 0 if s_rows.shape[0] == 1 else d,
-        *(w.data_ptr() for w in ws), bo16.data_ptr(), hb.data_ptr(), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), out.data_ptr(), bsz, n, heads, warps, pm, pn, om, on,
+        *(w.data_ptr() for w in ws), bo_x.data_ptr(), hb.data_ptr(), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), out.data_ptr(), bsz, n, heads, warps, pm, pn, om, on, f32,
         int(bool(scale_shift_mod)), float(ln_eps), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, name)
@@ -324,7 +333,9 @@ def fused_self_attention_block_int8(
     """``x + Wo MHA(mod(LN x)) + bo`` with all four projections int8
     (weights from :func:`quantize_attn_tree`, dynamic per-token int8
     activations). scale / shift: (B, 1, D) or (1, D) mod rows. On the card:
-    bf16 x, D = 512, 8 heads of 64, N up to ``rald_attn_max_tokens()``."""
+    bf16 or float32 x (rows cast to it; float32: the int8 codes unchanged,
+    the attention core in exact f32 products), D = 512, 8 heads of 64, N up
+    to ``rald_attn_max_tokens()``."""
     name = "fused_self_attention_block_int8"
     s_rows, b_rows = _check(name, x, scale, shift, (("wq_q", wq_q), ("wk_q", wk_q),
                                                     ("wv_q", wv_q), ("wo_q", wo_q)), heads)
@@ -334,7 +345,7 @@ def fused_self_attention_block_int8(
             heads, ln_eps, scale_shift_mod)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    out = _launch(name, x, _bf16_rows(s_rows), _bf16_rows(b_rows),
+    out = _launch(name, x, *_as_act(x, (s_rows, b_rows)),
                   ((wq_q, wq_s.reshape(-1)), (wk_q, wk_s.reshape(-1)), (wv_q, wv_s.reshape(-1))),
                   wo_q, wo_s.reshape(-1), bo.reshape(-1), heads, False, scale_shift_mod, ln_eps)
     fused_self_attention_block_int8.launches += 1
@@ -345,8 +356,8 @@ def fused_self_attention_block_int8_vout(
     x, scale, shift, wq, wk, wv_q, wv_s, wo_q, wo_s, bo,
     heads: int = 8, ln_eps: float = 1e-5, scale_shift_mod: bool = True,
 ):
-    """:func:`fused_self_attention_block_int8` with bf16 q / k projections
-    (``wq`` / ``wk`` (D, D), cast to x's dtype); only v and out are int8."""
+    """:func:`fused_self_attention_block_int8` with q / k projections of x's
+    dtype (``wq`` / ``wk`` (D, D), cast to it); only v and out are int8."""
     name = "fused_self_attention_block_int8_vout"
     s_rows, b_rows = _check(name, x, scale, shift, (("wq", wq), ("wk", wk), ("wv_q", wv_q),
                                                     ("wo_q", wo_q)), heads)
@@ -355,7 +366,7 @@ def fused_self_attention_block_int8_vout(
             x, scale, shift, wq, wk, wv_q, wv_s, wo_q, wo_s, bo, heads, ln_eps, scale_shift_mod)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    out = _launch(name, x, _bf16_rows(s_rows), _bf16_rows(b_rows),
+    out = _launch(name, x, *_as_act(x, (s_rows, b_rows)),
                   ((wq.to(x.dtype).contiguous(), None), (wk.to(x.dtype).contiguous(), None),
                    (wv_q, wv_s.reshape(-1))),
                   wo_q, wo_s.reshape(-1), bo.reshape(-1), heads, True, scale_shift_mod, ln_eps)

@@ -21,6 +21,14 @@ by rounding point, in plain PyTorch. A wrapper launches its kernel for CUDA
 tensors and runs the plain version for CPU tensors (tests, CPU runs); a
 CUDA tensor launches the kernel or raises, with no fallback.
 
+On the card x may be bf16 or float32 (JAX's ``compute_dtype``); x's dtype
+picks the kernel's instantiation, and weights, biases and modulation rows
+are cast to it, as the JAX wrappers cast them. Under float32 every
+rounding to x's dtype is a no-op and the kernels compute exact f32
+products (FFMA on the CUDA cores) whatever
+``torch.get_float32_matmul_precision()`` says: PyTorch's setting grants
+leave to use less precision, it does not require it.
+
 Weights are in the torch layout: ``w1`` (2*inner, D) — value rows
 ``[:inner]``, gate rows ``[inner:]`` — and ``w2`` (D, inner); int8 weights
 carry one f32 scale per output row (the JAX layout's per-column scale).
@@ -97,9 +105,26 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def _check_tma(name: str, tensors) -> None:
-    """TMA reads its operands from 16-byte-aligned addresses."""
+    """TMA, and the f32 kernels' vector loads, read their operands from
+    16-byte-aligned addresses."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: x and the weights must be 16-byte aligned (TMA)")
+
+
+# activation dtypes the CUDA kernels take; x's dtype picks the instantiation
+ACT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def check_act_dtype(name: str, x: torch.Tensor) -> int:
+    """1 for float32 x, 0 for bf16; any other dtype raises ``TypeError``."""
+    if x.dtype not in ACT_DTYPES:
+        raise TypeError(f"{name}: the CUDA kernel takes bf16 or float32 activations, got {x.dtype}")
+    return int(x.dtype == torch.float32)
+
+
+def _as_act(x: torch.Tensor, tensors):
+    """Each tensor in x's dtype, contiguous (a no-op where it already is)."""
+    return [t.to(x.dtype).contiguous() for t in tensors]
 
 
 def fused_ln_geglu_residual(
@@ -110,8 +135,10 @@ def fused_ln_geglu_residual(
     x: (B, N, D); scale/shift: one modulation row per batch element
     (B, 1, D) or one row for all (1, D) / (1, 1, D); AdaLN
     ``h*(1+scale)+shift`` when ``scale_shift_mod``, else ``h*scale+shift``.
-    On the card: bf16, D = 512, inner a multiple of 64, x and the weights
-    16-byte aligned; anything else raises.
+    On the card: bf16 or float32 x (the weights, biases and rows are cast
+    to it), D = 512, inner a multiple of 64, x and the weights 16-byte
+    aligned; anything else raises. float32 x gets exact f32 products under
+    any ``torch.get_float32_matmul_precision()`` (module docstring).
     """
     name = "fused_ln_geglu_residual"
     if x.dim() != 3:
@@ -131,9 +158,8 @@ def fused_ln_geglu_residual(
         )
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    f32 = check_act_dtype(name, x)
     lib = _build.load("geglu")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bf16, got {x.dtype}")
     mult = lib.rald_geglu_inner_multiple()
     if dim != lib.rald_geglu_width() or inner % mult or n == 0:
         raise ValueError(
@@ -142,27 +168,27 @@ def fused_ln_geglu_residual(
         )
     if s_rows.shape[0] != b_rows.shape[0]:
         raise ValueError(f"{name}: scale and shift rows differ in count")
-    args = [x, s_rows, b_rows, w1, b1, w2, b2]
-    for t in args:
-        if t.device != x.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(
-                f"{name}: every operand must be a contiguous bf16 tensor on {x.device}"
-            )
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    args = [x] + _as_act(x, (s_rows, b_rows, w1, b1, w2, b2))
+    if any(t.device != x.device for t in args):
+        raise ValueError(f"{name}: every operand must be on {x.device}")
+    x, s_rows, b_rows, w1, b1, w2, b2 = args
     _check_tma(name, (x, w1, w2))
     rows = bsz * n
     h = torch.empty((rows, dim), dtype=x.dtype, device=x.device)
     g = torch.empty((rows, inner), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     bm, bn = gemm2_tile(rows, dim, _sm_count(x.device))
-    fn = lib.rald_fused_ln_geglu_residual_bf16
+    fn = lib.rald_fused_ln_geglu_residual
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 7 + [
-        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     rc = fn(
         x.data_ptr(), s_rows.data_ptr(), b_rows.data_ptr(),
         0 if s_rows.shape[0] == 1 else dim,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), h.data_ptr(), g.data_ptr(),
-        out.data_ptr(), bsz, n, inner, bm, bn, int(bool(scale_shift_mod)),
+        out.data_ptr(), bsz, n, inner, bm, bn, f32, int(bool(scale_shift_mod)),
         float(ln_eps), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, name)
@@ -193,8 +219,10 @@ def geglu_ff(x, w1, b1, w2, b2):
     """``(proj_in -> GEGLU -> proj_out)(x)`` in one kernel: x (..., D), w1
     (2*inner, D), b1 (2*inner,), w2 (out_dim, inner), b2 (out_dim,) in the
     torch layout; the leading axes are flattened into tokens. On the card:
-    bf16, D = 512, inner a multiple of 64, out_dim a multiple of 16, x and
-    the weights 16-byte aligned."""
+    bf16 or float32 x (the weights and biases are cast to it; float32:
+    exact f32 products under any matmul precision), D = 512, inner a
+    multiple of 64, out_dim a multiple of 16, x and the weights 16-byte
+    aligned."""
     name = "geglu_ff"
     dim = x.shape[-1]
     inner = w1.shape[0] // 2
@@ -210,9 +238,8 @@ def geglu_ff(x, w1, b1, w2, b2):
         return geglu_ff_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    f32 = check_act_dtype(name, x)
     lib = _build.load("geglu")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bf16, got {x.dtype}")
     lead = x.shape[:-1]
     xt = x.reshape(-1, dim).contiguous()
     n = xt.shape[0]
@@ -222,7 +249,7 @@ def geglu_ff(x, w1, b1, w2, b2):
             f"{name}: the CUDA kernel takes D={lib.rald_geglu_width()}, inner % {mult} == 0 and "
             f"out_dim % 16 == 0, got D={dim}, inner={inner}, out_dim={out_dim}, tokens={n}"
         )
-    args = [xt] + [t.to(torch.bfloat16).contiguous() for t in (w1, b1, w2, b2)]
+    args = [xt] + _as_act(xt, (w1, b1, w2, b2))
     for t in args:
         if t.device != x.device:
             raise ValueError(f"{name}: every operand must be on {x.device}")
@@ -230,11 +257,11 @@ def geglu_ff(x, w1, b1, w2, b2):
     g = torch.empty((n, inner), dtype=x.dtype, device=x.device)
     out = torch.empty((n, out_dim), dtype=x.dtype, device=x.device)
     bm, bn = gemm2_tile(n, out_dim, _sm_count(x.device))
-    fn = lib.rald_geglu_ff_bf16
+    fn = lib.rald_geglu_ff
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     rc = fn(*(t.data_ptr() for t in args), g.data_ptr(), out.data_ptr(), n, inner, out_dim,
-            bm, bn, torch.cuda.current_stream(x.device).cuda_stream)
+            bm, bn, f32, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, name)
     geglu_ff.launches += 1
     return out.reshape(*lead, out_dim)
@@ -390,17 +417,17 @@ def _launch_int8_ff(name, x, s_rows, b_rows, w1q, c1, b1, w2q, c2, b2, inv_h, in
     """Shared launcher of the two int8 FF kernels (``inv_h`` None: dynamic)."""
     bsz, n, dim = x.shape
     inner = w1q.shape[0] // 2
+    f32 = check_act_dtype(name, x)
     lib = _build.load("geglu_int8")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bf16 activations, got {x.dtype}")
-    if dim != lib.rald_int8_width() or inner % 64 or n == 0:
+    mult = lib.rald_int8_inner_multiple()
+    if dim != lib.rald_int8_width() or inner % mult or n == 0:
         raise ValueError(
-            f"{name}: the CUDA kernel takes D={lib.rald_int8_width()} and inner % 64 == 0, "
+            f"{name}: the CUDA kernel takes D={lib.rald_int8_width()} and inner % {mult} == 0, "
             f"got D={dim}, inner={inner}, N={n}"
         )
     if s_rows.shape[0] != b_rows.shape[0]:
         raise ValueError(f"{name}: scale and shift rows differ in count")
-    want = [(x, torch.bfloat16), (s_rows, torch.bfloat16), (b_rows, torch.bfloat16),
+    want = [(x, x.dtype), (s_rows, x.dtype), (b_rows, x.dtype),
             (w1q, torch.int8), (w2q, torch.int8), (c1, torch.float32), (b1, torch.float32),
             (c2, torch.float32), (b2, torch.float32)]
     if inv_h is not None:
@@ -408,31 +435,36 @@ def _launch_int8_ff(name, x, s_rows, b_rows, w1q, c1, b1, w2q, c2, b2, inv_h, in
     for t, dt in want:
         if t.device != x.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(
-                f"{name}: operands must be contiguous on {x.device}: bf16 x / scale / shift, "
-                f"int8 weights, f32 scales, biases and multipliers"
+                f"{name}: operands must be contiguous on {x.device}: x / scale / shift of x's "
+                "dtype, int8 weights, f32 scales, biases and multipliers"
             )
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: operands must be 16-byte aligned")
     m = bsz * n
     dev = x.device
+    static = inv_h is not None
     hq = torch.empty((m, dim), dtype=torch.int8, device=dev)
     gq = torch.empty((m, inner), dtype=torch.int8, device=dev)
-    static = inv_h is not None
-    hrow = torch.empty((m,) if not static else (1,), dtype=torch.float32, device=dev)
-    grow = torch.empty((m,) if not static else (1,), dtype=torch.float32, device=dev)
-    g = torch.empty((m, inner) if not static else (1,), dtype=torch.float32, device=dev)
+    # dynamic scales only: h's row scale, g (f32), the row maxima of g per
+    # 64-column tile, g's row scale
+    hrow = g = gpart = grow = None
+    if not static:
+        g = torch.empty((m, inner), dtype=torch.float32, device=dev)
+        gpart = torch.empty((m, inner // 64), dtype=torch.float32, device=dev)
+        hrow, grow = torch.empty((2, m), dtype=torch.float32, device=dev).unbind(0)
     out = torch.empty_like(x)
+    bm, bn = gemm2_tile(m, dim, _sm_count(dev))
     fn = lib.rald_fused_ln_geglu_residual_int8
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 14 + [
-        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 15 + [
+        ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     ptr = lambda t: 0 if t is None else t.data_ptr()
     rc = fn(
         x.data_ptr(), s_rows.data_ptr(), b_rows.data_ptr(), 0 if s_rows.shape[0] == 1 else dim,
         w1q.data_ptr(), c1.data_ptr(), b1.data_ptr(), w2q.data_ptr(), c2.data_ptr(),
-        b2.data_ptr(), ptr(inv_h), ptr(inv_g), hq.data_ptr(), hrow.data_ptr(), g.data_ptr(),
-        gq.data_ptr(), grow.data_ptr(), out.data_ptr(),
-        bsz, n, inner, int(static), int(bool(scale_shift_mod)), float(ln_eps),
+        b2.data_ptr(), ptr(inv_h), ptr(inv_g), hq.data_ptr(), ptr(hrow), ptr(g), ptr(gpart),
+        gq.data_ptr(), ptr(grow), out.data_ptr(),
+        bsz, n, inner, bm, bn, f32, int(bool(scale_shift_mod)), float(ln_eps),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, name)
@@ -445,7 +477,9 @@ def fused_ln_geglu_residual_int8(
     """:func:`fused_ln_geglu_residual` with int8 weights (``w1q`` (2*inner,
     D), ``w2q`` (D, inner), f32 row scales ``s1`` / ``s2`` from
     :func:`quantize_cols`, f32 biases) and dynamic per-token int8
-    activations. On the card: bf16 x, D = 512, inner a multiple of 64."""
+    activations. On the card: bf16 or float32 x (scale / shift cast to
+    it; the int8 codes and products are the same for both), D = 512,
+    inner a multiple of 128."""
     name = "fused_ln_geglu_residual_int8"
     s_rows, b_rows = _check_int8_ff(
         name, x, scale, shift, w1q, w2q,
@@ -456,8 +490,7 @@ def fused_ln_geglu_residual_int8(
             x, scale, shift, w1q, s1, b1, w2q, s2, b2, scale_shift_mod, ln_eps)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    out = _launch_int8_ff(name, x, s_rows.to(torch.bfloat16).contiguous(),
-                          b_rows.to(torch.bfloat16).contiguous(), w1q, s1.reshape(-1),
+    out = _launch_int8_ff(name, x, *_as_act(x, (s_rows, b_rows)), w1q, s1.reshape(-1),
                           b1.reshape(-1), w2q, s2.reshape(-1), b2.reshape(-1), None, None,
                           scale_shift_mod, ln_eps)
     fused_ln_geglu_residual_int8.launches += 1
@@ -484,8 +517,7 @@ def fused_ln_geglu_residual_int8_static(
             x, scale, shift, w1q, d1, b1, w2q, d2, b2, inv_h, inv_g, scale_shift_mod, ln_eps)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    out = _launch_int8_ff(name, x, s_rows.to(torch.bfloat16).contiguous(),
-                          b_rows.to(torch.bfloat16).contiguous(), w1q, d1.reshape(-1),
+    out = _launch_int8_ff(name, x, *_as_act(x, (s_rows, b_rows)), w1q, d1.reshape(-1),
                           b1.reshape(-1), w2q, d2.reshape(-1), b2.reshape(-1),
                           inv_h.reshape(-1), inv_g.reshape(-1), scale_shift_mod, ln_eps)
     fused_ln_geglu_residual_int8_static.launches += 1

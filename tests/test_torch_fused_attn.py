@@ -181,3 +181,40 @@ def test_cuda_kernel_matches_plain(cuda, bsz, n, adaln, per_batch):
         row0 = [a[:1].expand_as(a) for a in args[1:3]]
         frame0 = ta.fused_self_attention_block_plain(args[0], *row0, *args[3:])
         assert (frame0.float() - want.float()).abs().max().item() > bar
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adaln,bsz,n,per_batch", [
+    _case(True, 1, 512), _case(True, 8, 512), _case(True, 3, 300), _case(False, 1, 512),
+    _case(True, 8, 512, True), _case(True, 3, 300, True)])
+def test_cuda_kernel_f32_matches_plain(cuda, bsz, n, adaln, per_batch):
+    """float32 x: the f32 projections and core compute exact f32 products,
+    so only the order of the f32 sums (and expf's last bits) differ from the
+    plain version: 1e-4 of max|out|."""
+    torch.set_float32_matmul_precision("highest")
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _inputs(bsz, n, 512, adaln, seed=bsz * n + per_batch + 1)]
+    if adaln and not per_batch:
+        args[1], args[2] = args[1][:1], args[2][:1]
+    before = ta.fused_self_attention_block.launches
+    got = ta.fused_self_attention_block(*args, scale_shift_mod=adaln)
+    want = ta.fused_self_attention_block_plain(*args, scale_shift_mod=adaln)
+    torch.cuda.synchronize()
+    assert ta.fused_self_attention_block.launches == before + 1 and got.dtype == torch.float32
+    bar = 1e-4 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= bar
+    dropped = list(args)
+    dropped[7] = torch.zeros_like(dropped[7])  # the bar catches a dropped out bias
+    assert (ta.fused_self_attention_block_plain(*dropped, scale_shift_mod=adaln)
+            - want).abs().max().item() > bar
+    if per_batch:
+        row0 = [a[:1].expand_as(a) for a in args[1:3]]
+        frame0 = ta.fused_self_attention_block_plain(args[0], *row0, *args[3:])
+        assert (frame0 - want).abs().max().item() > bar
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_rejects_float16(cuda):
+    args = [torch.from_numpy(a).to(cuda, torch.float16) for a in _inputs(1, 64, 512, True, seed=0)]
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        ta.fused_self_attention_block(*args)

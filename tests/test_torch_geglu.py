@@ -141,6 +141,19 @@ def test_tma_alignment_check():
         tg._check_tma("fused_ln_geglu_residual", (ok, ok[1:]))
 
 
+@pytest.mark.parametrize("dtype,f32", [(torch.bfloat16, 0), (torch.float32, 1),
+                                       (torch.float16, None), (torch.float64, None)])
+def test_check_act_dtype_picks_the_instantiation(dtype, f32):
+    """The dtype gate of every FF and attention wrapper on the card: bf16
+    and float32 x pick their instantiation, any other dtype raises."""
+    x = torch.zeros(2, 4, dtype=dtype)
+    if f32 is None:
+        with pytest.raises(TypeError, match="bf16 or float32"):
+            tg.check_act_dtype("k", x)
+    else:
+        assert tg.check_act_dtype("k", x) == f32
+
+
 def test_wrapper_rejects_bad_modulation_rows():
     x, s, b, w1, b1, w2, b2 = _torch_args(*_inputs(2, 8, 32, 64, True))
     per_token = torch.zeros(2, 8, 32)
@@ -184,7 +197,40 @@ def test_cuda_kernel_matches_plain(cuda, bsz, n, adaln, per_batch):
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_rejects_f32(cuda):
-    ops = tuple(t.to(cuda) for t in _torch_args(*_inputs(1, 16, 512, 2048, True)))
-    with pytest.raises(TypeError, match="bf16"):
+@pytest.mark.parametrize("bsz,n,adaln,per_batch", [
+    _case(1, 512, True), _case(8, 512, True), _case(1, 512, False), _case(3, 300, True),
+    _case(2, 77, False), _case(8, 512, True, True), _case(3, 300, True, True)])
+def test_cuda_kernel_f32_matches_plain(cuda, bsz, n, adaln, per_batch):
+    """x in float32 (JAX's compute_dtype float32): the f32 kernel computes
+    exact f32 products, so it differs from its plain version only in the
+    order of its f32 sums and in the TPU kernel's A&S erf (1.5e-7): the bar
+    is 1e-4 of max|out|."""
+    torch.set_float32_matmul_precision("highest")
+    ops = tuple(t.to(cuda).contiguous()
+                for t in _torch_args(*_inputs(bsz, n, 512, 2048, adaln, seed=bsz + n + 1,
+                                              row_per_batch=per_batch)))
+    if not per_batch:
+        ops = (ops[0], ops[1].reshape(1, 512), ops[2].reshape(1, 512)) + ops[3:]
+    before = tg.fused_ln_geglu_residual.launches
+    got = tg.fused_ln_geglu_residual(*ops, scale_shift_mod=adaln)
+    want = tg.fused_ln_geglu_residual_plain(*ops, scale_shift_mod=adaln)
+    torch.cuda.synchronize()
+    assert tg.fused_ln_geglu_residual.launches == before + 1 and got.dtype == torch.float32
+    bar = 1e-4 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= bar
+    for i in (4, 6):  # the bar catches a dropped bias
+        dropped = list(ops)
+        dropped[i] = torch.zeros_like(dropped[i])
+        moved = tg.fused_ln_geglu_residual_plain(*dropped, scale_shift_mod=adaln)
+        assert (moved - want).abs().max().item() > bar
+    if per_batch:
+        row0 = tuple(t[:1].expand_as(t) for t in ops[1:3])
+        frame0 = tg.fused_ln_geglu_residual_plain(ops[0], *row0, *ops[3:], scale_shift_mod=adaln)
+        assert (frame0 - want).abs().max().item() > bar
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_rejects_float16(cuda):
+    ops = tuple(t.to(cuda, torch.float16) for t in _torch_args(*_inputs(1, 16, 512, 2048, True)))
+    with pytest.raises(TypeError, match="bf16 or float32"):
         tg.fused_ln_geglu_residual(*ops)

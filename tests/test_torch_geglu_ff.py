@@ -135,3 +135,24 @@ def test_cuda_kernel_matches_plain(cuda, shape, out_dim):
     assert tg.geglu_ff.launches == before + 1 and got.shape == want.shape
     ref = want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= 2e-2 * ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,out_dim", [((1, 512, 512), 512), ((8, 512, 512), 512),
+                                           ((1000, 512), 512), ((2, 256, 512), 768)])
+def test_cuda_kernel_f32_matches_plain(cuda, shape, out_dim):
+    """float32 x: exact f32 products, so only the sums' order and the A&S
+    erf (1.5e-7) differ from the plain version: 1e-4 of max|out|."""
+    torch.set_float32_matmul_precision("highest")
+    args = [torch.from_numpy(a).to(cuda) for a in _inputs(shape, 2048, out_dim, seed=out_dim + 3)]
+    before = tg.geglu_ff.launches
+    got = tg.geglu_ff(*args)
+    want = tg.geglu_ff_plain(*args)
+    torch.cuda.synchronize()
+    assert tg.geglu_ff.launches == before + 1 and got.dtype == torch.float32
+    bar = 1e-4 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= bar
+    for i in (2, 4):  # the bar catches a dropped bias
+        dropped = list(args)
+        dropped[i] = torch.zeros_like(dropped[i])
+        assert (tg.geglu_ff_plain(*dropped) - want).abs().max().item() > bar

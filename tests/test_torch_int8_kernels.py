@@ -300,12 +300,68 @@ def test_cuda_int8_attn_matches_plain(cuda, bsz, n, adaln, per_batch, vout):
     _card_check(fn, plain, args, row0=per_batch, scale_shift_mod=adaln)
 
 
+def _f32(args):
+    """The card operands with x and the modulation rows in float32 (JAX's
+    compute_dtype float32); vout's q / k weights too."""
+    return tuple(a.float() if a.dtype == torch.bfloat16 else a for a in args)
+
+
+def _card_check_f32(fn, plain, args, row0=False, **kw):
+    """float32 x: the codes and the exact s32 sums are those of the plain
+    version, so they differ only where an LN or softmax sum in another order
+    moves an int8 code across a .5 tie; a flipped h code that moves a row's
+    max|g| re-scales that row's g codes, up to about one int8 step (1/127)
+    of max|out|: the bar is 1e-2 of max|out|. Frame 0's row for every frame
+    moves the output past it."""
+    torch.set_float32_matmul_precision("highest")
+    before = fn.launches
+    got = fn(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and got.dtype == torch.float32
+    bar = 1e-2 * want.abs().max().item()
+    assert (got - want).abs().max().item() <= bar
+    if row0:
+        frame0 = plain(args[0], *(a[:1].expand_as(a) for a in args[1:3]), *args[3:], **kw)
+        assert (frame0 - want).abs().max().item() > bar
+
+
 @pytest.mark.gpu
-def test_cuda_int8_kernels_reject_f32(cuda):
+@pytest.mark.parametrize("bsz,n,adaln", SHAPES)
+def test_cuda_int8_ff_f32_matches_plain(cuda, bsz, n, adaln):
+    gen = torch.Generator(cuda).manual_seed(bsz * 1000 + n + 5)
+    args = _f32(_card_ff(bsz, n, adaln, gen, cuda))
+    _card_check_f32(tg.fused_ln_geglu_residual_int8, tg.fused_ln_geglu_residual_int8_plain, args,
+                    scale_shift_mod=adaln)
+    x, s, b, w1q, s1, b1, w2q, s2, b2 = args
+    ah = torch.full((1,), 4.0, device=cuda)
+    ag = torch.full((1,), 2.0, device=cuda)
+    static = (x, s, b, w1q, s1 * tg.div127(ah), b1, w2q, s2 * tg.div127(ag), b2, tg.inv127(ah),
+              tg.inv127(ag))
+    _card_check_f32(tg.fused_ln_geglu_residual_int8_static,
+                    tg.fused_ln_geglu_residual_int8_static_plain, static, scale_shift_mod=adaln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vout", [False, True])
+@pytest.mark.parametrize("bsz,n,adaln,per_batch", [
+    _attn_case(1, 512, True), _attn_case(8, 512, True), _attn_case(3, 300, True),
+    _attn_case(8, 512, True, True), _attn_case(3, 300, True, True)])
+def test_cuda_int8_attn_f32_matches_plain(cuda, bsz, n, adaln, per_batch, vout):
+    gen = torch.Generator(cuda).manual_seed(bsz * 1000 + n + vout + 7 * per_batch + 5)
+    args = _f32(_card_attn(bsz, n, adaln, vout, gen, cuda, per_batch))
+    fn, plain = ((ta.fused_self_attention_block_int8_vout, ta.fused_self_attention_block_int8_vout_plain)
+                 if vout else (ta.fused_self_attention_block_int8,
+                               ta.fused_self_attention_block_int8_plain))
+    _card_check_f32(fn, plain, args, row0=per_batch, scale_shift_mod=adaln)
+
+
+@pytest.mark.gpu
+def test_cuda_int8_kernels_reject_float16(cuda):
     gen = torch.Generator(cuda).manual_seed(0)
     x, *rest = _card_ff(1, 16, True, gen, cuda)
-    with pytest.raises(TypeError, match="bf16"):
-        tg.fused_ln_geglu_residual_int8(x.float(), *rest)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        tg.fused_ln_geglu_residual_int8(x.half(), *rest)
     x, *rest = _card_attn(1, 16, True, False, gen, cuda)
-    with pytest.raises(TypeError, match="bf16"):
-        ta.fused_self_attention_block_int8(x.float(), *rest)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        ta.fused_self_attention_block_int8(x.half(), *rest)
