@@ -17,7 +17,11 @@ Phases, each printed before the last line:
    kernel dropping a bias or a scale row, computing the other mod mode or
    applying frame 0's modulation row to every frame (the nearest-neighbour
    kernels: bitwise, and nn_min_sq_batch bitwise equal to nn_min_sq_both's
-   rows), then timed with CUDA events beside the plain version, a composite
+   rows, also at the host Chamfer APIs' shapes: the reverse pass of 1e4 GT
+   points padded to 16384 against 5e5 predictions padded to 524288, and
+   3e4 predictions padded to 32768 against the GT's 16384, each with the
+   slice count S its grid takes), then timed with CUDA events beside the
+   plain version, a composite
    of library calls the port never makes (``library_ms``) and the card's
    bound for the same work; the FF and attention kernels and their
    composites also with cold weights (``ms_cold``: 24 weight sets in turn,
@@ -63,8 +67,10 @@ One-offs outside the default run: ``nn_library_b8()`` times the
 nearest-neighbour library yardsticks at batch 8, ``ff_breakdown()`` and
 ``attn_breakdown()`` split the four FF calls (bf16 and int8) and the three
 attention calls into host and device time and per-launch device time,
-``int8_ff_dump()`` compares the int8 FF kernels' outputs with another
-tree's (bitwise), and
+``nn_breakdown()`` does the same for the two nearest-neighbour kernels at
+phase 3's four shapes (with the S each launch took and the SM clock under
+load), ``nn_sass()`` counts their SASS opcodes, ``int8_ff_dump()`` compares the int8 FF
+kernels' outputs with another tree's (bitwise), and
 ``trace_sample()`` traces the product sampler, as shipped or in a kernel
 mode (device busy time and idle share at batch 1 and 8).
 """
@@ -706,6 +712,107 @@ def _nn_inputs(bsz: int, gen: torch.Generator):
     return a, b
 
 
+# the host APIs' shapes (one frame, each cloud padded with BIG rows to a power
+# of two): (padded, real) a rows and (padded, real) b rows. The reverse pass
+# of chamfer_and_fscore at product size (1e4 GT points against 5e5
+# predictions), and a small eval prediction (3e4 points) against the GT.
+NN_HOST = ((16384, 10_000, 524288, 500_000), (32768, 30_000, 16384, 10_000))
+
+
+def _nn_host_inputs(n, n_real, m, m_real, gen: torch.Generator):
+    from rald_torch.ops.nn_dist_kernel import BIG
+
+    a = torch.rand((1, n, 3), generator=gen, device="cuda") * 16.0
+    b = torch.rand((1, m, 3), generator=gen, device="cuda") * 16.0
+    a[0, n_real:] = BIG
+    b[0, m_real:] = BIG
+    return a, b
+
+
+def _nn_split(fn):
+    """The slice count S of ``fn``'s last launch; None on a tree from before
+    the split (one block per a tile)."""
+    return getattr(fn, "split", None)
+
+
+def _nn_entries(gen: torch.Generator):
+    """nn_min_sq_both and nn_min_sq_batch: exact f32 subtract-square on both
+    sides -> bitwise equal to the plain versions, the batch rows bitwise the
+    two-way rows and the swapped call the transposed outputs; at batch 1 and
+    8 of the main path and at the two host shapes (NN_HOST, ``host`` lists
+    of the entries), timed beside the plain version and the bound."""
+    from rald_torch.ops.nn_dist_kernel import (
+        nn_min_sq_batch,
+        nn_min_sq_batch_plain,
+        nn_min_sq_both,
+        nn_min_sq_both_plain,
+    )
+
+    cases = [(bsz, *_nn_inputs(bsz, gen)) for bsz in (1, 8)]
+    cases += [(sh, *_nn_host_inputs(*sh, gen)) for sh in NN_HOST]
+    both, batch = {}, {}
+    for key, a, b in cases:
+        bsz, n, m = a.shape[0], a.shape[1], b.shape[1]
+        iters = 20 if key == 1 else 5
+        tag = f"B={bsz} ({bsz}, {n}) x ({bsz}, {m})"
+        row, col = nn_min_sq_both(a, b)
+        split = _nn_split(nn_min_sq_both)
+        row_p, col_p = nn_min_sq_both_plain(a, b)
+        col_sw, row_sw = nn_min_sq_both(b.contiguous(), a.contiguous())  # one-direction check
+        torch.cuda.synchronize()
+        check(torch.equal(row, row_p) and torch.equal(col, col_p),
+              f"nn_min_sq_both {tag} is not bitwise equal to its plain version")
+        check(torch.equal(row, row_sw) and torch.equal(col, col_sw),
+              f"nn_min_sq_both {tag} is not bitwise equal to the swapped-operand pass")
+        line = {
+            "shape": [bsz, n, m], "bitwise_equal": True, "split": split,
+            "max_abs_err": (row - row_p).abs().max().item(),
+            "ms": cuda_ms(lambda: nn_min_sq_both(a, b), iters),
+            "plain_ms": cuda_ms(lambda: nn_min_sq_both_plain(a, b), 2, warmup=1),
+            "library_ms": (cuda_ms(lambda: _nn_library(a, b), 2, warmup=1)
+                           if key == 1 else None),
+        }
+        line["bound_ms"], line["bound_by"] = bound(
+            4 * bsz * (3 * (n + m) + n + m), 8 * bsz * n * m, PEAK_F32)
+        print("[kernels] nn_min_sq_both " + json.dumps(line))
+        both[key] = line
+        # nn_min_sq_batch: the row pass alone, bitwise its plain version and
+        # the two-way kernel's row output
+        rb = nn_min_sq_batch(a, b)
+        split = _nn_split(nn_min_sq_batch)
+        rb_p = nn_min_sq_batch_plain(a, b)
+        torch.cuda.synchronize()
+        check(torch.equal(rb, rb_p), f"nn_min_sq_batch {tag} is not bitwise equal to its plain version")
+        check(torch.equal(rb, row), f"nn_min_sq_batch {tag} differs from nn_min_sq_both's rows")
+        line = {
+            "shape": [bsz, n, m], "bitwise_equal": True, "split": split,
+            "max_abs_err": (rb - rb_p).abs().max().item(),
+            "ms": cuda_ms(lambda: nn_min_sq_batch(a, b), iters),
+            "plain_ms": cuda_ms(lambda: nn_min_sq_batch_plain(a, b), 2, warmup=1),
+            # the cdist composite takes ~6 s a frame at the main shape and
+            # would hold a (16384, 524288) matrix at the reverse pass
+            "library_ms": (cuda_ms(lambda: _nn_library(a, b, both=False), 2, warmup=1)
+                           if key == 1 else None),
+        }
+        line["bound_ms"], line["bound_by"] = bound(
+            4 * bsz * (3 * (n + m) + n), 8 * bsz * n * m, PEAK_F32)
+        print("[kernels] nn_min_sq_batch " + json.dumps(line))
+        batch[key] = line
+        del row, col, row_p, col_p, col_sw, row_sw, rb, rb_p
+
+    def entry(name, rows, replaces):
+        e = _entry(name, "rald_torch/csrc/nn_dist.cu", replaces, {1: rows[1], 8: rows[8]}, 1, 8)
+        e.update(split=rows[1]["split"], split_b8=rows[8]["split"],
+                 max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                 host=[{k: rows[sh][k] for k in ("shape", "split", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by")}
+                       for sh in NN_HOST])
+        return e
+
+    return (entry("nn_min_sq_both", both, "rald_tpu/ops/nn_dist_kernel.py:112"),
+            entry("nn_min_sq_batch", batch, "rald_tpu/ops/nn_dist_kernel.py:168"))
+
+
 # float32 activations (JAX's compute_dtype float32 with matmul_precision
 # "highest"): each kernel's f32 instantiation against its plain version in
 # f32 on the card. Rows 1, 6 and 7 compute exact f32 products on the CUDA
@@ -820,77 +927,17 @@ def _f32_kernel_entries(gen: torch.Generator) -> dict:
 
 
 def phase_kernels() -> list:
-    from rald_torch.ops.nn_dist_kernel import (
-        nn_min_sq_batch,
-        nn_min_sq_batch_plain,
-        nn_min_sq_both,
-        nn_min_sq_both_plain,
-    )
-
     gen = torch.Generator("cuda").manual_seed(0)
     wsets = _ff_weight_sets(gen)
     entries = [_geglu_ln_entry(gen, wsets)]
 
-    # nn_min_sq_both: exact f32 subtract-square on both sides -> bitwise, at
-    # batch 1 and at batch 8 (the main path's two batches)
-    nn_rows, batch_rows = {}, {}
-    for bsz in (1, 8):
-        a, b = _nn_inputs(bsz, gen)
-        row, col = nn_min_sq_both(a, b)
-        row_p, col_p = nn_min_sq_both_plain(a, b)
-        col_sw, row_sw = nn_min_sq_both(b.contiguous(), a.contiguous())  # one-direction check
-        torch.cuda.synchronize()
-        check(torch.equal(row, row_p) and torch.equal(col, col_p),
-              f"nn_min_sq_both B={bsz} is not bitwise equal to its plain version")
-        check(torch.equal(row, row_sw) and torch.equal(col, col_sw),
-              f"nn_min_sq_both B={bsz} is not bitwise equal to the swapped-operand pass")
-        line = {
-            "shape": [bsz, NN_N, NN_M], "bitwise_equal": True,
-            "max_abs_err": (row - row_p).abs().max().item(),
-            "ms": cuda_ms(lambda: nn_min_sq_both(a, b), 20 if bsz == 1 else 5),
-            "plain_ms": cuda_ms(lambda: nn_min_sq_both_plain(a, b), 2, warmup=1),
-        }
-        if bsz == 1:
-            line["library_ms"] = cuda_ms(lambda: _nn_library(a, b), 2, warmup=1)
-        line["bound_ms"], line["bound_by"] = bound(
-            4 * bsz * (3 * (NN_N + NN_M) + NN_N + NN_M), 8 * bsz * NN_N * NN_M, PEAK_F32)
-        print("[kernels] nn_min_sq_both " + json.dumps(line))
-        nn_rows[bsz] = line
-        # nn_min_sq_batch: the row pass alone, bitwise its plain version and
-        # the two-way kernel's row output
-        rb = nn_min_sq_batch(a, b)
-        rb_p = nn_min_sq_batch_plain(a, b)
-        torch.cuda.synchronize()
-        check(torch.equal(rb, rb_p), f"nn_min_sq_batch B={bsz} is not bitwise equal to its plain version")
-        check(torch.equal(rb, row), f"nn_min_sq_batch B={bsz} differs from nn_min_sq_both's rows")
-        line = {
-            "shape": [bsz, NN_N, NN_M], "bitwise_equal": True,
-            "max_abs_err": (rb - rb_p).abs().max().item(),
-            "ms": cuda_ms(lambda: nn_min_sq_batch(a, b), 20 if bsz == 1 else 5),
-            "plain_ms": cuda_ms(lambda: nn_min_sq_batch_plain(a, b), 2, warmup=1),
-        }
-        if bsz == 1:  # the cdist composite takes ~6 s a frame
-            line["library_ms"] = cuda_ms(lambda: _nn_library(a, b, both=False), 2, warmup=1)
-        line["bound_ms"], line["bound_by"] = bound(
-            4 * bsz * (3 * (NN_N + NN_M) + NN_N), 8 * bsz * NN_N * NN_M, PEAK_F32)
-        print("[kernels] nn_min_sq_batch " + json.dumps(line))
-        batch_rows[bsz] = line
-    nn_line = nn_rows[1]
+    nn_both, nn_batch = _nn_entries(gen)
 
     entries += _int8_kernel_entries(gen)
     entries += _bf16_kernel_entries(gen, wsets)
-    entries.append(_entry("nn_min_sq_batch", "rald_torch/csrc/nn_dist.cu",
-                          "rald_tpu/ops/nn_dist_kernel.py:168", batch_rows, 1, 8))
+    entries.append(nn_batch)
     f32 = _f32_kernel_entries(gen)
-
-    entries.insert(1, {
-        "name": "nn_min_sq_both", "route": "cuda", "source": "rald_torch/csrc/nn_dist.cu",
-        "replaces": "rald_tpu/ops/nn_dist_kernel.py:112", "shape": nn_line["shape"],
-        "max_abs_err": max(r["max_abs_err"] for r in nn_rows.values()), "ms": nn_line["ms"],
-        "plain_ms": nn_line["plain_ms"], "bound_ms": nn_line["bound_ms"],
-        "bound_by": nn_line["bound_by"], "library_ms": nn_line["library_ms"],
-        "ms_b8": nn_rows[8]["ms"],
-    })
+    entries.insert(1, nn_both)
     for e in entries:
         e["max_err"] = e["max_abs_err"]
         # the nearest-neighbour kernels take f32 points only: their entries
@@ -917,22 +964,116 @@ def nn_library_b8() -> dict:
     return line
 
 
-def _breakdown(tag: str, calls: dict, shape: list) -> list:
+def _sass_counts(lib: Path) -> dict:
+    from collections import Counter
+
+    from rald_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, cur = {}, None
+    for text in sass.splitlines():
+        if "Function :" in text:
+            cur = text.split("Function :", 1)[1].strip()
+            counts[cur] = Counter()
+        elif cur and text.strip().startswith("/*") and "*/" in text:
+            toks = [t for t in text.split("*/", 1)[1].split() if not t.startswith("@")]
+            if toks and toks[0][0].isalpha():
+                counts[cur][toks[0].split(".")[0]] += 1
+    return {("both" if "ILb1E" in fn else "batch"): {"all": sum(c.values()), **dict(c.most_common())}
+            for fn, c in counts.items() if "nn_min_kernel" in fn}
+
+
+def nn_sass() -> dict:
+    """Opcode counts of each nearest-neighbour kernel in the built library's
+    SASS (``cuobjdump -sass``), most frequent first, and all instructions:
+    the distances are FADD (FSUB included) and FMUL, the minima VIMNMX3
+    (DPX, one for two new distances) and VIMNMX, the point loads LDS, the
+    warp minima REDUX.
+
+        python3 -c "import chip_smoke as c; c.nn_sass()"
+    """
+    from rald_torch.ops import _build
+
+    _build.load("nn_dist")
+    line = {"nn_dist": _sass_counts(_build._target("nn_dist")), "nvidia_smi": smi_line()}
+    print("[nn_sass] " + json.dumps(line))
+    return line
+
+
+def nn_breakdown() -> list:
+    """One-off, outside the default run: nn_min_sq_both and nn_min_sq_batch
+    at batch 1 and 8 of the main path and at the two host shapes
+    (``NN_HOST``), split into host and device time (``_breakdown``: device
+    time by CUDA graph replay, each launch by ``torch.profiler``), with the
+    slice count S each launch took (null on a tree from before the split)
+    and the SM clock under load. Runs on a parent tree too (copy this file
+    into it).
+
+        python3 -c "import chip_smoke as c; c.nn_breakdown()"
+    """
+    from rald_torch.ops import nn_dist_kernel as tn
+
+    check(torch.cuda.is_available(), "nn_breakdown needs a CUDA device")
+    gen = torch.Generator("cuda").manual_seed(0)
+    lines = []
+    for key in (1, 8, *NN_HOST):
+        a, b = _nn_inputs(key, gen) if key in (1, 8) else _nn_host_inputs(*key, gen)
+        calls = {"nn_min_sq_both": lambda: tn.nn_min_sq_both(a, b),
+                 "nn_min_sq_batch": lambda: tn.nn_min_sq_batch(a, b)}
+        extra = {}
+        for name, fn in calls.items():
+            fn()
+            extra[name] = {"split": _nn_split(getattr(tn, name))}
+        shape_lines = _breakdown("nn_breakdown", calls, [a.shape[0], a.shape[1], b.shape[1]],
+                                 reps=10, graph_calls=5, extra=extra)
+        for line in shape_lines:
+            clock = {"name": line["name"], "shape": line["shape"],
+                     **_clock_under_load(calls[line["name"]], line["device_ms"])}
+            print("[nn_clock] " + json.dumps(clock))
+        lines += shape_lines
+        del a, b
+    return lines
+
+
+def _clock_under_load(fn, device_ms: float) -> dict:
+    """nvidia-smi's SM clock (MHz) and power draw (W) sampled while ``fn``
+    runs back to back (about 1.5 s of work enqueued first); null where the
+    work had ended before the sample."""
+    for _ in range(max(1, min(2000, math.ceil(1500 / device_ms)))):
+        fn()
+    done = torch.cuda.Event()
+    done.record()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    busy = not done.query()
+    torch.cuda.synchronize()
+    clock, power = (float(v) for v in out.split(","))
+    return {"sm_clock_mhz": clock if busy else None, "power_w": power if busy else None}
+
+
+def _breakdown(tag: str, calls: dict, shape: list, reps: int = 200, graph_calls: int = 20,
+               extra: dict = None) -> list:
     """Host and device time of each call: ``host_ms``, host time per call
-    with no synchronisation in the loop; ``events_ms``, CUDA events around
-    back-to-back calls (phase 3's ``ms``); ``device_ms``, a CUDA graph of 20
-    calls replayed, so no host work between launches; ``launches_ms``, each
-    kernel's device time per call from ``torch.profiler``."""
+    with no synchronisation in the loop (``reps`` calls); ``events_ms``, CUDA
+    events around ``reps`` back-to-back calls (phase 3's ``ms``);
+    ``device_ms``, a CUDA graph of ``graph_calls`` calls replayed, so no host
+    work between launches; ``launches_ms``, each kernel's device time per
+    call from ``torch.profiler`` over 20 calls. ``extra`` adds keys to a
+    call's line, by name."""
     from torch.profiler import ProfilerActivity, profile
 
     lines = []
     for name, fn in calls.items():
-        line = {"name": name, "shape": shape, "events_ms": cuda_ms(fn, 200)}
+        line = {"name": name, "shape": shape, **(extra or {}).get(name, {}),
+                "events_ms": cuda_ms(fn, reps)}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(200):
+        for _ in range(reps):
             fn()
-        line["host_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+        line["host_ms"] = (time.perf_counter() - t0) / reps * 1e3
         torch.cuda.synchronize()
         graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
@@ -940,10 +1081,11 @@ def _breakdown(tag: str, calls: dict, shape: list) -> list:
             fn()
             torch.cuda.synchronize()
             with torch.cuda.graph(graph, stream=stream):
-                for _ in range(20):
+                for _ in range(graph_calls):
                     fn()
         torch.cuda.synchronize()
-        line["device_ms"] = cuda_ms(graph.replay, 20) / 20
+        line["device_ms"] = cuda_ms(graph.replay, 20 if graph_calls >= 20 else 5) / graph_calls
+        del graph
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(20):
                 fn()

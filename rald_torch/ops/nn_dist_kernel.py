@@ -10,6 +10,10 @@ ops, and each kernel is bitwise equal to its plain version. The row output
 of ``nn_min_sq_batch`` is bitwise that of ``nn_min_sq_both``, as the JAX
 module promises (:97-100).
 
+On the card the M axis is cut into :func:`split_plan` slices, one block per
+(a tile, slice, frame), so that a small row set still fills every SM; the
+slices' minima combine exactly.
+
 Padding contract (as the JAX wrapper's): rows beyond a frame's real count
 carry ``BIG`` coordinates so they never win a min against real rows; their
 own outputs are garbage the caller masks.
@@ -78,24 +82,55 @@ def _check_card(name, a, b):
         raise ValueError(f"{name}: empty point set (pad with BIG rows instead)")
 
 
+# the kernels' geometry, as csrc/nn_dist.cu: a rows per block and b points per
+# split chunk (a slice is a run of whole chunks)
+TILE_A, CHUNK = 4096, 64
+WAVES = 4  # blocks wanted: at least this many per SM
+
+
+def split_plan(bsz: int, n: int, m: int, sm_count: int) -> int:
+    """The number S of slices of the M axis, one block per (a tile, slice,
+    frame), on a card of ``sm_count`` SMs: 1 where the a tiles alone give
+    ``WAVES`` blocks per SM (the main path's batch 8), else the least S that
+    does, at most one chunk a slice."""
+    tiles = bsz * -(-n // TILE_A)
+    target = WAVES * sm_count
+    if tiles >= target:
+        return 1
+    return min(-(-m // CHUNK), -(-target // tiles))
+
+
+def _run(lib: ctypes.CDLL, a: torch.Tensor, b: torch.Tensor, col: bool):
+    """Launch one of ``lib``'s kernels on checked operands: ``(row, col,
+    S)``, col None for the row-only kernel."""
+    bsz, n, _ = a.shape
+    m = b.shape[1]
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    nsplit = split_plan(bsz, n, m, sms)
+    row = torch.empty((bsz, n), dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if col:
+        cm = torch.empty((bsz, m), dtype=torch.float32, device=a.device)
+        fn = lib.rald_nn_min_sq_both_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        rc = fn(a.data_ptr(), b.data_ptr(), row.data_ptr(), cm.data_ptr(), bsz, n, m, nsplit,
+                stream)
+    else:
+        cm = None
+        fn = lib.rald_nn_min_sq_batch_f32
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        rc = fn(a.data_ptr(), b.data_ptr(), row.data_ptr(), bsz, n, m, nsplit, stream)
+    _build.check(rc, "nn_min_sq_both" if col else "nn_min_sq_batch")
+    return row, cm, nsplit
+
+
 def nn_min_sq_both(a: torch.Tensor, b: torch.Tensor):
     """Row and column minima from one sweep; kernel on CUDA, plain version on CPU."""
     _check_pair("nn_min_sq_both", a, b)
     if a.device.type == "cpu":
         return nn_min_sq_both_plain(a, b)
     _check_card("nn_min_sq_both", a, b)
-    bsz, n, _ = a.shape
-    m = b.shape[1]
-    row = torch.empty((bsz, n), dtype=torch.float32, device=a.device)
-    col = torch.empty((bsz, m), dtype=torch.float32, device=a.device)
-    fn = _build.load("nn_dist").rald_nn_min_sq_both_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    rc = fn(
-        a.data_ptr(), b.data_ptr(), row.data_ptr(), col.data_ptr(), bsz, n, m,
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
-    _build.check(rc, "nn_min_sq_both")
+    row, col, nn_min_sq_both.split = _run(_build.load("nn_dist"), a, b, True)
     nn_min_sq_both.launches += 1
     return row, col
 
@@ -108,17 +143,13 @@ def nn_min_sq_batch(a: torch.Tensor, b: torch.Tensor):
     if a.device.type == "cpu":
         return nn_min_sq_batch_plain(a, b)
     _check_card("nn_min_sq_batch", a, b)
-    bsz, n, _ = a.shape
-    row = torch.empty((bsz, n), dtype=torch.float32, device=a.device)
-    fn = _build.load("nn_dist").rald_nn_min_sq_batch_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    rc = fn(a.data_ptr(), b.data_ptr(), row.data_ptr(), bsz, n, b.shape[1],
-            torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(rc, "nn_min_sq_batch")
+    row, _, nn_min_sq_batch.split = _run(_build.load("nn_dist"), a, b, False)
     nn_min_sq_batch.launches += 1
     return row
 
 
 nn_min_sq_both.launches = 0
 nn_min_sq_batch.launches = 0
+# the slice count S of each wrapper's last launch
+nn_min_sq_both.split = None
+nn_min_sq_batch.split = None

@@ -128,10 +128,99 @@ def test_wrapper_rejects_bad_shapes():
         tn.nn_min_sq_both(torch.zeros(1, 4, 3), torch.zeros(2, 4, 3))
 
 
+# ------------------------------------------------------ the split of the M axis
+H100_SMS = 132
+
+
+def _slices(m: int, s: int) -> list:
+    """``[(start, end), ...]``: the b rows of each of the ``s`` slices. The
+    kernel's cut in ``rald_torch/csrc/nn_dist.cu`` (``jb`` / ``je``) is the
+    source of truth: chunks ``[k C / s, (k + 1) C / s)`` of ``C = ceil(m /
+    CHUNK)``."""
+    chunks = -(-m // tn.CHUNK)
+    return [(k * chunks // s * tn.CHUNK, min((k + 1) * chunks // s * tn.CHUNK, m))
+            for k in range(s)]
+
+
+@pytest.mark.parametrize("sm_count", [114, 132, 144])
+def test_split_plan_is_one_at_the_main_shape(sm_count):
+    """Batch 8 of 5e5 predictions: the a tiles alone fill the card (H100
+    PCIe, SXM and a larger card)."""
+    assert tn.split_plan(8, 500_000, 10_000, sm_count) == 1
+
+
+@pytest.mark.parametrize("bsz,n,m", [(1, 16384, 524288), (1, 32768, 16384),
+                                     (1, 500_000, 10_000), (1, 524288, 16384),
+                                     (8, 3001, 200_000)])
+def test_split_plan_reaches_the_target_grid(bsz, n, m):
+    """The host API's reverse pass, a small eval prediction, batch 1 of the
+    main shape: at least WAVES blocks per SM, no more slices than chunks."""
+    s = tn.split_plan(bsz, n, m, H100_SMS)
+    assert 1 < s <= -(-m // tn.CHUNK)
+    assert bsz * -(-n // tn.TILE_A) * s >= tn.WAVES * H100_SMS
+
+
+@pytest.mark.parametrize("bsz,n,m", [(8, 500_000, 10_000), (1, 500_000, 10_000),
+                                     (1, 16384, 524288), (1, 32768, 16384), (1, 524288, 16384)])
+def test_split_plan_is_the_least_that_reaches_the_target(bsz, n, m):
+    """No more slices than the target grid needs: one slice fewer falls
+    short of WAVES blocks per SM (each slice adds a block's set-up and, for
+    S > 1, atomic row stores)."""
+    s = tn.split_plan(bsz, n, m, H100_SMS)
+    tiles = bsz * -(-n // tn.TILE_A)
+    assert s == 1 or tiles * (s - 1) < tn.WAVES * H100_SMS
+
+
+@pytest.mark.parametrize("n,m", [(3001, 257), (700, 63), (700, 1), (4096, 130), (9000, 64)])
+def test_split_plan_caps_at_one_chunk_a_slice(n, m):
+    """A b set too small to reach the target: one chunk a slice, never more
+    slices than chunks (M up to one chunk: one slice)."""
+    assert tn.split_plan(1, n, m, H100_SMS) == -(-m // tn.CHUNK)
+
+
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 257, 10_000, 16384, 100_003, 524288])
+def test_split_slices_cover_m_exactly(m):
+    """Every slice count the kernel takes (1 to ceil(M / CHUNK)), including
+    ones that divide neither M nor its chunks: contiguous, from 0 to M, none
+    empty."""
+    chunks = -(-m // tn.CHUNK)
+    plans = {tn.split_plan(b, n, m, H100_SMS) for b, n in [(1, 16384), (1, 500_000), (8, 500_000)]}
+    for s in sorted({1, 2, 3, 7, 132, chunks // 3, chunks - 1, chunks} | plans):
+        if not 1 <= s <= chunks:
+            continue
+        sl = _slices(m, s)
+        assert len(sl) == s and sl[0][0] == 0 and sl[-1][1] == m
+        assert all(e > st for st, e in sl), (m, s)
+        assert all(sl[k][1] == sl[k + 1][0] for k in range(s - 1))
+
+
+def test_split_minima_combine_bitwise():
+    """The kernel's combine of per-slice minima (min over slices for the
+    rows, slices side by side for the columns) is bitwise the unsplit
+    result."""
+    a, b = _clouds(2, 300, 1000, seed=41, pad_a=3, pad_b=17)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    want_row, want_col = tn.nn_min_sq_both_plain(ta, tb)
+    row = torch.full_like(want_row, float("inf"))
+    cols = []
+    for st, e in _slices(1000, 7):
+        r, c = tn.nn_min_sq_both_plain(ta, tb[:, st:e].contiguous())
+        row = torch.minimum(row, r)
+        cols.append(c)
+    assert torch.equal(row, want_row) and torch.equal(torch.cat(cols, 1), want_col)
+
+
+# shapes on the card: the product batch 1 and 8, a ragged batch, the host
+# API's reverse pass (GT 1e4 -> 16384 rows against 5e5 predictions ->
+# 524288), a small-grid batch with BIG pads, and an M that no slice count
+# divides
+CUDA_SHAPES = [(1, 500_000, 10_000, 1000, 100), (8, 500_000, 10_000, 4096, 17),
+               (2, 3001, 257, 0, 0), (1, 16384, 524288, 6384, 24288),
+               (8, 3001, 200_000, 1, 500), (1, 4099, 100_003, 3, 2)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("bsz,n,m,pad_a,pad_b", [(1, 500_000, 10_000, 1000, 100),
-                                                 (8, 500_000, 10_000, 4096, 17),
-                                                 (2, 3001, 257, 0, 0)])
+@pytest.mark.parametrize("bsz,n,m,pad_a,pad_b", CUDA_SHAPES)
 def test_cuda_kernel_bitwise_equals_plain(cuda, bsz, n, m, pad_a, pad_b):
     a, b = _clouds(bsz, n, m, seed=bsz, pad_a=pad_a, pad_b=pad_b)
     ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
@@ -223,9 +312,7 @@ def test_host_apis_match_jax():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bsz,n,m,pad_a,pad_b", [(1, 500_000, 10_000, 1000, 100),
-                                                 (8, 500_000, 10_000, 4096, 17),
-                                                 (2, 3001, 257, 0, 0)])
+@pytest.mark.parametrize("bsz,n,m,pad_a,pad_b", CUDA_SHAPES)
 def test_cuda_batch_kernel_bitwise(cuda, bsz, n, m, pad_a, pad_b):
     a, b = _clouds(bsz, n, m, seed=bsz + 1, pad_a=pad_a, pad_b=pad_b)
     ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
