@@ -59,6 +59,21 @@ Phases, each printed before the last line:
    strict bar) each run twice on the card, once through the kernels and
    once through their plain versions; tokens and Chamfer must agree. Then
    the host ``chamfer_and_fscore`` once on the card against the CPU.
+6. dataset eval: the eval entry point ``rald_torch.cli.main_generation.run``
+   at full width over a synthetic ColoRadar tree (product raw shapes: radar
+   (128, 8, 2), 16000 LiDAR and 512 raw CFAR points a frame, two test
+   sequences of 3 frames, one split file per scene), with the engine's
+   seeded random weights (decoder sharpened as in phase 4) saved as
+   reference ``.pth`` files and read back through ``eval.ckpt`` /
+   ``lidar_ae.ckpt`` / ``radar_enc.ckpt``: the eval YAML as shipped (the
+   modular path: PLY dumps, host grid, helper densify, threshold and
+   refine) over both scenes, the same YAML with ``store_pc: false`` (the
+   fused path), and ``ge_indoor_frozen_enc_ints_only.yml`` in eval mode
+   (the frozen radar encoder) on one scene; each with a StageTimer, exact
+   launches of rows 1 and 2 per batch, one PLY per frame in JAX's layout,
+   peak memory. Then the modular evaluate at depth 2 in f32 on the card
+   and on the CPU (plain versions), same weights and numpy prior: loss /
+   IoU / accuracy and the PLY point count must agree.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -76,6 +91,7 @@ mode (device busy time and idle share at batch 1 and 8).
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import math
@@ -1774,6 +1790,249 @@ def phase_reference() -> dict:
     return _host_chamfer()
 
 
+# --------------------------------------------------------------- phase 6
+FROZEN_CFG = REPO / "configs" / "generation" / "ge_indoor_frozen_enc_ints_only.yml"
+EVAL_ROOT = SCRATCH / "coloradar"  # the synthetic ColoRadar tree of the dataset-eval phase
+EVAL_FRAMES = 3  # frames per test sequence; two sequences, one scene each
+EVAL_SCENES = ("scene_a", "scene_b")
+
+
+def _eval_tree() -> dict:
+    """A synthetic ColoRadar tree at the product YAML's raw shapes (radar
+    (128, 8, 2), 16000 LiDAR points and 512 raw CFAR points a frame), two
+    test sequences of EVAL_FRAMES frames, and one split file per scene.
+    Returns {scene: test sequence}."""
+    import shutil
+
+    from rald_torch.data.synthetic import make_synthetic_coloradar
+
+    shutil.rmtree(EVAL_ROOT, ignore_errors=True)
+    make_synthetic_coloradar(EVAL_ROOT, num_train_seqs=0, num_eval_seqs=2,
+                             frames_per_seq=EVAL_FRAMES, points_per_frame=16000,
+                             radar_shape=(128, 8, 2), helper_points=512, seed=21)
+    test = json.loads((EVAL_ROOT / "split_synth.json").read_text())["test"]
+    for scene, seq in zip(EVAL_SCENES, test):
+        (EVAL_ROOT / f"split_{scene}.json").write_text(
+            json.dumps({"train": [], "val": [], "test": [seq]}))
+    return dict(zip(EVAL_SCENES, test))
+
+
+def _eval_cfg(path: Path, label: str, **system):
+    """A shipped YAML pointed at the synthetic tree, its outputs under
+    build/: split files per scene, ``cache_voxel: false`` (the voxel cache
+    is written by a tool the port lacks), ``system`` keys replaced."""
+    from rald_torch.config import load_config
+
+    cfg = load_config(path)
+    out = SCRATCH / "eval" / label
+    cfg.dataset.root_dir = str(EVAL_ROOT)
+    cfg.dataset.split_file = {s: f"split_{s}.json" for s in EVAL_SCENES}
+    cfg.dataset.lidar.cache_voxel = False
+    cfg.system.update(output_dir=str(out / "result"), log_dir=str(out / "log"), **system)
+    cfg.eval.store_base_dir = str(out / "dumps")
+    return cfg
+
+
+def _eval_cubes(cfg, scene: str) -> list:
+    """The dataset's first two test cubes of a scene, as engine inputs."""
+    from rald_torch.data.coloradar import ColoRadarDataset
+
+    sub = json.loads(json.dumps(cfg.dataset.to_dict()))
+    sub["split_file"] = f"split_{scene}.json"
+    from rald_torch.config import Config
+
+    ds = ColoRadarDataset(EVAL_ROOT, Config(sub), loader_type="test")
+    return [{"radar_cube": ds[i]["radar_cube"][None], "seeds_or_prior": [i]} for i in range(2)]
+
+
+def _save_weights(eng, label: str) -> dict:
+    """The engine's weights as reference-layout ``.pth`` files (float32):
+    ``eval.ckpt``, ``lidar_ae.ckpt`` and, with the frozen encoder, a radar
+    autoencoder's encoder (``radar_enc.ckpt``)."""
+    from rald_torch.train.checkpoint import save_torch_checkpoint
+
+    def f32(m):
+        return {k: v.float() for k, v in m.state_dict().items()}
+
+    d = SCRATCH / "eval" / "ckpt"
+    paths = {"eval.ckpt": save_torch_checkpoint(d / f"{label}_edm.pth", f32(eng.model)),
+             "lidar_ae.ckpt": save_torch_checkpoint(d / f"{label}_vae.pth", f32(eng.vae))}
+    if eng.radar_enc is not None:
+        paths["radar_enc.ckpt"] = save_torch_checkpoint(d / f"{label}_radar_ae.pth", f32(eng.radar_enc))
+    return {k: str(v) for k, v in paths.items()}
+
+
+def _set_ckpts(cfg, paths: dict):
+    for key, path in paths.items():
+        section, name = key.split(".")
+        cfg[section][name] = path
+    return cfg
+
+
+def _eval_run(cfg, label: str, scene: str, seq: str, engine=None) -> dict:
+    """One scene through ``rald_torch.cli.main_generation.run`` (the engine
+    built and its ``.pth`` weights loaded unless ``engine`` is given), with a
+    StageTimer, the launch counters zeroed just before and read just after.
+    Checks: every frame evaluated once, finite loss / IoU / CD / F (a frame
+    with no prediction would make CD inf), exact launches of rows 1 and 2
+    per batch and none of the others, one PLY per frame in JAX's layout."""
+    from rald_torch.cli import main_generation as mg
+    from rald_torch.config import expand_experiment_sweep, finalize_dirs
+    from rald_torch.eval.ply import read_ply
+    from rald_torch.ops import launch_counts, nn_min_sq_both, reset_launch_counts
+    from rald_torch.train.profiler import StageTimer
+
+    sub = dict(expand_experiment_sweep(finalize_dirs(copy.deepcopy(cfg))))[scene]
+    st, lines = StageTimer(), []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = mg.run(sub, engine=engine, print_fn=lines.append, stage_timer=st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    ev = sub.eval
+    modular = bool(ev.get("store_pc", False))
+    step = "sample_decode" if modular else "fused_eval_step"
+    frames = st.counts.get(step, 0)
+    check(frames == EVAL_FRAMES, f"eval {label} {scene}: {frames} frames evaluated, "
+                                 f"want {EVAL_FRAMES} ({st.counts})")
+    for k in ("loss", "iou", "accuracy", "cd", "fscore"):
+        check(math.isfinite(stats[k]), f"eval {label} {scene}: {k} = {stats[k]}")
+    per_batch = _per_nfe_cfg(sub) + int((sub.lidar_ae.get("overrides") or {}).get("depth", 24))
+    want = {name: 0 for name in KERNEL_NAMES}
+    want["fused_ln_geglu_residual"] = frames * per_batch
+    want["nn_min_sq_both"] = frames
+    _check_counts(counts, want, f"eval {label} {scene}")
+    points = []
+    if modular:
+        d = Path(ev.store_base_dir) / ev.exp_name / seq / ev.save_pc_dir_name
+        got = sorted(p.name for p in d.glob("*.ply"))
+        check(got == [f"{i:04d}.ply" for i in range(EVAL_FRAMES)], f"eval {label}: PLY files {got}")
+        points = [len(read_ply(d / f)) for f in got]
+        check(all(n > 0 for n in points), f"eval {label} {scene}: empty clouds {points}")
+    eval_s = sum(st.seconds.values())
+    line = {"mode": label, "scene": scene, "frames": frames, "wall_s": wall,
+            "build_load_s": wall - eval_s, "eval_s": eval_s, "s_per_frame": eval_s / frames,
+            "stage_ms": {k: round(v * 1e3, 3) for k, v in st.report().items()},
+            "stage_calls": st.counts, "stats": stats, "ply_points": points,
+            "launches_per_batch": {k: v // frames for k, v in counts.items() if v},
+            "nn_split": getattr(nn_min_sq_both, "split", None),
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "loaded": [l for l in lines if l.startswith(("Loaded", "WARNING"))],
+            "device": smi_line()}
+    print("[eval] " + json.dumps(line))
+    return line
+
+
+def _per_nfe_cfg(cfg) -> int:
+    inf = cfg.eval.get("inference", {})
+    depth = int((cfg.ar_model.get("overrides") or {}).get("depth", 24))
+    return (2 * int(inf.get("num_steps", 18)) - 1) * depth
+
+
+def _numpy_prior(seeds, n_latents, channels, device):
+    """The reference's injected prior: one numpy stream per seed."""
+    return torch.from_numpy(np.stack([
+        np.random.default_rng(int(s)).standard_normal((n_latents, channels)).astype(np.float32)
+        for s in seeds])).to(device)
+
+
+def _eval_reference(scenes: dict) -> dict:
+    """The modular evaluate at depth 2 / 4 steps in float32 (``matmul_precision:
+    highest``), on frame 0 of scene a, once on the card through the kernels
+    and once on the CPU through their plain versions, with the same weights
+    and the same injected numpy prior. Loss and accuracy / IoU on the eval
+    queries agree within 1e-3 (a query whose logit sits within rounding of
+    0 may flip: 1/16000 each); the refined clouds, drawn from the host
+    stream after the threshold, within 2 % in point count."""
+    from rald_torch.cli import main_generation as mg
+    from rald_torch.eval.ply import read_ply
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        cfg = _eval_cfg(PRODUCT_CFG, f"reference_{device}", compute_dtype="float32",
+                        matmul_precision="highest")
+        cfg.dataset.split_file = "split_scene_a.json"
+        cfg.dataset.query_aug_num = 65536
+        cfg.ar_model.overrides = {**(cfg.ar_model.get("overrides") or {}), "depth": 2}
+        cfg.lidar_ae.overrides = {**(cfg.lidar_ae.get("overrides") or {}), "depth": 2}
+        cfg.eval.freq = EVAL_FRAMES  # frame 0 only
+        cfg.eval.inference.update(num_steps=4, num_query_points=65536, refine_query_aug_num=65536)
+        eng = GenerationEngine(cfg, device=device)
+        eng.draw_prior = _numpy_prior
+        if device == "cuda":
+            _center_occupancy(eng, _eval_cubes(cfg, "scene_a")[:1])
+            weights = [{k: v.cpu() for k, v in m.state_dict().items()} for m in (eng.model, eng.vae)]
+        else:
+            eng.load_state_dicts(*weights)
+        t0 = time.perf_counter()
+        stats = mg.run(cfg, engine=eng, print_fn=lambda *_: None)
+        ply = Path(cfg.eval.store_base_dir) / cfg.eval.exp_name / scenes["scene_a"] / \
+            cfg.eval.save_pc_dir_name / "0000.ply"
+        out[device] = {"stats": stats, "points": len(read_ply(ply)),
+                       "seconds": time.perf_counter() - t0}
+        del eng
+    card, cpu = out["cuda"], out["cpu"]
+    line = {"mode": "reference depth 2 f32", "card": card, "cpu": cpu}
+    print("[eval] " + json.dumps(line))
+    for k in ("loss", "iou", "accuracy"):
+        a, b = card["stats"][k], cpu["stats"][k]
+        check(abs(a - b) <= 1e-3 * max(1.0, abs(b)), f"eval reference: {k} card {a} vs CPU {b}")
+    check(card["points"] > 0 and abs(card["points"] - cpu["points"]) <= 0.02 * cpu["points"],
+          f"eval reference: PLY points card {card['points']} vs CPU {cpu['points']}")
+    return line
+
+
+def phase_eval() -> dict:
+    """The dataset eval entry point at full width (``main_generation.run``
+    over the synthetic tree, ``.pth`` weights): (a) the eval YAML as shipped
+    (modular path, PLY dumps) over both scenes, (b) with ``store_pc: false``
+    (fused path), (c) the frozen-encoder YAML in eval mode on one scene; then
+    the depth-2 card-versus-CPU reference. Returns the runs by label."""
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    torch.backends.cudnn.allow_tf32 = True  # torch's defaults (phase 5 set "highest")
+    torch.set_float32_matmul_precision("highest")
+    scenes = _eval_tree()
+    runs = {}
+
+    # (b) first: its engine makes the weights, then evaluates with them
+    cfg_b = _eval_cfg(PRODUCT_CFG, "fused")
+    cfg_b.eval.store_pc = False
+    eng = GenerationEngine(cfg_b)
+    shift = _center_occupancy(eng, _eval_cubes(cfg_b, "scene_a"))
+    paths = _save_weights(eng, "unfrozen")
+    print(f"[eval] weights saved (occupancy bias shift {shift:+.6f}): {json.dumps(paths)}")
+    _set_ckpts(cfg_b, paths)
+    runs["fused"] = [_eval_run(cfg_b, "store_pc=false", s, q, engine=eng) for s, q in scenes.items()]
+    del eng
+    torch.cuda.empty_cache()
+
+    # (a) the eval YAML as shipped: both scenes, engine built and loaded each time
+    cfg_a = _set_ckpts(_eval_cfg(PRODUCT_CFG, "shipped"), paths)
+    runs["shipped"] = [_eval_run(cfg_a, "shipped", s, q) for s, q in scenes.items()]
+    torch.cuda.empty_cache()
+
+    # (c) the frozen external radar encoder, eval mode, one scene
+    cfg_c = _eval_cfg(FROZEN_CFG, "frozen_enc", mode="eval")
+    src = GenerationEngine(cfg_c)
+    batches = [{**b, "radar_cube": src.encode_radar(b["radar_cube"])}
+               for b in _eval_cubes(cfg_c, "scene_a")]
+    shift = _center_occupancy(src, batches)
+    _set_ckpts(cfg_c, _save_weights(src, "frozen"))
+    print(f"[eval] frozen-encoder weights saved (occupancy bias shift {shift:+.6f})")
+    del src
+    torch.cuda.empty_cache()
+    runs["frozen_enc"] = [_eval_run(cfg_c, "frozen_enc", "scene_a", scenes["scene_a"])]
+    check(any(l.startswith("Loaded frozen radar encoder") for l in runs["frozen_enc"][0]["loaded"]),
+          f"eval frozen_enc: {runs['frozen_enc'][0]['loaded']}")
+    torch.cuda.empty_cache()
+    runs["reference"] = _eval_reference(scenes)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1794,6 +2053,9 @@ def main() -> int:
     t = time.perf_counter()
     runs[("host chamfer_and_fscore", 1)] = phase_reference()
     print(f"[time] phase 5 (reference) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    eval_runs = phase_eval()
+    print(f"[time] phase 6 (dataset eval) {time.perf_counter() - t:.1f} s")
     # each kernel's launches in the runs of the mode that uses it: the main
     # path's eval step at batch 1 (and 8), or, for the two kernels no
     # inference chain reaches, the module / host API that does
@@ -1823,6 +2085,15 @@ def main() -> int:
             mode = f32_mode_of[k["name"]]
             k["f32"].update(launches_mode=mode, launches=runs[(mode, 1)]["launches"][k["name"]])
             check(k["f32"]["launches"] > 0, f"{k['name']}: no f32 launch in {mode}")
+    # rows 1 and 2 on the dataset eval entry point (phase 6): launches per
+    # batch and, for row 2, the slice count S of the last launch, per run
+    for k in kernels:
+        if k["name"] in ("fused_ln_geglu_residual", "nn_min_sq_both"):
+            k["eval_cli"] = [
+                {"mode": r["mode"], "scene": r["scene"],
+                 "launches_per_batch": r["launches_per_batch"][k["name"]],
+                 **({"split": r["nn_split"]} if k["name"] == "nn_min_sq_both" else {})}
+                for label in ("shipped", "fused", "frozen_enc") for r in eval_runs[label]]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -22,12 +22,16 @@ samples from prior seed ``i``. Every inference key of the YAML applies
 ``int8_ff`` / ``int8_attn``, ``system.fast_inference``, the models'
 ``overrides``).
 
+Weights: ``eval.ckpt``, ``lidar_ae.ckpt`` and, with the frozen external
+radar encoder (which encodes each cube before sampling, as JAX's tool
+does), ``radar_enc.ckpt`` are reference-layout ``.pth`` files, read as
+``main_generation`` reads them; a missing one warns and samples seeded
+random weights, as JAX does.
+
 Where it differs from the JAX tool: it runs as one process on one card (no
 multi-host split of the file list, and ``shard_queries`` has nothing to
-shard over); reading orbax checkpoints is not ported yet, so an existing
-``eval.ckpt`` or ``lidar_ae.ckpt`` directory raises ``NotImplementedError``
-(a missing one warns and samples seeded random weights, as JAX does); the
-frozen external radar encoder raises in the engine.
+shard over); an orbax checkpoint directory raises ``NotImplementedError``
+(reading orbax is not ported).
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ import torch
 
 from rald_torch import apply_matmul_precision
 from rald_torch import geometry as geo
+from rald_torch.cli.main_generation import load_eval_checkpoint, load_frozen_modules
 from rald_torch.config import Config, load_config
 from rald_torch.data.radar_proc import process_radar_cube
 from rald_torch.eval.ply import write_ply
@@ -100,26 +105,11 @@ def preprocess(cube: np.ndarray, radar_cfg) -> np.ndarray:
     )
 
 
-def check_checkpoints(cfg: Config, print_fn=print) -> None:
-    """Random weights stand in only where no checkpoint exists."""
-    for key, warning in (("eval.ckpt", "sampling with random weights"),
-                         ("lidar_ae.ckpt", "using randomly initialized frozen VAE")):
-        section, name = key.split(".")
-        path = cfg.get(section, {}).get(name)
-        if path and Path(str(path)).exists():
-            raise NotImplementedError(
-                f"rald_torch: {key} = {path} exists, but reading orbax checkpoints is not "
-                "ported yet (ROADMAP A3); load the weights with "
-                "GenerationEngine.load_state_dicts instead"
-            )
-        print_fn(f"WARNING: {key} missing — {warning}")
-
-
 def run(cfg: Config, inputs: str, out_dir: str, batch: int = 0, threshold: float = 0.0,
         preprocessed: bool = False, device=None, engine: GenerationEngine | None = None,
         print_fn=print) -> dict:
     """Cubes matching ``inputs`` -> PLY files under ``out_dir``. ``engine``
-    replaces the one built from ``cfg`` (with its weights). Returns the
+    replaces the one built (and loaded) from ``cfg``, with its weights. Returns the
     file count, per-file point counts, mean points, seconds and frames/s
     (IO included). ``system.matmul_precision``, where set, is applied to the
     process first (:func:`rald_torch.apply_matmul_precision`), as JAX's CLI
@@ -127,8 +117,9 @@ def run(cfg: Config, inputs: str, out_dir: str, batch: int = 0, threshold: float
     if cfg.system.get("matmul_precision"):
         apply_matmul_precision(cfg.system.matmul_precision)
     if engine is None:
-        check_checkpoints(cfg, print_fn)
         engine = GenerationEngine(cfg, device=device)
+        load_eval_checkpoint(cfg, engine, print_fn)
+        load_frozen_modules(cfg, engine, print_fn)
     lidar = cfg.dataset.lidar
     aniso, iso = lidar.norm_anisotropy, lidar.norm_isotropy
     grid = query_grid(cfg)
@@ -148,6 +139,8 @@ def run(cfg: Config, inputs: str, out_dir: str, batch: int = 0, threshold: float
         cubes = np.stack([prep(load_cube(f)) for f in chunk])
         if len(chunk) < bsz:  # pad-last: every batch has the same shape
             cubes = np.concatenate([cubes, np.repeat(cubes[-1:], bsz - len(chunk), axis=0)])
+        if engine.frozen_radar_enc:
+            cubes = engine.encode_radar(cubes)
         tokens = engine.sample_tokens(cubes, list(range(start, start + bsz)))
         hits = (engine.decode_queries(tokens, grid_dev) > threshold).cpu().numpy()
         for i, out_path in enumerate(outs[start:start + len(chunk)]):

@@ -80,3 +80,19 @@ def fov_mask(points, eps: float = 0.0):
     """Boolean mask of points strictly inside the open cube (-1, 1)^3."""
     inside = (points > -1 + eps) & (points < 1 - eps)
     return inside.all(-1) if isinstance(points, torch.Tensor) else np.all(inside, axis=-1)
+
+
+def polar_range_mask(points: np.ndarray, range_limits) -> np.ndarray:
+    """Mask of (numpy) polar points inside ``[[r_lo, r_hi], [az_lo, az_hi],
+    [el_lo, el_hi]]`` (``rald_tpu/geometry.py:112-121``)."""
+    lo = np.asarray([range_limits[0][0], range_limits[1][0], range_limits[2][0]])
+    hi = np.asarray([range_limits[0][1], range_limits[1][1], range_limits[2][1]])
+    return np.all((points >= lo) & (points <= hi), axis=-1)
+
+
+def transform_points(points: np.ndarray, T) -> np.ndarray:
+    """Apply a 4x4 homogeneous transform to (numpy) (..., 3) points
+    (``rald_tpu/geometry.py:136-142``)."""
+    return points @ np.asarray(T[:3, :3], dtype=points.dtype).T + np.asarray(
+        T[:3, 3], dtype=points.dtype
+    )

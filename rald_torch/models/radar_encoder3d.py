@@ -1,4 +1,5 @@
-"""Radar-cube 3D-CNN encoder (``rald_tpu/models/radar_encoder3d.py:39-146``).
+"""Radar-cube 3D-CNN encoder (``rald_tpu/models/radar_encoder3d.py:39-146``)
+and the encoder half of the radar autoencoder (:185-222).
 
 The public layout is NDHWC (B, R, A, E, C), as in JAX; the encoder permutes
 to PyTorch's NCDHW once on entry and back once on exit. Convolutions may
@@ -147,3 +148,34 @@ class RadarEncoder3D(nn.Module):
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
         h = self.conv_out(_swish(_gn(self.norm_out, h)))
         return h.permute(0, 2, 3, 4, 1)
+
+
+class RadarAutoencoder(nn.Module):
+    """The reference's radar autoencoder (``rald_tpu/models/radar_encoder3d.py:185-222``),
+    as far as the frozen conditioning encoder needs it: :meth:`encode`. Its
+    state_dict holds the ``encoder.*`` keys of a reference checkpoint; the
+    decoder (``RadarDecoder3D``) is not ported, so a checkpoint's
+    ``decoder.*`` keys go unused (:func:`rald_torch.train.checkpoint.load_radar_encoder`
+    names them). ``in_channels`` is the channel count the encoder takes (the
+    engine passes 1, the intensity channel); ``dtype`` (a torch dtype or its
+    name), when given, is the compute dtype the engine casts it to."""
+
+    def __init__(
+        self,
+        basic_channel: int = 128,
+        ch_mult: Sequence[int] = (1, 1, 2, 2, 4),
+        num_res_blocks: int = 2,
+        embed_dim: int = 16,
+        in_channels: int = 2,
+        dtype=None,
+    ):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.encoder = RadarEncoder3D(
+            in_channels=in_channels, ch=basic_channel, ch_mult=ch_mult,
+            num_res_blocks=num_res_blocks, z_channels=embed_dim,
+        )
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, R, A, E, in_channels) -> (B, R/16, A/16, E/16, embed_dim)."""
+        return self.encoder(x)

@@ -1,4 +1,4 @@
-"""Name-keyed model factories (``rald_tpu/models/registry.py:18-97``).
+"""Name-keyed model factories (``rald_tpu/models/registry.py:18-104``).
 
 Same variant names as the reference, so configs are interchangeable. The
 inference flags are arguments, as in JAX (:54-97); ``overrides`` replaces
@@ -8,6 +8,7 @@ any constructor argument, as the YAML's ``ar_model.overrides`` /
 from __future__ import annotations
 
 from rald_torch.models.latent_dit import EDMPrecond
+from rald_torch.models.radar_encoder3d import RadarAutoencoder
 from rald_torch.models.vecset_vae import VecSetVAE
 
 
@@ -35,6 +36,14 @@ GENERATION_VARIANTS = {
     "kl_d512_m512_l32_d24_edm": dict(channels=32, depth=24),
     "kl_d512_m512_l32_d18_edm": dict(channels=32, depth=18),
     "kl_d512_m512_l32_d12_edm": dict(channels=32, depth=12),
+}
+
+
+# reference models_radar_encoder.py:423-446
+RADAR_ENCODER_VARIANTS = {
+    "ae_ch128_mult5_n2_d16": dict(basic_channel=128, embed_dim=16),
+    "ae_ch64_mult5_n2_d16": dict(basic_channel=64, embed_dim=16),
+    "ae_ch16_mult5_n2_d16": dict(basic_channel=16, embed_dim=16),
 }
 
 
@@ -81,3 +90,11 @@ def get_generation_model(name: str, configs, overrides=None, use_fused_ff: bool 
     )
     args.update(dict(overrides or {}))
     return EDMPrecond(**args)
+
+
+def get_radar_encoder_model(name: str, in_channels: int = 2, overrides=None) -> RadarAutoencoder:
+    """The frozen radar encoder of ``radar_enc.name`` (JAX :100-104);
+    ``overrides`` as JAX's ``radar_enc.copy(**overrides)``."""
+    args = dict(RADAR_ENCODER_VARIANTS[name], in_channels=in_channels)
+    args.update(dict(overrides or {}))
+    return RadarAutoencoder(**args)

@@ -2,16 +2,22 @@
 
 Counterpart of ``rald_tpu/train/gen_engine.py``'s eval programs:
 :meth:`GenerationEngine.sample_tokens` (``_sample_impl`` :389-471),
-:meth:`GenerationEngine.decode_queries` (``_decode_impl`` :473-475) and
+:meth:`GenerationEngine.decode_queries` (``_decode_impl`` :473-475),
 :meth:`GenerationEngine.fused_eval_step` (``_fused_eval_step_impl``
 :535-635): radar cube -> on-device upsample -> 3D-CNN condition tokens ->
 AdaLN mod table -> 35-NFE Heun sampling -> VAE decode of the grid + CFAR
 helper queries -> threshold -> densify + refine decode -> polar->cartesian
--> Chamfer / F-score. Quantized inference (``eval.inference.int8_ff`` /
+-> Chamfer / F-score; and :meth:`GenerationEngine.evaluate` (:826-1133),
+the dataset eval loop over a loader, which takes the fused step or, for
+the PLY / latent dumps and the other eval modes, the modular path
+(sample + decode on the card, grid, helper densify, threshold and refine
+on the host). Quantized inference (``eval.inference.int8_ff`` /
 ``int8_attn``, :93-124) runs the DiT through the int8 kernels, with
 :meth:`GenerationEngine.calibrate_act_scales` (:669-768) for the static
-activation scales. Training, ``evaluate`` and the frozen external radar
-encoder come in later slices and raise here.
+activation scales. The frozen external radar encoder
+(``use_radar_enc: true``, ``unfreeze_radar_enc: false``, :143-150) encodes
+the intensity channel before conditioning (:meth:`encode_radar`).
+Training comes in a later slice.
 
 The engine reads the same YAML as ``rald_tpu`` (``system.compute_dtype``,
 ``system.fast_inference``, ``ar_model`` / ``lidar_ae`` with their
@@ -25,7 +31,9 @@ the ``use_fused_attn`` of its overrides either way. Since the port is
 eval-only, ``model`` / ``vae`` are those eval models (JAX shares their
 weights with the training models too). Models start from seeded random
 weights (:func:`init_random_weights`); :meth:`load_state_dicts` loads real
-ones.
+ones. Prior noise comes from :attr:`GenerationEngine.draw_prior`, one
+function that every sampling entry point calls (a test may swap in another
+draw, such as the JAX package's per-seed stream).
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from torch import nn
 
 from rald_torch import geometry as geo
 from rald_torch import resolve_device
+from rald_torch.data.query import aug_query_helper
 from rald_torch.diffusion.edm import (
     edm_sampler,
     karras_sigmas,
@@ -49,12 +58,16 @@ from rald_torch.diffusion.edm import (
     unstack_mods,
 )
 from rald_torch.dsp.cfar_points import resize_linear_align_corners
-from rald_torch.eval.chamfer import batched_cd_fscore_graph
+from rald_torch.eval.chamfer import batched_cd_fscore_graph, chamfer_and_fscore_batch
 from rald_torch.eval.densify import densify_queries
 from rald_torch.eval.occupancy import occupancy_metrics
-from rald_torch.models.registry import get_ae_model, get_generation_model
+from rald_torch.eval.ply import write_ply
+from rald_torch.eval.queries import build_query_grid
+from rald_torch.models.registry import get_ae_model, get_generation_model, get_radar_encoder_model
 from rald_torch.ops.attn_kernel import merge_int8_trees, quantize_attn_tree
 from rald_torch.ops.geglu_kernel import quantize_ff_tree
+from rald_torch.train.metrics import MetricLogger
+from rald_torch.train.profiler import StageTimer
 
 
 def bce_with_logits(logits, labels, mask=None):
@@ -112,10 +125,10 @@ class GenerationEngine:
 
         mc = cfg.ar_model.configs
         self.use_radar_cond = bool(mc.get("use_radar_cond", True))
-        if self.use_radar_cond and bool(mc.get("use_radar_enc", True)) and not bool(
+        self.frozen_radar_enc = bool(mc.get("use_radar_enc", True)) and not bool(
             mc.get("unfreeze_radar_enc", False)
-        ):
-            raise NotImplementedError("rald_torch: the frozen external radar encoder is not ported yet")
+        )
+        self.draw_prior = sample_prior_latents
         ev = cfg.get("eval", {})
         inf = ev.get("inference", {})
 
@@ -148,14 +161,20 @@ class GenerationEngine:
         else:  # JAX's model_eval is then the model as built, int8 flags included
             int8_ff, int8_attn = self.model.use_int8_ff, self.model.use_int8_attn
         self.use_int8_ff, self.use_int8_attn = int8_ff, int8_attn
+        # the frozen external encoder of the radar cube's intensity channel
+        self.radar_enc = None
+        if self.frozen_radar_enc:
+            self.radar_enc = get_radar_encoder_model(
+                cfg.radar_enc.name, in_channels=1, overrides=cfg.radar_enc.get("overrides"),
+            )
 
         gen = torch.Generator().manual_seed(self.seed)
-        for m in (self.model, self.vae):
+        for m in self.modules():
             init_random_weights(m, gen)
             if self.cast_params_bf16:
                 _round_to_bf16(m)
         self._quantize(self.model.state_dict())  # the f32 weights, before the cast
-        for m in (self.model, self.vae):
+        for m in self.modules():
             m.to(device=self.device, dtype=_torch_dtype(m.compute_dtype) or dtype)
             m.eval().requires_grad_(False)
 
@@ -176,12 +195,22 @@ class GenerationEngine:
         )
         self.fscore_tau = float(ev.get("fscore_tau", 0.1))
 
-    def load_state_dicts(self, edm_state_dict=None, vae_state_dict=None) -> None:
+    def modules(self) -> list:
+        """The engine's models: the DiT, the VAE and the frozen radar encoder
+        where there is one."""
+        return [m for m in (self.model, self.vae, self.radar_enc) if m is not None]
+
+    def load_state_dicts(self, edm_state_dict=None, vae_state_dict=None,
+                         radar_enc_state_dict=None) -> None:
         """Load reference-layout weights (numpy arrays or tensors), strictly;
         values are cast to the engine's dtype and device. In int8 mode the
         side-tree is rebuilt from the values as given (f32), not from the
-        cast copy."""
-        for m, sd in ((self.model, edm_state_dict), (self.vae, vae_state_dict)):
+        cast copy. ``radar_enc_state_dict``: the frozen encoder's
+        ``encoder.*`` entries (:func:`rald_torch.train.checkpoint.split_radar_autoencoder`)."""
+        if radar_enc_state_dict is not None and self.radar_enc is None:
+            raise ValueError("radar_enc_state_dict given, but this engine has no frozen radar encoder")
+        for m, sd in ((self.model, edm_state_dict), (self.vae, vae_state_dict),
+                      (self.radar_enc, radar_enc_state_dict)):
             if sd is not None:
                 sd = {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
                       for k, v in sd.items()}
@@ -246,10 +275,12 @@ class GenerationEngine:
 
     # ---------------------------------------------------------------- pieces
     def _to_dev(self, a, dtype=torch.float32):
+        """``a`` (numpy or tensor) on the engine's device, in ``dtype``
+        (None: a tensor keeps its own, numpy becomes float32)."""
         if a is None:
             return None
-        t = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
-        return t.to(self.device, dtype)
+        t = a if torch.is_tensor(a) else torch.from_numpy(np.array(a, np.float32 if dtype is None else None))
+        return t.to(self.device, dtype or t.dtype)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -261,11 +292,24 @@ class GenerationEngine:
         return resize_linear_align_corners(radar_cube, self._upsample_tgt, axes=(2, 3))
 
     @torch.no_grad()
+    def encode_radar(self, radar_cube):
+        """The frozen external encoder (JAX ``encode_radar`` /
+        ``_radar_encode_impl``): upsample the raw (B, R, A, E, C) cube, then
+        encode its intensity channel -> (B, R', A', E', enc_radar_ch)."""
+        cube = self._maybe_upsample(self._to_dev(radar_cube))
+        return self.radar_enc.encode(cube[..., :1])
+
+    @torch.no_grad()
     def condition(self, radar_cube):
-        """Raw (B, R, A, E, C) cube -> (B, T, C) condition tokens (or None)."""
+        """(B, T, C) condition tokens (or None) from a raw (B, R, A, E, C)
+        cube, or, with the frozen encoder, from its :meth:`encode_radar`
+        output, as JAX's ``_sample_impl`` takes them."""
         if radar_cube is None or not self.use_radar_cond:
             return None
-        return self.model.process_radar_cond(self._maybe_upsample(self._to_dev(radar_cube)))
+        x = self._to_dev(radar_cube, None)
+        if not self.frozen_radar_enc:
+            x = self._maybe_upsample(x)
+        return self.model.process_radar_cond(x)
 
     def _schedule(self):
         kw = self.sampler_kwargs
@@ -280,7 +324,7 @@ class GenerationEngine:
         the activation-scale table. ``capture_states`` as in
         :func:`edm_sampler`."""
         m = self.model
-        latents = sample_prior_latents(seeds_or_prior, m.n_latents, m.channels, self.device)
+        latents = self.draw_prior(seeds_or_prior, m.n_latents, m.channels, self.device)
         _, table = self._schedule()
         acts = self._act_scales if self.use_int8_ff == "static" else None
 
@@ -336,6 +380,8 @@ class GenerationEngine:
             if prior is None:
                 bsz = len(batch["lidar_points"] if "lidar_points" in batch else cube)
                 prior = list(range(b * bsz, (b + 1) * bsz))
+            if cube is not None and self.frozen_radar_enc:
+                cube = self.encode_radar(cube)
             cond = self.condition(cube)
             _, (idxs, xs) = self.sample_from_cond(cond, prior, capture_states=True)
             for k, idx in enumerate(idxs.tolist()):
@@ -470,3 +516,302 @@ class GenerationEngine:
                 pred_un, pred_mask, gt_un, self._to_dev(surface_mask, torch.bool), self.fscore_tau
             )
         return loss, iou, acc, cd, f, n_pred
+
+    # ------------------------------------------------------- dataset eval
+    @torch.no_grad()
+    def _decode_hits(self, tokens, queries, h=None):
+        """Thresholded decode (JAX ``_decode_hits``): (B, Q) bool on the
+        device. ``h``: the tokens' decoder state, if already computed."""
+        if h is None:
+            h = self.vae.decode_latents(self._to_dev(tokens))
+        return self.vae.decode_queries(h, self._to_dev(queries)).squeeze(-1) > 0
+
+    @torch.no_grad()
+    def _sample_and_decode(self, radar_cube, seeds_or_prior, q_eval, grid, helper):
+        """JAX ``_sample_and_decode_impl``: sample -> decode the eval queries
+        (f32 logits) -> decode [grid ; helper] -> hits. The one (Q, 3) grid
+        is shared by every frame; ``helper``: optional (B, H, 3) per-frame
+        queries after it. Also returns the decoder state ``h``, which the
+        refine decode reuses (JAX recomputes it there: same numbers)."""
+        tokens = self.sample_tokens(radar_cube, seeds_or_prior)
+        h = self.vae.decode_latents(tokens)
+        q_eval = self._to_dev(q_eval)
+        logits_eval = self.vae.decode_queries(h, q_eval).squeeze(-1).float()
+        grid = self._to_dev(grid)
+        q_grid = grid[None].expand(q_eval.shape[0], *grid.shape)
+        if helper is not None:
+            q_grid = torch.cat([q_grid, self._to_dev(helper)], dim=1)
+        return tokens, logits_eval, self._decode_hits(None, q_grid, h), h
+
+    def _densify_helper_host(self, helper, helper_mask, rng_np):
+        """Host ``aug_query_helper`` over raw bucket-padded CFAR points: the
+        modular path's twin of the fused step's on-device densify (JAX
+        :477-498). A frame without CFAR points keeps zeros."""
+        lidar = self.cfg.dataset.lidar
+        aniso, iso = lidar.norm_anisotropy, lidar.norm_isotropy
+        aug_num = int(float(self.cfg.dataset.get("query_aug_num", 0)))
+        scale = int(self.cfg.dataset.get("query_aug_scale", 2))
+        dense = np.zeros((helper.shape[0], aug_num, 3), np.float32)
+        for i in range(helper.shape[0]):
+            raw = helper[i][helper_mask[i]]
+            if not len(raw):
+                continue
+            raw_un = geo.inverse_norm_points(raw, lidar.pc_range, aniso, iso)
+            dense[i] = geo.norm_points(
+                aug_query_helper(raw_un.astype(np.float32), aug_num, lidar.pc_range,
+                                 lidar.voxel_size, scale, rng_np),
+                lidar.pc_range, aniso, iso,
+            ).astype(np.float32)
+        return dense
+
+    def _fused_generator(self, it: int) -> torch.Generator:
+        """The fused path's device RNG for batch ``it`` (JAX draws from
+        ``fold_in(PRNGKey(seed + 11), it)``; torch's stream differs)."""
+        seed = int(np.random.SeedSequence([self.seed + 11, it]).generate_state(1)[0])
+        return torch.Generator(self.device).manual_seed(seed)
+
+    @torch.no_grad()
+    def evaluate(self, loader, use_ema: bool = False, print_fn=print, stage_timer=None) -> dict:
+        """The dataset eval loop (JAX ``evaluate``, reference
+        engine_generation.py:138-355) over ``loader``'s batches, with the
+        engine's weights; returns the mean ``loss`` / ``iou`` /
+        ``accuracy`` / ``cd`` / ``fscore`` (-1 where a mode skips them).
+
+        Each batch of ``B`` frames samples from prior seeds ``it*B ..
+        it*B+B-1`` (through :attr:`draw_prior`). The one-step fused path
+        (:meth:`fused_eval_step`) runs unless ``eval.store_pc`` /
+        ``store_latent`` dump, ``use_pred_latent`` decodes stored latents,
+        ``test_sample_speed`` times the sampler alone or ``iou_test_only``
+        scores the surface only; those take the modular path: sample and
+        decode on the card, the query grid, the CFAR helper densify, the
+        threshold and the refine jitter on the host, all drawn from one
+        ``np.random.default_rng(seed)`` in JAX's order (grid, helper frame
+        by frame, refine frame by frame), then one batched Chamfer call.
+        PLY files go to ``store_base_dir/exp_name/<seq>/<save_pc_dir_name>/
+        <frame>.ply``, with ``seq`` the radar path's great-grandparent.
+        ``use_ema`` only names the weights in the log: a reference ``.pth``
+        holds one set. ``stage_timer``: a :class:`StageTimer` that gets the
+        wall time of each stage (profiling only: it synchronises the card
+        at stage ends it blocks on).
+        """
+        st = stage_timer if stage_timer is not None else StageTimer(enabled=False)
+        cfg = self.cfg
+        print_fn(f"Using {'EMA' if use_ema else 'model'} parameters for evaluation")
+        ev = cfg.get("eval", {})
+        inference = ev.get("inference", {})
+        eval_freq = int(ev.get("freq", 1) or 1)
+        iou_test_only = bool(ev.get("iou_test_only", False))
+        test_sample_speed = bool(ev.get("test_sample_speed", False))
+        skip_metric = bool(ev.get("skip_eval_metric", False))
+        use_pred_latent = bool(ev.get("use_pred_latent", False))
+        store_latent = bool(ev.get("store_latent", False))
+        store_pc = bool(ev.get("store_pc", False))
+        num_query = int(inference.get("num_query_points", 500000))
+        use_helper = bool(inference.get("query_helper", False))
+        refine_query = bool(inference.get("refine_query", False))
+
+        lidar = cfg.dataset.lidar
+        aniso, iso = lidar.norm_anisotropy, lidar.norm_isotropy
+        use_cart_query = bool(ev.get("use_cart_query", False))
+        rng_np = np.random.default_rng(self.seed)
+        logger = MetricLogger(print_fn=print_fn)
+
+        def make_grid():
+            return build_query_grid(lidar, num_query, use_cart_query, rng_np)
+
+        def timed_iter(src):
+            src = iter(src)
+            while True:
+                with st("loader"):
+                    try:
+                        batch = next(src)
+                    except StopIteration:
+                        return
+                yield batch
+
+        for it, batch in enumerate(logger.log_every(timed_iter(loader), 20, "Test:")):
+            if it % eval_freq != 0:
+                continue
+            surface = np.asarray(batch["lidar_points"])
+            bsz = surface.shape[0]
+            # bucket-padded ragged eval: real per-frame counts for GT slicing
+            pts_num = np.asarray(batch.get("points_num", [surface.shape[1]] * bsz), np.int64)
+            seeds = list(range(it * bsz, it * bsz + bsz))
+            radar_cube = None
+            if self.use_radar_cond:
+                with st("radar_encode"):
+                    radar_cube = self._to_dev(batch["radar_cube"])
+                    if self.frozen_radar_enc:
+                        radar_cube = st.block(self.encode_radar(radar_cube))
+
+            fused = not (use_pred_latent or test_sample_speed or iou_test_only)
+            # the one-step path keeps refine and Chamfer on the card; the
+            # dump modes need the clouds on the host and run modular below
+            if fused and not (store_pc or store_latent):
+                with st("make_grid"):
+                    grid = make_grid() if use_cart_query else None
+                helper = helper_mask = None
+                if use_helper and "helper_points" in batch:
+                    helper = np.asarray(batch["helper_points"], np.float32)
+                    if "helper_mask" in batch:  # raw CFAR points -> device densify
+                        helper_mask = np.asarray(batch["helper_mask"], bool)
+                labels_np = np.asarray(batch["query_labels"], np.float32)
+                qmask_np = (np.asarray(batch["query_mask"], np.float32)
+                            if "query_mask" in batch else None)
+                smask = np.arange(surface.shape[1])[None] < pts_num[:, None]
+                with st("fused_eval_step"):
+                    loss, iou, acc, cds, fs, _ = st.block(self.fused_eval_step(
+                        radar_cube, seeds, batch["query_points"], labels_np,
+                        labels_np if qmask_np is None else qmask_np, grid,
+                        self._fused_generator(it), helper, helper_mask, surface, smask,
+                        has_mask=qmask_np is not None, compute_cd=not skip_metric,
+                        refine=refine_query, helper_aug=helper_mask is not None,
+                        use_device_grid=not use_cart_query,
+                    ))
+                with st("metrics_readback"):
+                    logger.update(loss=float(loss), iou=float(iou), accuracy=float(acc))
+                    if not skip_metric:
+                        logger.update(cd=float(cds.float().mean()), fscore=float(fs.float().mean()))
+                    else:
+                        logger.update(cd=-1.0, fscore=-1.0)
+                continue
+
+            grid_hits = grid_b = helper = h = None
+            if fused:
+                with st("make_grid"):
+                    grid = make_grid()
+                if use_helper and "helper_points" in batch:
+                    helper = np.asarray(batch["helper_points"], np.float32)
+                    if "helper_mask" in batch:
+                        # raw CFAR points, densified on the host on this path
+                        with st("helper_densify"):
+                            helper = self._densify_helper_host(
+                                helper, np.asarray(batch["helper_mask"], bool), rng_np)
+                with st("sample_decode"):
+                    tokens, logits, grid_hits, h = st.block(self._sample_and_decode(
+                        radar_cube, seeds, batch["query_points"], grid, helper))
+                with st("hits_readback"):
+                    grid_hits = grid_hits.cpu().numpy()
+            elif use_pred_latent:
+                tokens = self._to_dev(np.asarray(batch["pred_latent"], np.float32))
+                if tokens.ndim == 4:  # reference .pt latents carry (1, M, D) per frame
+                    tokens = tokens.squeeze(1)
+            else:
+                tokens = self.sample_tokens(radar_cube, seeds)
+
+            if store_latent and "lidar_path" in batch:
+                base = Path(ev.store_base_dir) / ev.exp_name
+                for i in range(bsz):
+                    seq = Path(batch["lidar_path"][i]).parent.parent.name
+                    d = base / seq / "latent_tokens"
+                    d.mkdir(parents=True, exist_ok=True)
+                    np.save(d / (Path(batch["radar_path"][i]).stem + ".npy"),
+                            tokens[i].float().cpu().numpy())
+
+            if test_sample_speed:
+                self._sync()
+                logger.update(loss=-1.0, iou=-1.0)
+                continue
+
+            # loss/IoU on the eval query set (or the surface for iou_test_only)
+            if not fused:
+                logits = self.decode_queries(tokens, surface if iou_test_only
+                                             else batch["query_points"])
+            with st("eval_metrics"):
+                labels = self._to_dev(batch["query_labels"])
+                qmask = None
+                if iou_test_only and "lidar_mask" in batch:  # surface-query mode
+                    qmask = self._to_dev(batch["lidar_mask"])
+                elif "query_mask" in batch:  # bucket-padded ragged eval
+                    qmask = self._to_dev(batch["query_mask"])
+                loss, iou, acc = self.eval_metrics(
+                    logits, labels, labels if qmask is None else qmask, has_mask=qmask is not None)
+                logger.update(loss=float(loss), iou=float(iou), accuracy=float(acc))
+
+            if iou_test_only:
+                continue
+
+            # uniform grid (+ helper points) -> thresholded point cloud -> CD
+            if grid_hits is None:  # use_pred_latent: the grid decoded per frame
+                grid = make_grid()
+                grid_b = np.broadcast_to(grid, (bsz, num_query, 3)).copy()
+                if use_helper and "helper_points" in batch:
+                    helper = np.asarray(batch["helper_points"], np.float32)
+                    grid_b = np.concatenate([grid_b, helper], axis=1)
+                grid_hits = self._decode_hits(tokens, grid_b).cpu().numpy()
+
+            def frame_positives(i):
+                """Host coordinates of frame i's hit queries."""
+                m = grid_hits[i]
+                if grid_b is not None:
+                    return grid_b[i][m]
+                pos = grid[m[:num_query]]
+                if helper is not None:
+                    pos = np.concatenate([pos, helper[i][m[num_query:]]], axis=0)
+                return pos
+
+            # threshold per frame, then one batched refine decode; the refine
+            # jitter draws from rng_np frame by frame
+            preds = []
+            if refine_query:
+                refine_n = int(float(inference.refine_query_aug_num))
+                refined_norm = np.zeros((bsz, refine_n, 3), np.float32)
+                do_refine = np.zeros(bsz, dtype=bool)
+            for i in range(bsz):
+                with st("threshold_invnorm"):
+                    pos = frame_positives(i)
+                    pred = geo.inverse_norm_points(pos, lidar.pc_range, aniso, iso)
+                if refine_query and len(pred):
+                    with st("refine_aug"):
+                        refined = aug_query_helper(
+                            pred, refine_n, lidar.pc_range, lidar.voxel_size,
+                            int(inference.refine_query_scale), rng_np,
+                        )
+                        refined_norm[i] = geo.norm_points(
+                            refined, lidar.pc_range, aniso, iso).astype(np.float32)
+                        do_refine[i] = True
+                preds.append(pred)
+            if refine_query and do_refine.any():
+                with st("refine_decode"):
+                    r_hits = self._decode_hits(tokens, refined_norm, h).cpu().numpy()
+                with st("refine_post"):
+                    for i in range(bsz):
+                        if do_refine[i]:
+                            preds[i] = geo.inverse_norm_points(
+                                refined_norm[i][r_hits[i]], lidar.pc_range, aniso, iso)
+
+            preds_xyz, gts_xyz = [], []
+            for i in range(bsz):
+                pred = preds[i]
+                with st("gt_prep"):
+                    gt = geo.inverse_norm_points(
+                        surface[i, : pts_num[i]], lidar.pc_range, aniso, iso)
+                    if lidar.get("view_cone_mode", False):
+                        pred = geo.polar2cartesian(pred) if len(pred) else pred.reshape(0, 3)
+                        gt = geo.polar2cartesian(gt)
+                preds_xyz.append(pred)
+                gts_xyz.append(gt)
+
+                if store_pc and "radar_path" in batch:
+                    with st("store_pc"):
+                        seq = Path(batch["radar_path"][i]).parent.parent.parent.name
+                        d = Path(ev.store_base_dir) / ev.exp_name / seq / ev.get(
+                            "save_pc_dir_name", "pred_pc")
+                        write_ply(d / (Path(batch["radar_path"][i]).stem + ".ply"), pred)
+            if skip_metric:
+                cds, fscores = [-1.0] * bsz, [-1.0] * bsz
+            else:
+                with st("chamfer"):
+                    cds, fscores = chamfer_and_fscore_batch(
+                        preds_xyz, gts_xyz, self.fscore_tau, device=self.device)
+            logger.update(cd=float(np.mean(cds)), fscore=float(np.mean(fscores)))
+
+        logger.synchronize_between_processes()
+        stats = logger.averages()
+        print_fn(
+            "* iou {iou:.3f} loss {loss:.3f} cd {cd:.3f} fscore {f:.3f}".format(
+                iou=stats.get("iou", -1.0), loss=stats.get("loss", -1.0),
+                cd=stats.get("cd", -1.0), f=stats.get("fscore", -1.0),
+            )
+        )
+        return stats

@@ -3,7 +3,8 @@ modules it runs on: ``process_radar_cube`` and ``build_query_grid``
 bitwise against rald_tpu's, ``write_ply`` byte-identical to rald_tpu's,
 the CLI end to end on the CPU with the tiny test config (files, directory
 mirroring, pad-last batching, point counts), and the engine options it
-honours (checkpoints, ``eval.cast_params_bf16``, ``fast_inference``)."""
+honours (``.pth`` checkpoints, the frozen radar encoder,
+``eval.cast_params_bf16``, ``fast_inference``)."""
 import numpy as np
 import pytest
 import torch
@@ -134,15 +135,62 @@ def test_cli_preprocessed_npz_and_empty_input(tmp_path):
 
 
 def test_cli_refuses_checkpoints_it_cannot_read(tmp_path):
+    """Missing checkpoints warn (seeded random weights stand in, as in JAX);
+    an orbax checkpoint directory raises."""
     from rald_torch.cli import infer
 
     lines = []
-    infer.check_checkpoints(_cli_cfg(tmp_path, ckpt=str(tmp_path / "missing")), lines.append)
-    assert lines == ["WARNING: eval.ckpt missing — sampling with random weights",
-                     "WARNING: lidar_ae.ckpt missing — using randomly initialized frozen VAE"]
+    _raw_cubes(tmp_path / "in", {"s": 1})
+    infer.run(_cli_cfg(tmp_path, ckpt=str(tmp_path / "missing")), str(tmp_path / "in"),
+              str(tmp_path / "o"), device="cpu", print_fn=lines.append)
+    assert lines[:2] == ["WARNING: eval.ckpt missing — sampling with random weights",
+                         "WARNING: lidar_ae.ckpt missing — using randomly initialized frozen VAE"]
     (tmp_path / "ckpt").mkdir()
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        infer.check_checkpoints(_cli_cfg(tmp_path, ckpt=str(tmp_path / "ckpt")), lines.append)
+        infer.run(_cli_cfg(tmp_path, ckpt=str(tmp_path / "ckpt")), str(tmp_path / "in"),
+                  str(tmp_path / "o"), device="cpu", print_fn=lines.append)
+
+
+def test_cli_reads_pth_checkpoints_and_the_frozen_encoder(tmp_path):
+    """``eval.ckpt`` / ``lidar_ae.ckpt`` / ``radar_enc.ckpt`` as reference
+    ``.pth`` files, with the frozen radar encoder: the CLI loads them and
+    encodes each cube before sampling, as JAX's CLI does; its clouds are
+    those of an engine given the same weights by hand."""
+    from rald_torch.cli import infer
+    from rald_torch.eval.ply import read_ply
+    from rald_torch.train.checkpoint import save_torch_checkpoint
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    def frozen_cfg(**ev):
+        cfg = _cli_cfg(tmp_path, **ev)
+        cfg.ar_model.configs.unfreeze_radar_enc = False
+        cfg.radar_enc = {"name": "ae_ch16_mult5_n2_d16", "overrides": {"embed_dim": 4}}
+        return cfg
+
+    src = GenerationEngine(frozen_cfg(), device="cpu", seed=3)
+    with torch.no_grad():
+        src.vae.to_outputs.bias += 0.05
+    ckpt = {"ckpt": str(save_torch_checkpoint(tmp_path / "edm.pth", src.model.state_dict()))}
+    cfg = frozen_cfg(**ckpt)
+    cfg.lidar_ae.ckpt = str(save_torch_checkpoint(tmp_path / "vae.pth", src.vae.state_dict()))
+    cfg.radar_enc.ckpt = str(save_torch_checkpoint(tmp_path / "ae.pth", {
+        **src.radar_enc.state_dict(), "decoder.conv_out.weight": torch.zeros(1, 8, 3, 3, 3)}))
+    _raw_cubes(tmp_path / "in", {"s": 3})
+    lines = []
+    stats = infer.run(cfg, str(tmp_path / "in"), str(tmp_path / "out"), batch=2, device="cpu",
+                      print_fn=lines.append)
+    assert lines[:3] == [f"Loaded generation checkpoint from {cfg.eval.ckpt}",
+                         f"Loaded frozen VAE from {cfg.lidar_ae.ckpt}",
+                         f"Loaded frozen radar encoder from {cfg.radar_enc.ckpt}"]
+    assert "decoder.conv_out.weight" in lines[3]
+    files = infer.collect_inputs(str(tmp_path / "in"))
+    cubes = np.stack([infer.preprocess(infer.load_cube(f), cfg.dataset.radar) for f in files])
+    grid = infer.query_grid(cfg)
+    tokens = src.sample_tokens(src.encode_radar(cubes), [0, 1, 2])
+    want = (src.decode_queries(tokens, np.broadcast_to(grid, (3,) + grid.shape)) > 0).sum(1)
+    assert stats["points"] == want.tolist() and 0 < sum(stats["points"]) < 3 * len(grid)
+    for f, n in zip(infer.output_paths(files, tmp_path / "out"), stats["points"]):
+        assert len(read_ply(f)) == n
 
 
 def test_cast_params_bf16_rounds_the_weights(tmp_path):
