@@ -74,6 +74,31 @@ Phases, each printed before the last line:
    peak memory. Then the modular evaluate at depth 2 in f32 on the card
    and on the CPU (plain versions), same weights and numpy prior: loss /
    IoU / accuracy and the PLY point count must agree.
+7. training: the train entry point ``main_generation.run`` (and
+   ``main_cache.run``) over a synthetic ColoRadar tree at the product raw
+   shapes (3 train sequences of 8 frames, 16000 LiDAR points a frame, and
+   one 2-frame test scene), with phase 6's VAE and radar-encoder ``.pth``
+   files as the frozen weights. (a) ``ge_indoor_unfreeze_enc_ints_only.yml``
+   as shipped (bf16, batch 8, full width, JAX-init DiT weights), cut to 2
+   epochs of 3 steps, ``save_ckpt_freq: 1``, ``eval_freq: 2`` on the test
+   scene: finite losses and norms, step 6, the EMA moved away from its
+   start and from the params, ``checkpoint-0/1.pth`` written and read back
+   bitwise, no kernel launch over the 6 train steps and exactly 864 of row 1
+   and 1 of row 2 per eval batch; a resumed run from ``checkpoint-0.pth``
+   trains epoch 1 only, its loss within ``RESUME_LOSS_REL`` of the
+   uninterrupted run's; the eval CLI's loader with ``use_ema`` puts the
+   EMA weights into the eval model. (d) Its timing: median step ms of 6
+   warm steps, frames/s, the synchronised split (``vae_encode``,
+   ``upsample``, ``forward_backward``, ``optimizer``), peak memory, and the
+   device idle share of 3 steps under ``torch.profiler``. (b) The same path
+   at depth 2 (DiT and VAE), float32 with ``matmul_precision: highest``,
+   batch 2: 3 steps on the card and on the CPU from the same weights, batch
+   and injected draws: loss and ``grad_norm`` within 1e-4 relative, step
+   1's gradients within 1e-4 of each tensor's max |g| (floored at 1e-2 of
+   the largest: exactly-zero gradients are rounding noise), params and EMA
+   after 3 steps within 3 * lr. (c) ``ge_indoor_frozen_enc_ints_only.yml``
+   for one epoch, ``main_cache`` over the train split, and one epoch from
+   the cache. Checkpoints are deleted at the end of each run.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -1222,6 +1247,29 @@ def attn_breakdown(batches=(1, 8)) -> list:
     return lines
 
 
+def _device_busy_us(prof) -> tuple:
+    """(union of the device kernels' intervals in microseconds, their count,
+    the 8 kernels with the most device time as {name: ms}). User
+    annotations on the device timeline (``Optimizer.step#AdamW.step``
+    spans the optimizer's kernels and the gaps between them) are no
+    kernels and are left out."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return busy, len(spans), {k[:80]: v / 1e3 for k, v in top}
+
+
 def trace_sample(batches=(1, 8), fused_attn: bool = False, int8_ff=False, int8_attn=False) -> list:
     """One-off, outside the default run: where the product sampler's time
     goes, as shipped or in one of the kernel modes (``use_fused_attn``, or
@@ -1233,7 +1281,6 @@ def trace_sample(batches=(1, 8), fused_attn: bool = False, int8_ff=False, int8_a
 
         python3 -c "import chip_smoke as c; c.trace_sample(int8_ff=True, int8_attn='vout')"
     """
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from rald_torch.train.gen_engine import GenerationEngine
@@ -1259,22 +1306,11 @@ def trace_sample(batches=(1, 8), fused_attn: bool = False, int8_ff=False, int8_a
             eng.sample_tokens(cube, seeds)
             torch.cuda.synchronize()
             traced = (time.perf_counter() - t0) * 1e3
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        busy, end = 0.0, -math.inf
-        for a, b in spans:  # union of the kernel intervals, microseconds
-            if b > end:
-                busy += b - max(a, end)
-                end = b
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        busy, n_kernels, top = _device_busy_us(prof)
         line = {"mode": mode, "batch": bsz,
                 "wall_ms": wall, "traced_wall_ms": traced, "device_busy_ms": busy / 1e3,
-                "device_idle_share": 1.0 - busy / 1e3 / wall, "kernels": len(spans),
-                "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+                "device_idle_share": 1.0 - busy / 1e3 / wall, "kernels": n_kernels,
+                "top_kernels_ms": top,
                 "nvidia_smi": smi_line()}
         print("[trace_sample] " + json.dumps(line))
         lines.append(line)
@@ -2033,6 +2069,365 @@ def phase_eval() -> dict:
     return runs
 
 
+# --------------------------------------------------------------- phase 7
+TRAIN_CFG = REPO / "configs" / "generation" / "ge_indoor_unfreeze_enc_ints_only.yml"
+TRAIN_DIR = SCRATCH / "train"  # tree, outputs and checkpoints of the training phase
+TRAIN_TREE = TRAIN_DIR / "coloradar"
+TRAIN_SEQS, TRAIN_FRAMES, TEST_FRAMES = 3, 8, 2
+# resume: the epoch-1 loss of the resumed run against the uninterrupted run's
+# (the draws and the batch order depend on (seed, epoch, step) only, and the
+# restored state is bitwise; only nondeterministic cuDNN / atomics
+# reductions in the backward can move it), stated before the first run
+RESUME_LOSS_REL = 1e-3
+
+
+def _train_tree() -> None:
+    """A synthetic ColoRadar tree at the product's raw shapes (radar (128, 8,
+    2), 16000 LiDAR and 512 raw CFAR points a frame): 3 train sequences of 8
+    frames and one test sequence of 2 (written apart and moved in), with
+    ``split_train.json`` naming it as val and test."""
+    import shutil
+
+    from rald_torch.data.synthetic import make_synthetic_coloradar
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    make_synthetic_coloradar(TRAIN_TREE, num_train_seqs=TRAIN_SEQS, num_eval_seqs=0,
+                             frames_per_seq=TRAIN_FRAMES, points_per_frame=16000,
+                             radar_shape=(128, 8, 2), helper_points=512, seed=31)
+    make_synthetic_coloradar(TRAIN_DIR / "test_tree", num_train_seqs=0, num_eval_seqs=1,
+                             frames_per_seq=TEST_FRAMES, points_per_frame=16000,
+                             radar_shape=(128, 8, 2), helper_points=512, seed=32)
+    test = json.loads((TRAIN_DIR / "test_tree" / "split_synth.json").read_text())["test"][0]
+    shutil.move(str(TRAIN_DIR / "test_tree" / test), str(TRAIN_TREE / "synth_test"))
+    train = json.loads((TRAIN_TREE / "split_synth.json").read_text())["train"]
+    (TRAIN_TREE / "split_train.json").write_text(
+        json.dumps({"train": train, "val": ["synth_test"], "test": ["synth_test"]}))
+
+
+def _train_cfg(path: Path, label: str, **train):
+    """A shipped training YAML pointed at the synthetic tree, outputs under
+    build/: ``cache_voxel: false``, ``train`` keys replaced, the frozen
+    VAE and radar encoder from phase 6's ``.pth`` files."""
+    from rald_torch.config import load_config
+
+    cfg = load_config(path)
+    out = TRAIN_DIR / label
+    cfg.dataset.root_dir = str(TRAIN_TREE)
+    cfg.dataset.split_file = "split_train.json"
+    cfg.dataset.lidar.cache_voxel = False
+    cfg.system.update(output_dir=str(out / "result"), log_dir=str(out / "log"))
+    cfg.train.update({"epochs": 2, "save_ckpt_freq": 1, "eval_freq": 2, **train})
+    cfg.lidar_ae.cache_path = str(TRAIN_DIR / "latent_cache")
+    ckpt = SCRATCH / "eval" / "ckpt"
+    cfg.lidar_ae.ckpt = str(ckpt / ("frozen_vae.pth" if path == FROZEN_CFG else "unfrozen_vae.pth"))
+    cfg.radar_enc.ckpt = str(ckpt / "frozen_radar_ae.pth")
+    return cfg
+
+
+def _phase6_weights() -> None:
+    """Phase 6's ``.pth`` files, written here when phase 7 runs alone."""
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    d = SCRATCH / "eval" / "ckpt"
+    for label, path in (("unfrozen", PRODUCT_CFG), ("frozen", FROZEN_CFG)):
+        if not (d / f"{label}_vae.pth").exists():
+            eng = GenerationEngine(_eval_cfg(path, label))
+            _save_weights(eng, label)
+            del eng
+
+
+def _records(cfg) -> list:
+    return [json.loads(l) for l in (Path(cfg.system.output_dir) / "log.txt").read_text().splitlines()]
+
+
+def _counted(eng, name: str, deltas: list):
+    """Wrap ``eng.<name>`` so each call appends the launch counts it moved."""
+    from rald_torch.ops import launch_counts
+
+    fn = getattr(eng, name)
+
+    def wrapped(*a, **k):
+        before = launch_counts()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        deltas.append({n: c - before[n] for n, c in launch_counts().items()})
+        return out
+
+    setattr(eng, name, wrapped)
+
+
+def _train_product() -> dict:
+    """(a) the shipped training YAML at full width through
+    ``main_generation.run``: 2 epochs of 3 steps, a checkpoint an epoch,
+    EMA evaluation after epoch 2 on the 2-frame test scene; then the
+    resume from ``checkpoint-0.pth`` and the eval CLI's EMA load."""
+    from rald_torch.cli import main_generation as mg
+    from rald_torch.ops import reset_launch_counts
+    from rald_torch.train.checkpoint import CheckpointManager
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    cfg = _train_cfg(TRAIN_CFG, "product")
+    cfg.eval.use_test_set = True
+    eng = GenerationEngine(cfg)
+    captured, train_d, eval_d = {}, [], []
+    init = eng.init_state
+
+    def init_state(*a):
+        st = captured["state"] = init(*a)
+        captured["start"] = {k: v.detach().clone() for k, v in st.params.items()}
+        return st
+
+    eng.init_state = init_state
+    _counted(eng, "train_one_epoch", train_d)
+    _counted(eng, "evaluate", eval_d)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    mg.run(cfg, engine=eng, print_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st, records = captured["state"], _records(cfg)
+    out = Path(cfg.system.output_dir)
+    for r in records:
+        check(math.isfinite(r["train_loss"]) and math.isfinite(r["train_grad_norm"]),
+              f"train: non-finite record {r}")
+    check([r["epoch"] for r in records] == [0, 1], f"train: epochs {records}")
+    check("val_loss" in records[1] and math.isfinite(records[1]["val_loss"]),
+          f"train: eval record {records[1]}")
+    check(st.step == 2 * 3 and st.count == 6, f"train: step {st.step}, count {st.count}")
+    for k in ("model.proj_out.weight", "model.transformer_blocks.0.ff.net.0.proj.weight"):
+        ema, p, p0 = st.ema_params[k], st.params[k], captured["start"][k]
+        check(not torch.equal(ema, p0) and not torch.equal(ema, p), f"train: EMA of {k} did not move")
+    check(all((out / f"checkpoint-{e}.pth").exists() for e in (0, 1)), "train: checkpoints missing")
+    check(all(all(v == 0 for v in d.values()) for d in train_d),
+          f"train: kernels launched over the train steps {train_d}")
+    n_eval = TEST_FRAMES  # eval_batch_size 1
+    want = {n: 0 for n in KERNEL_NAMES}
+    want.update(fused_ln_geglu_residual=864 * n_eval, nn_min_sq_both=n_eval)
+    check(len(eval_d) == 1, f"train: {len(eval_d)} evaluations")
+    _check_counts(eval_d[0], want, "train-mode eval")
+
+    # save -> restore round trip, bitwise
+    fresh = eng.init_state(3, 8)
+    CheckpointManager(out).restore(fresh, out / "checkpoint-1.pth")
+    a, b = st.opt_state(), fresh.opt_state()
+    for k in st.params:
+        for x, y in ((st.params[k], fresh.params[k]), (st.ema_params[k], fresh.ema_params[k]),
+                     (a["mu"][k], b["mu"][k]), (a["nu"][k], b["nu"][k])):
+            check(torch.equal(x, y), f"train: checkpoint round trip differs at {k}")
+    check(fresh.step == st.step and fresh.count == st.count, "train: round trip counters")
+    # the eval CLI's loader with use_ema: the EMA weights, in the eval dtype
+    eval_cfg = _train_cfg(TRAIN_CFG, "product")
+    eval_cfg.system.mode, eval_cfg.eval.ckpt = "eval", str(out / "checkpoint-1.pth")
+    mg.load_eval_checkpoint(eval_cfg, eng, print_fn=lambda *_: None)
+    got = eng.model.state_dict()
+    check(all(torch.equal(got[k], v.to(got[k])) for k, v in st.ema_params.items()),
+          "train: eval.ckpt with use_ema did not load the EMA weights")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del fresh
+    captured.clear()
+    torch.cuda.empty_cache()
+
+    # resume from checkpoint-0: epoch 1 only, its loss as the uninterrupted run's
+    rcfg = _train_cfg(TRAIN_CFG, "resumed", resume=str(out / "checkpoint-0.pth"))
+    rcfg.eval.use_test_set = True
+    lines = []
+    t0 = time.perf_counter()
+    mg.run(rcfg, engine=eng, print_fn=lines.append)
+    resume_s = time.perf_counter() - t0
+    rrec = _records(rcfg)
+    check([r["epoch"] for r in rrec] == [1] and "resumed from epoch 0" in lines,
+          f"train resume: records {rrec}")
+    la, lb = records[1]["train_loss"], rrec[0]["train_loss"]
+    check(abs(la - lb) <= RESUME_LOSS_REL * abs(la), f"train resume: loss {lb} vs {la}")
+    line = {"mode": "product train", "wall_s": wall, "steps": st.step,
+            "records": records, "resumed_record": rrec[0], "resume_wall_s": resume_s,
+            "resume_loss_rel_diff": abs(la - lb) / abs(la), "peak_gib": peak,
+            "train_step_launches": {k: sum(d[k] for d in train_d) for k in KERNEL_NAMES},
+            "eval_launches_per_batch": {k: v // n_eval for k, v in eval_d[0].items() if v},
+            "device": smi_line()}
+    print("[train] " + json.dumps(line))
+    for label in ("product", "resumed"):
+        for f in (TRAIN_DIR / label / "result").glob("checkpoint-*.pth"):
+            f.unlink()
+    # the resumed run's state, which the engine's training model belongs to
+    return {"line": line, "engine": eng, "state": captured["state"], "cfg": cfg}
+
+
+def _train_card_vs_cpu() -> dict:
+    """(b) the training path at depth 2 (DiT and VAE), width unchanged, in
+    float32 with ``matmul_precision: highest``, batch 2: 3 steps on the card
+    and on the CPU from the same JAX-init weights, the same batch and the
+    same injected draws (posterior noise, sigma, noise)."""
+    from rald_torch import apply_matmul_precision
+    from rald_torch.cli import main_generation as mg
+    from rald_torch.train.gen_engine import GenerationEngine
+    from rald_torch.train.state import global_norm
+
+    apply_matmul_precision("highest")
+    bsz, steps = 2, 3
+    runs = {}
+    batch = None
+    for device in ("cuda", "cpu"):
+        cfg = _train_cfg(TRAIN_CFG, f"f32_{device}")
+        cfg.system.compute_dtype = "float32"
+        cfg.dataset.batch_size = bsz
+        for sec in (cfg.ar_model, cfg.lidar_ae):
+            sec.overrides = {**(sec.get("overrides") or {}), "depth": 2}
+        eng = GenerationEngine(cfg, device=device)
+        state = eng.init_state(steps, bsz)
+        if batch is None:
+            batch = next(iter(mg.build_train_loader(cfg, print_fn=lambda *_: None)))
+        rng = np.random.default_rng(41)
+        t0 = time.perf_counter()
+        out = {"loss": [], "grad_norm": []}
+        shape = (bsz, eng.vae.num_latents, eng.vae.latent_dim)
+        for k in range(steps):
+            eps = rng.standard_normal(shape).astype(np.float32)
+            rnd = torch.from_numpy(rng.standard_normal((bsz, 1, 1)).astype(np.float32)).to(device)
+            noise = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+            latents, cube = eng.prepare_inputs(batch, eps=eps)
+            if k == 0:
+                loss, grads = eng.loss_and_grads(latents, cube, rnd=rnd, noise=noise)
+                out["grads"] = {n: g.cpu() for n, g in grads.items()}
+                metrics = {"loss": loss, "grad_norm": global_norm(grads.values())}
+                state.apply_gradients(grads)
+            else:
+                state, metrics = eng.train_step(state, latents, cube, rnd=rnd, noise=noise)
+            out["loss"].append(float(metrics["loss"]))
+            out["grad_norm"].append(float(metrics["grad_norm"]))
+        out["seconds"] = time.perf_counter() - t0
+        out["params"] = {n: v.cpu() for n, v in state.params.items()}
+        out["ema"] = {n: v.cpu() for n, v in state.ema_params.items()}
+        out["lr"] = eng.lr_schedule
+        runs[device] = out
+        del eng, state
+        torch.cuda.empty_cache()
+    card, cpu = runs["cuda"], runs["cpu"]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    loss_rel = max(rel(a, b) for a, b in zip(card["loss"], cpu["loss"]))
+    norm_rel = max(rel(a, b) for a, b in zip(card["grad_norm"], cpu["grad_norm"]))
+    gmax = max(float(g.abs().max()) for g in cpu["grads"].values())
+    grad_rel = max(float((card["grads"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-2 * gmax)
+                   for n, g in cpu["grads"].items())
+    lr = max(cpu["lr"](c) for c in range(steps + 1))
+    p_abs = max(float((card["params"][n] - v).abs().max()) for n, v in cpu["params"].items())
+    e_abs = max(float((card["ema"][n] - v).abs().max()) for n, v in cpu["ema"].items())
+    line = {"mode": "train card vs CPU, depth 2, f32 highest", "batch": bsz, "steps": steps,
+            "loss_card": card["loss"], "loss_cpu": cpu["loss"], "grad_norm_card": card["grad_norm"],
+            "grad_norm_cpu": cpu["grad_norm"], "max_loss_rel": loss_rel,
+            "max_grad_norm_rel": norm_rel, "max_grad_rel_of_tensor_max": grad_rel,
+            "lr": lr, "max_param_abs": p_abs, "max_ema_abs": e_abs,
+            "seconds_card": card["seconds"], "seconds_cpu": cpu["seconds"]}
+    print("[train] " + json.dumps(line))
+    check(loss_rel <= 1e-4 and norm_rel <= 1e-4, f"train card vs CPU: loss / norm {line}")
+    check(grad_rel <= 1e-4, f"train card vs CPU: gradients {grad_rel}")
+    check(p_abs <= 3 * lr and e_abs <= 3 * lr, f"train card vs CPU: params {p_abs}, EMA {e_abs}, lr {lr}")
+    torch.backends.cudnn.allow_tf32 = True  # torch's defaults again
+    torch.set_float32_matmul_precision("highest")
+    return line
+
+
+def _train_frozen_and_cache() -> dict:
+    """(c) the frozen-encoder YAML in train mode for one epoch; then
+    ``main_cache`` over the train split and one epoch from the cache."""
+    from rald_torch.cli import main_cache
+    from rald_torch.cli import main_generation as mg
+
+    out = {}
+    for label, path, extra in (("frozen_enc", FROZEN_CFG, {}),
+                               ("cache", TRAIN_CFG, {"use_cache_latent": True})):
+        if label == "cache":
+            t0 = time.perf_counter()
+            cache = main_cache.run(_train_cfg(TRAIN_CFG, "cache_write"), print_fn=lambda *_: None)
+            files = sorted(cache.glob("*/*.npz"))
+            check(len(files) == TRAIN_SEQS * TRAIN_FRAMES, f"main_cache: {len(files)} files")
+            out["cache_s"] = time.perf_counter() - t0
+            out["cache_files"] = len(files)
+        cfg = _train_cfg(path, label, epochs=1, eval_freq=0, **extra)
+        lines = []
+        t0 = time.perf_counter()
+        mg.run(cfg, print_fn=lines.append)
+        rec = _records(cfg)
+        check(len(rec) == 1 and math.isfinite(rec[0]["train_loss"]), f"train {label}: {rec}")
+        if label == "frozen_enc":
+            check(any(l.startswith("Loaded frozen radar encoder") for l in lines),
+                  f"train {label}: {[l for l in lines if 'radar' in l]}")
+        out[label] = {"wall_s": time.perf_counter() - t0, "record": rec[0]}
+        for f in Path(cfg.system.output_dir).glob("checkpoint-*.pth"):
+            f.unlink()
+        torch.cuda.empty_cache()
+    print("[train] " + json.dumps({"mode": "frozen encoder, cache", **out}))
+    return out
+
+
+def _train_timing(prod: dict) -> dict:
+    """(d) step time at (a)'s configuration, on (a)'s engine and state: the
+    median of 6 warm steps (each ended by a synchronise) and frames/s; the
+    synchronised split of 5 more; peak memory; and the device idle share of
+    3 steps traced by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rald_torch.cli import main_generation as mg
+
+    eng, st, cfg = prod["engine"], prod["state"], prod["cfg"]
+    batch = next(iter(mg.build_train_loader(cfg, print_fn=lambda *_: None)))
+    bsz = len(batch["lidar_points"])
+
+    def step(it, timings=None):
+        latents, cube = eng.prepare_inputs(batch, eng.step_generator(9, it, 99), timings=timings)
+        eng.train_step(st, latents, cube, eng.step_generator(9, it), timings=timings)
+        torch.cuda.synchronize()
+
+    for it in range(2):
+        step(it)
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for it in range(6):
+        t0 = time.perf_counter()
+        step(it)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    splits = []
+    for it in range(5):
+        t = {}
+        step(it, t)
+        splits.append(t)
+    split = {k: float(np.median([t[k] for t in splits])) for k in splits[0]}
+    t0 = time.perf_counter()
+    for it in range(3):
+        step(it)
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for it in range(3):
+            step(it)
+    busy, kernels, top = _device_busy_us(prof)
+    med = float(np.median(ms))
+    line = {"mode": "product train timing", "batch": bsz, "step_ms": ms, "median_step_ms": med,
+            "frames_per_s": bsz / med * 1e3, "split_ms": split, "peak_gib": peak,
+            "device_busy_ms_3_steps": busy / 1e3, "wall_ms_3_steps": wall,
+            "device_idle_share": 1.0 - busy / 1e3 / wall, "kernels_3_steps": kernels,
+            "top_kernels_ms_3_steps": top, "device": smi_line()}
+    print("[train] " + json.dumps(line))
+    return line
+
+
+def phase_train() -> dict:
+    """Training (phase 7): (a) product training, (d) its timing, (b) card
+    against CPU, (c) the frozen encoder and the latent cache."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("highest")
+    _phase6_weights()
+    _train_tree()
+    prod = _train_product()
+    timing = _train_timing(prod)
+    del prod["engine"], prod["state"]
+    torch.cuda.empty_cache()
+    ref = _train_card_vs_cpu()
+    cache = _train_frozen_and_cache()
+    return {"product": prod["line"], "timing": timing, "reference": ref, "frozen_cache": cache}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2056,6 +2451,9 @@ def main() -> int:
     t = time.perf_counter()
     eval_runs = phase_eval()
     print(f"[time] phase 6 (dataset eval) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    train = phase_train()
+    print(f"[time] phase 7 (training) {time.perf_counter() - t:.1f} s")
     # each kernel's launches in the runs of the mode that uses it: the main
     # path's eval step at batch 1 (and 8), or, for the two kernels no
     # inference chain reaches, the module / host API that does
@@ -2094,6 +2492,12 @@ def main() -> int:
                  "launches_per_batch": r["launches_per_batch"][k["name"]],
                  **({"split": r["nn_split"]} if k["name"] == "nn_min_sq_both" else {})}
                 for label in ("shipped", "fused", "frozen_enc") for r in eval_runs[label]]
+    # the training path (phase 7): launches over the 6 train steps (none:
+    # training runs the plain modules) and per batch of its EMA evaluation
+    for k in kernels:
+        k["train"] = {"train_steps": train["product"]["train_step_launches"][k["name"]],
+                      "train_eval_per_batch":
+                          train["product"]["eval_launches_per_batch"].get(k["name"], 0)}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,6 +14,11 @@ of ``convert_radar_encoder_state_dict`` (:165). Layout transforms:
 
 Inputs are nested dicts of numpy arrays (``jax.device_get`` of a param
 tree works); outputs are dicts of CPU tensors.
+
+:func:`train_state_from_flax` carries a JAX ``TrainState`` (params, EMA,
+the optax state, step) into the port's :class:`~rald_torch.train.state.TrainState`:
+every per-parameter tree (params, EMA, Adam's ``mu`` / ``nu``, the
+``MultiSteps`` accumulator) through :func:`edm_state_dict_from_flax`.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+    return torch.from_numpy(np.array(a))  # a contiguous, writable copy
 
 
 def _linear(p, prefix: str, out: dict) -> None:
@@ -147,3 +152,46 @@ def vae_state_dict_from_flax(params, depth: int = 24, query_type: str = "mix") -
         if name in params:
             _linear(params[name], name, out)
     return out
+
+
+_OPTAX_TREES = ("mu", "nu", "acc_grads")
+_OPTAX_COUNTERS = ("mini_step", "notfinite_count", "total_notfinite")
+
+
+def _optax_fields(opt_state, out: dict) -> dict:
+    """Walk an optax state (nested NamedTuples: ``MultiStepsState``,
+    ``ApplyIfFiniteState``, chain tuples, ``ScaleByAdamState``) and collect
+    Adam's ``count`` / ``mu`` / ``nu`` and the wrappers' counters by field
+    name."""
+    fields = getattr(opt_state, "_fields", None)
+    if fields is not None:
+        for name in fields:
+            v = getattr(opt_state, name)
+            if name in _OPTAX_TREES or name in _OPTAX_COUNTERS:
+                out.setdefault(name, v)
+            elif name == "count" and "mu" in fields:
+                out["count"] = v
+            else:
+                _optax_fields(v, out)
+    elif isinstance(opt_state, (tuple, list)):
+        for v in opt_state:
+            _optax_fields(v, out)
+    return out
+
+
+def train_state_from_flax(state, params, ema_params, opt_state, step, depth: int = 24):
+    """Load a JAX ``TrainState`` of an ``EDMPrecond`` (its ``params``,
+    ``ema_params``, ``opt_state`` and ``step`` as numpy trees, e.g. from
+    ``jax.device_get``) into the port's ``state`` in place; returns it.
+    Adam's ``count`` (the updates applied) becomes the schedule's count."""
+    f = _optax_fields(opt_state, {})
+    opt = {"count": int(np.asarray(f["count"])),
+           "mu": edm_state_dict_from_flax(f["mu"], depth),
+           "nu": edm_state_dict_from_flax(f["nu"], depth)}
+    for name in _OPTAX_COUNTERS:
+        if name in f:
+            opt[name] = np.asarray(f[name]).item()
+    if "acc_grads" in f:
+        opt["acc_grads"] = edm_state_dict_from_flax(f["acc_grads"], depth)
+    return state.load(edm_state_dict_from_flax(params, depth),
+                      edm_state_dict_from_flax(ema_params, depth), opt, int(np.asarray(step)))

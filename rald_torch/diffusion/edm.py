@@ -1,7 +1,8 @@
-"""EDM sigma schedule and churn-free Heun sampler (``rald_tpu/diffusion/edm.py``).
+"""EDM sigma schedule, churn-free Heun sampler and training loss
+(``rald_tpu/diffusion/edm.py``).
 
 :func:`karras_sigmas` (:35), :func:`stack_mod_table` / :func:`unstack_mods`
-(:62-82) and :func:`edm_sampler` (:85). The JAX ``lax.scan`` becomes a
+(:62-82), :func:`edm_sampler` (:85) and :func:`edm_loss` (:180). The JAX ``lax.scan`` becomes a
 Python loop: ``num_steps - 1`` Heun steps (2 NFEs each) and one final Euler
 step, 35 NFEs at 18 steps. Stochastic churn (``s_churn > 0``) is not part
 of the product config and is not ported yet: it raises.
@@ -106,3 +107,31 @@ def edm_sampler(
     seen.append((num_steps - 1, x))
     idxs = torch.tensor([i for i, _ in seen], dtype=torch.int64)
     return x_final, (idxs, torch.stack([s for _, s in seen]))
+
+
+def edm_loss(
+    denoise_fn: Callable,
+    y: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    rnd: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+    p_mean: float = -1.2,
+    p_std: float = 1.2,
+    sigma_data: float = 1.0,
+) -> torch.Tensor:
+    """EDM weighted denoising MSE (JAX ``edm_loss``): ``rnd ~ N(0, 1)`` of
+    shape (B, 1, 1), ``sigma = exp(rnd * p_std + p_mean)``, noise ``N(0, 1)
+    * sigma`` of ``y``'s shape, loss ``mean(weight * (D(y + n, sigma) -
+    y)^2)`` in float32 with ``weight = (sigma^2 + sigma_data^2) / (sigma *
+    sigma_data)^2``. The two unit-normal draws come from ``generator`` (on
+    ``y``'s device), in that order, unless given as ``rnd`` / ``noise``."""
+    dev = y.device
+    if rnd is None:
+        rnd = torch.randn((y.shape[0], 1, 1), generator=generator, device=dev)
+    if noise is None:
+        noise = torch.randn(y.shape, generator=generator, device=dev)
+    sigma = torch.exp(rnd.to(dev, torch.float32) * p_std + p_mean)
+    weight = (sigma ** 2 + sigma_data ** 2) / (sigma * sigma_data) ** 2
+    n = noise.to(dev, torch.float32) * sigma
+    d_yn = denoise_fn(y + n, sigma)
+    return torch.mean(weight * (d_yn - y.float()) ** 2)

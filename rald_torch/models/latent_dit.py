@@ -320,6 +320,12 @@ class EDMPrecond(nn.Module):
                 mod.int8 = {k: tree[f"{name}.{k}"] for k in ("ff", "attn1") if f"{name}.{k}" in tree}
 
     def forward(self, x, sigma, radar_cube=None):
+        """D(x; sigma) from a raw cube (or pre-encoded tokens): JAX's
+        ``EDMPrecond.__call__``, the function training differentiates. JAX
+        trains it with ``deterministic=False``, which changes nothing: the
+        DiT's attention and FF drop-path rates and the radar encoder's
+        dropout are 0 (``rald_tpu/nn/layers.py:99,155``,
+        ``radar_encoder3d.py:41``), so this model has no dropout."""
         cond = (
             self.process_radar_cond(radar_cube)
             if (self.cond_type == "radar" and radar_cube is not None) else None

@@ -1,12 +1,13 @@
-"""Point-cloud VAE, decode side (``rald_tpu/models/vecset_vae.py``).
+"""Point-cloud VAE (``rald_tpu/models/vecset_vae.py``).
 
 :class:`VecSetVAE` declares every parameter of the reference
-``KLAutoEncoder`` (encoder included, in its torch key layout), so its
-``state_dict`` is complete and round-trips through
+``KLAutoEncoder`` in its torch key layout, so its ``state_dict`` is
+complete and round-trips through
 ``rald_tpu.convert.torch_ckpt.convert_vae_state_dict``. It computes the
-decode: ``decode_latents`` (:204), ``decode_queries`` (:213-239) and the
-folded decode ``_decode_queries_folded`` (:251-301). ``encode`` comes in a
-later slice.
+encode (``_latent_queries`` and ``encode``, :156-202: ``mix``,
+``learnable`` or FPS ``point`` queries, the KL posterior) and the decode:
+``decode_latents`` (:204), ``decode_queries`` (:213-239) and the folded
+decode ``_decode_queries_folded`` (:251-301).
 
 JAX's inference flags, with its names and defaults: ``use_fused_ff`` runs
 each self-attention block's FF sublayer (LayerNorm + GEGLU FF + residual)
@@ -25,6 +26,7 @@ import torch
 from torch import nn
 
 from rald_torch.nn.layers import Attention, GEGLUFeedForward, LayerNorm, PointEmbed
+from rald_torch.ops.fps import fps_points
 from rald_torch.ops.geglu_kernel import fused_ln_geglu_residual
 from rald_torch.ops.query_attention import map_query_chunks
 
@@ -136,6 +138,49 @@ class VecSetVAE(nn.Module):
                 for block in self.layers:
                     block.use_fused_ff = v
                     block[1].fn.use_fused = v
+
+    def _latent_queries(self, pc: torch.Tensor, pc_embeddings: torch.Tensor) -> torch.Tensor:
+        """(B, M, dim) encoder queries: the point embeddings of M FPS points
+        (``point``), the learned table (``learnable``), or the static table
+        plus the dynamic table attending to the cloud, jointly projected
+        (``mix``; the context is not normed)."""
+        b, m, dim = pc.shape[0], self.num_latents, self.dim
+        if self.query_type == "point":
+            return self.point_embed(fps_points(pc, m))
+        if self.query_type == "learnable":
+            return self.latents.weight.to(self.dtype).expand(b, m, dim)
+        static_q = self.s_latents.weight.to(self.dtype).expand(b, m, dim)
+        dynamic_q = self.d_latents.weight.to(self.dtype).expand(b, m, dim)
+        mix = self.mix_attn_layer
+        dynamic_q = mix.fn(mix.norm(dynamic_q), context=pc_embeddings)
+        return self.query_proj(static_q + dynamic_q)
+
+    def encode(self, pc: torch.Tensor, generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None, sample_posterior: bool = True):
+        """(B, N, 3) -> ``(kl (B,), z (B, M, latent_dim))``, z in the model's
+        dtype: ``mean + exp(logvar / 2) * eps`` with ``logvar`` clipped to
+        [-30, 20] and ``eps ~ N(0, 1)`` from ``generator`` (on ``pc``'s
+        device) unless given, or ``mean`` without ``sample_posterior``. With
+        ``deterministic_latent`` the encoder output itself, and a zero KL."""
+        if pc.shape[1] != self.num_inputs:
+            raise ValueError(f"VecSetVAE.encode: {pc.shape[1]} points, the model takes "
+                             f"{self.num_inputs}")
+        pc_embeddings = self.point_embed(pc)
+        x = self._latent_queries(pc, pc_embeddings)
+        cross, ff = self.cross_attend_blocks
+        x = x + cross.fn(cross.norm(x), context=cross.norm_context(pc_embeddings))
+        x = x + ff.fn(ff.norm(x))
+        if self.deterministic_latent:
+            return torch.zeros((pc.shape[0],), device=pc.device), x
+        mean = self.mean_fc(x).float()
+        logvar = torch.clamp(self.logvar_fc(x).float(), -30.0, 20.0)
+        kl = 0.5 * torch.mean(mean ** 2 + torch.exp(logvar) - 1.0 - logvar, dim=(1, 2))
+        if not sample_posterior:
+            return kl, mean.to(self.dtype)
+        if eps is None:
+            eps = torch.randn(mean.shape, generator=generator, device=mean.device)
+        z = mean + torch.exp(0.5 * logvar) * eps.to(mean.device, torch.float32)
+        return kl, z.to(self.dtype)
 
     def decode_latents(self, z: torch.Tensor) -> torch.Tensor:
         """Latent tokens -> decoder token state (proj + self-attn stack)."""

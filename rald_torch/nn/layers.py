@@ -3,7 +3,9 @@
 Counterparts of ``rald_tpu/nn/layers.py``: :class:`PointEmbed` (:50),
 :class:`Attention` (:82), :class:`GEGLUFeedForward` (:137),
 :class:`AdaLayerNorm` (:187) and :class:`FourierTimeEmbedding` (:214).
-DropPath is the identity in eval and has no counterpart here.
+DropPath has no counterpart: the DiT's modules are built with rate 0
+(``rald_tpu/nn/layers.py:99,155``), so it is the identity in training
+too.
 
 Compute dtype is the parameters' dtype (the engine casts a whole model to
 ``system.compute_dtype`` once, which rounds each weight exactly as the JAX

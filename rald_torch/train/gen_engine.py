@@ -1,6 +1,13 @@
-"""Eval-only generation engine: the product inference chain on the card.
+"""Generation engine: stage-2 training and the product inference chain on
+the card.
 
-Counterpart of ``rald_tpu/train/gen_engine.py``'s eval programs:
+Counterpart of ``rald_tpu/train/gen_engine.py``. Training:
+:meth:`GenerationEngine.init_state` (:258-277), :meth:`train_step`
+(``_train_step_impl`` :372-387), :meth:`train_one_epoch` (:771-809),
+:meth:`prepare_inputs` (:811-824), :meth:`vae_encode` (:360-364) and
+:meth:`cache_latents` (:1135-1154): frozen-VAE latents (or cached ones) ->
+EDM loss on the DiT with its in-graph radar encoder (or on a frozen
+encoder's features) -> clip + AdamW + EMA (:class:`TrainState`). Eval:
 :meth:`GenerationEngine.sample_tokens` (``_sample_impl`` :389-471),
 :meth:`GenerationEngine.decode_queries` (``_decode_impl`` :473-475),
 :meth:`GenerationEngine.fused_eval_step` (``_fused_eval_step_impl``
@@ -17,26 +24,38 @@ on the host). Quantized inference (``eval.inference.int8_ff`` /
 activation scales. The frozen external radar encoder
 (``use_radar_enc: true``, ``unfreeze_radar_enc: false``, :143-150) encodes
 the intensity channel before conditioning (:meth:`encode_radar`).
-Training comes in a later slice.
 
 The engine reads the same YAML as ``rald_tpu`` (``system.compute_dtype``,
 ``system.fast_inference``, ``ar_model`` / ``lidar_ae`` with their
-``overrides``, ``eval.inference``, ``eval.cast_params_bf16``) and builds
-the eval models as JAX builds ``model_eval`` / ``vae_eval`` (:87-128),
-with the card in the TPU's role: with ``fast_inference`` (the default) the
-DiT gets the fused FF and the int8 flags, the VAE the fused FF and the
-folded decode tail; without it both run as the YAML builds them (plain
-modules, unfolded decode, no int8 unless ``overrides`` ask). The DiT keeps
-the ``use_fused_attn`` of its overrides either way. Since the port is
-eval-only, ``model`` / ``vae`` are those eval models (JAX shares their
-weights with the training models too). Models start from seeded random
-weights (:func:`init_random_weights`); :meth:`load_state_dicts` loads real
-ones. Prior noise comes from :attr:`GenerationEngine.draw_prior`, one
-function that every sampling entry point calls (a test may swap in another
-draw, such as the JAX package's per-seed stream).
+``overrides``, ``eval.inference``, ``eval.cast_params_bf16``, ``train``)
+and keeps two DiTs, as JAX keeps ``model`` and ``model_eval`` (:83-128).
+``model`` / ``vae`` are the eval models, built as JAX builds ``model_eval``
+/ ``vae_eval`` with the card in the TPU's role: with ``fast_inference``
+(the default) the DiT gets the fused FF and the int8 flags, the VAE the
+fused FF and the folded decode tail; without it both run as the YAML
+builds them (plain modules, unfolded decode, no int8 unless ``overrides``
+ask). The DiT keeps the ``use_fused_attn`` of its overrides either way.
+They are cast whole to the compute dtype, start from seeded random weights
+(:func:`init_random_weights`), and :meth:`load_state_dicts` loads real
+ones. ``train_model`` (built by :meth:`init_state`) is the DiT as the YAML
+builds it, with plain modules: a kernel has no backward, and JAX's
+training differentiates the unfused modules too (it fails on a fused flag,
+and so does the port). Its f32 master weights, drawn as JAX's
+``model.init`` draws them (:func:`init_train_weights`), live in the
+:class:`TrainState`; forward and backward run on the model in the compute
+dtype, which the state refreshes from the masters after every update (in
+float32 the masters are the model's own parameters). :meth:`evaluate`
+loads the state's params or EMA into the eval DiT. Prior noise comes from
+:attr:`GenerationEngine.draw_prior`, one function that every sampling
+entry point calls (a test may swap in another draw, such as the JAX
+package's per-seed stream); the training draws (posterior noise, sigma,
+noise) come from generators seeded from (``system.seed``, epoch, step), or
+are injected.
 """
 from __future__ import annotations
 
+import math
+import sys
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -51,6 +70,7 @@ from rald_torch import geometry as geo
 from rald_torch import resolve_device
 from rald_torch.data.query import aug_query_helper
 from rald_torch.diffusion.edm import (
+    edm_loss,
     edm_sampler,
     karras_sigmas,
     sample_prior_latents,
@@ -66,8 +86,11 @@ from rald_torch.eval.queries import build_query_grid
 from rald_torch.models.registry import get_ae_model, get_generation_model, get_radar_encoder_model
 from rald_torch.ops.attn_kernel import merge_int8_trees, quantize_attn_tree
 from rald_torch.ops.geglu_kernel import quantize_ff_tree
-from rald_torch.train.metrics import MetricLogger
+from rald_torch.models.latent_dit import LatentArrayTransformer
+from rald_torch.train.metrics import MetricLogger, epoch_1000x
 from rald_torch.train.profiler import StageTimer
+from rald_torch.train.schedule import scale_base_lr, warmup_cosine_schedule
+from rald_torch.train.state import TrainState, global_norm
 
 
 def bce_with_logits(logits, labels, mask=None):
@@ -95,6 +118,31 @@ def init_random_weights(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+
+
+@torch.no_grad()
+def init_train_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """The distributions of JAX's ``model.init`` (flax defaults): linear
+    and conv kernels lecun-normal (normal truncated at 2 std, std
+    1/sqrt(fan_in) / 0.8796...), zero biases, unit norm scales, N(0, 1)
+    tables (the radar axis embeddings), and the DiT's output projection
+    zero (``latent_dit.py:232-234``)."""
+    lo, hi = (math.erf(v / math.sqrt(2.0)) for v in (-2.0, 2.0))
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv3d)):
+            std = m.weight[0].numel() ** -0.5 / 0.87962566103423978
+            w = torch.empty(m.weight.shape).uniform_(lo, hi, generator=generator)
+            m.weight.copy_(w.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    for m in module.modules():
+        if isinstance(m, LatentArrayTransformer):
+            m.proj_out.weight.zero_()
 
 
 def _bf16_value(t: torch.Tensor) -> torch.Tensor:
@@ -195,6 +243,19 @@ class GenerationEngine:
         )
         self.fscore_tau = float(ev.get("fscore_tau", 0.1))
 
+        self.latent_std = float(cfg.lidar_ae.get("latent_std", 1.0))
+        t = cfg.get("train", {})  # eval-only YAMLs may have none
+        self.use_cache_latent = bool(t.get("use_cache_latent", False))
+        self.ema_rate = 0.999
+        self.clip_grad = float(t.get("clip_grad", 0) or 0)
+        self.skip_nonfinite = bool(t.get("skip_nonfinite_updates", False))
+        self.accum_iter = int(t.get("accum_iter", 1) or 1)
+        self.epochs = int(t.get("epochs", 1))
+        self.warmup_epochs = float(t.get("warmup_epochs", 0))
+        self.min_lr = float(t.get("min_lr", 0.0))
+        self.train_model = None  # built by init_state
+        self.lr_schedule = None
+
     def modules(self) -> list:
         """The engine's models: the DiT, the VAE and the frozen radar encoder
         where there is one."""
@@ -272,6 +333,163 @@ class GenerationEngine:
                 f"{depth} — recalibrate"
             )
         return torch.from_numpy(np.stack([ah, ag], axis=-1)).to(self.device)
+
+    # -------------------------------------------------------------- training
+    def init_state(self, steps_per_epoch: int, world_batch: int) -> TrainState:
+        """Build the training DiT (plain modules, JAX-init weights seeded from
+        ``system.seed``) and its :class:`TrainState`: ``train.lr``, else
+        ``blr`` scaled by the world batch, under the warmup-cosine schedule;
+        clip, ``skip_nonfinite_updates`` and ``accum_iter`` from ``train``."""
+        cfg, t = self.cfg, self.cfg.train
+        lr = t.get("lr")
+        if lr is None:
+            lr = scale_base_lr(float(t.blr), world_batch, self.accum_iter, 1)
+        self.lr_schedule = warmup_cosine_schedule(lr, self.min_lr, self.warmup_epochs, self.epochs,
+                                                  steps_per_epoch)
+        model = get_generation_model(cfg.ar_model.name, cfg.ar_model.configs,
+                                     cfg.ar_model.get("overrides"))
+        if model.use_fused_ff or model.use_fused_attn:
+            # JAX's _train_step differentiates the model as built, and a
+            # pallas_call has no reverse-mode rule: it fails at the first step
+            raise ValueError(
+                "ar_model.overrides sets use_fused_ff / use_fused_attn: the fused kernels are "
+                "inference-only (no backward), and the JAX package cannot train such a model "
+                "either; set them in an eval config only")
+        init_train_weights(model, torch.Generator().manual_seed(self.seed))
+        dtype = _torch_dtype(model.compute_dtype) or self.dtype
+        model.to(self.device)
+        if dtype == torch.float32:
+            params, working = {k: p.detach() for k, p in model.named_parameters()}, None
+        else:  # f32 masters of the working copy in the compute dtype
+            params = {k: p.detach().float().clone() for k, p in model.named_parameters()}
+            model.to(dtype=dtype)
+            working = dict(model.named_parameters())
+        model.train().requires_grad_(True)  # JAX's deterministic=False; every rate is 0
+        self.train_model = model
+        return TrainState(params, self.lr_schedule, clip_grad=self.clip_grad,
+                          skip_nonfinite=self.skip_nonfinite, accum_iter=self.accum_iter,
+                          ema_rate=self.ema_rate, working=working)
+
+    def _generator(self, *key: int) -> torch.Generator:
+        """A generator on the engine's device seeded from ``key``."""
+        seed = np.random.SeedSequence(list(key)).generate_state(1)[0]
+        return torch.Generator(self.device).manual_seed(int(seed))
+
+    def step_generator(self, epoch: int, it: int, *key: int) -> torch.Generator:
+        """The generator of step ``it`` of ``epoch``: seeded from (seed,
+        epoch, it, *key), as JAX folds (seed, epoch, it) into its key
+        (``key`` 99: the posterior draw)."""
+        return self._generator(self.seed, epoch, it, *key)
+
+    @torch.no_grad()
+    def vae_encode(self, pc, generator: Optional[torch.Generator] = None, eps=None) -> torch.Tensor:
+        """Frozen-VAE latents of (B, N, 3) clouds: a posterior sample (``eps``
+        from ``generator`` unless given) in float32, divided by ``latent_std``."""
+        _, z = self.vae.encode(self._to_dev(pc), generator=generator,
+                               eps=None if eps is None else self._to_dev(eps))
+        return z.float() / self.latent_std
+
+    def prepare_inputs(self, batch, generator: Optional[torch.Generator] = None, eps=None,
+                       timings: Optional[dict] = None):
+        """A loader batch -> (latents, condition input) on the device: cached
+        latents or :meth:`vae_encode`; the raw radar cube, or its frozen
+        encoder's features."""
+        with self._stage(timings, "vae_encode"):
+            if self.use_cache_latent:
+                latents = self._to_dev(batch["cache_latent"])
+            else:
+                latents = self.vae_encode(batch["lidar_points"], generator, eps)
+        radar_cube = None
+        if self.use_radar_cond:
+            radar_cube = self._to_dev(batch["radar_cube"])
+            if self.frozen_radar_enc:
+                with self._stage(timings, "radar_encode"):
+                    radar_cube = self.encode_radar(radar_cube)
+        return latents, radar_cube
+
+    def loss_and_grads(self, latents, radar_cube, generator: Optional[torch.Generator] = None,
+                       rnd=None, noise=None, timings: Optional[dict] = None):
+        """EDM loss of the training DiT and its gradients: ``(loss, {name: f32
+        grad})``. The in-graph encoder's cube is upsampled on the device first.
+        ``rnd`` / ``noise``: injected unit-normal draws of :func:`edm_loss`."""
+        model = self.train_model
+        if radar_cube is not None and not self.frozen_radar_enc:
+            with self._stage(timings, "upsample"):
+                radar_cube = self._maybe_upsample(radar_cube)
+        with self._stage(timings, "forward_backward"):
+            loss = edm_loss(lambda x, sigma: model(x, sigma, radar_cube), self._to_dev(latents),
+                            generator, rnd, noise)
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = {k: torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+                     for k, p, g in zip(names, params, grads)}
+        return loss.detach(), grads
+
+    def train_step(self, state: TrainState, latents, radar_cube,
+                   generator: Optional[torch.Generator] = None, rnd=None, noise=None,
+                   timings: Optional[dict] = None):
+        """One step (JAX ``_train_step_impl``): loss and gradients, then
+        ``state.apply_gradients``. Returns ``(state, {"loss", "grad_norm"})``,
+        the norm taken before the clip. ``timings``, when a dict, gets the
+        synchronised ms of ``upsample``, ``forward_backward`` and
+        ``optimizer`` (clip + AdamW + EMA + working-copy refresh)."""
+        loss, grads = self.loss_and_grads(latents, radar_cube, generator, rnd, noise, timings)
+        with self._stage(timings, "optimizer"):
+            g_norm = global_norm(grads.values())
+            state.apply_gradients(grads)
+        return state, {"loss": loss, "grad_norm": g_norm}
+
+    def train_one_epoch(self, state: TrainState, loader, epoch: int, log_writer=None,
+                        print_fn=print):
+        """One epoch over ``loader`` (JAX ``train_one_epoch``): per step the
+        inputs, the step, and ``lr`` / ``loss`` / ``grad_norm`` into the
+        metric logger and the TensorBoard ``log_writer``. A non-finite loss
+        stops the process (exit 1), or, with ``skip_nonfinite_updates``,
+        warns (the update was skipped). Returns ``(state, averages)``."""
+        logger = MetricLogger(print_fn=print_fn)
+        steps = len(loader)
+        for it, batch in enumerate(logger.log_every(iter(loader), 20, f"Epoch: [{epoch}]")):
+            latents, radar_cube = self.prepare_inputs(batch, self.step_generator(epoch, it, 99))
+            state, metrics = self.train_step(state, latents, radar_cube,
+                                             self.step_generator(epoch, it))
+            host = {k: float(v) for k, v in metrics.items()}
+            if not math.isfinite(host["loss"]):
+                if self.skip_nonfinite:
+                    print_fn(f"WARNING: non-finite loss {host['loss']} — update skipped")
+                else:
+                    print_fn(f"Loss is {host['loss']}, stopping training")
+                    sys.exit(1)
+            lr = float(self.lr_schedule(epoch * steps + it))
+            logger.update(lr=lr, **host)
+            if log_writer is not None:
+                x = epoch_1000x(it / max(steps, 1) + epoch)
+                log_writer.add_scalar("loss", host["loss"], x)
+                log_writer.add_scalar("lr", lr, x)
+                log_writer.add_scalar("norm", host["grad_norm"], x)
+        logger.synchronize_between_processes()
+        print_fn(f"Averaged stats: {logger}")
+        return state, logger.averages()
+
+    @torch.no_grad()
+    def cache_latents(self, loader, cache_base_path, print_fn=print) -> dict:
+        """Frozen-VAE latents of every frame of ``loader`` (queries on) as
+        ``<cache_base_path>/<seq>/<frame>.npz`` (key ``res_tokens``), with the
+        decode IoU of each batch on its query points (JAX ``cache_latents``).
+        Batch ``it`` draws its posterior noise from seed (seed + 3, it)."""
+        cache_base_path = Path(cache_base_path)
+        logger = MetricLogger(print_fn=print_fn)
+        for it, batch in enumerate(logger.log_every(iter(loader), 50, "Caching: ")):
+            z = self.vae_encode(batch["lidar_points"], self._generator(self.seed + 3, it))
+            logits = self.decode_queries(z, batch["query_points"])
+            m = occupancy_metrics(logits, self._to_dev(batch["query_labels"]))
+            logger.update(iou=float(m["iou"]))
+            z_np = z.cpu().numpy()
+            for i, lidar_path in enumerate(batch["lidar_path"]):
+                p = Path(lidar_path)
+                d = cache_base_path / p.parts[-3]
+                d.mkdir(parents=True, exist_ok=True)
+                np.savez(d / (p.parts[-1] + ".npz"), res_tokens=z_np[i])
+        return logger.averages()
 
     # ---------------------------------------------------------------- pieces
     def _to_dev(self, a, dtype=torch.float32):
@@ -567,11 +785,11 @@ class GenerationEngine:
     def _fused_generator(self, it: int) -> torch.Generator:
         """The fused path's device RNG for batch ``it`` (JAX draws from
         ``fold_in(PRNGKey(seed + 11), it)``; torch's stream differs)."""
-        seed = int(np.random.SeedSequence([self.seed + 11, it]).generate_state(1)[0])
-        return torch.Generator(self.device).manual_seed(seed)
+        return self._generator(self.seed + 11, it)
 
     @torch.no_grad()
-    def evaluate(self, loader, use_ema: bool = False, print_fn=print, stage_timer=None) -> dict:
+    def evaluate(self, loader, use_ema: bool = False, print_fn=print, stage_timer=None,
+                 state_or_params=None) -> dict:
         """The dataset eval loop (JAX ``evaluate``, reference
         engine_generation.py:138-355) over ``loader``'s batches, with the
         engine's weights; returns the mean ``loss`` / ``iou`` /
@@ -589,13 +807,22 @@ class GenerationEngine:
         by frame, refine frame by frame), then one batched Chamfer call.
         PLY files go to ``store_base_dir/exp_name/<seq>/<save_pc_dir_name>/
         <frame>.ply``, with ``seq`` the radar path's great-grandparent.
-        ``use_ema`` only names the weights in the log: a reference ``.pth``
-        holds one set. ``stage_timer``: a :class:`StageTimer` that gets the
-        wall time of each stage (profiling only: it synchronises the card
-        at stage ends it blocks on).
+        ``state_or_params``: a :class:`TrainState`, whose EMA (``use_ema``) or
+        params are loaded into the eval DiT first (:meth:`load_state_dicts`:
+        the int8 side-tree is rebuilt and ``cast_params_bf16`` rounds a copy),
+        or a state_dict to load; None evaluates the weights the eval DiT
+        holds (which a checkpoint loader picked by ``use_ema``).
+        ``stage_timer``: a :class:`StageTimer` that gets the wall time of
+        each stage (profiling only: it synchronises the card at stage ends
+        it blocks on).
         """
         st = stage_timer if stage_timer is not None else StageTimer(enabled=False)
         cfg = self.cfg
+        if state_or_params is not None:
+            params = state_or_params
+            if isinstance(params, TrainState):
+                params = params.ema_params if use_ema else params.params
+            self.load_state_dicts(edm_state_dict=params)
         print_fn(f"Using {'EMA' if use_ema else 'model'} parameters for evaluation")
         ev = cfg.get("eval", {})
         inference = ev.get("inference", {})
