@@ -99,6 +99,29 @@ Phases, each printed before the last line:
    after 3 steps within 3 * lr. (c) ``ge_indoor_frozen_enc_ints_only.yml``
    for one epoch, ``main_cache`` over the train split, and one epoch from
    the cache. Checkpoints are deleted at the end of each run.
+8. stage-1 VAE training: the entry point ``rald_torch.cli.main_ae`` over a
+   synthetic ColoRadar tree at the product raw shapes (16000 LiDAR points a
+   frame; 3 train sequences of 4 frames, a 2-frame val sequence). (a)
+   ``configs/ae/ae_indoor_aniso_mix_view_cone.yml`` as shipped
+   (``kl_d512_m512_l32_mix`` at full width: dim 512, 24 blocks, 512 x 32
+   latents, 8 heads; N = 10000 points, batch 4, bf16, lr from ``blr``,
+   JAX-init weights), cut to 2 epochs of 3 steps, ``save_ckpt_freq: 1``,
+   ``eval_freq: 2``, ``cache_voxel: false``: finite losses, step 6, the
+   EMA moved, ``checkpoint-0/1.pth`` read back bitwise, no kernel launch
+   over the 6 train steps and exactly 48 of row 1 and 1 of row 2 per
+   evaluated batch (two full forwards, 5e5 grid queries); a run resumed
+   from ``checkpoint-0.pth`` trains epoch 1 only, its loss within
+   ``RESUME_LOSS_REL`` of the uninterrupted run's. (c) Its timing: median
+   step ms of 6 warm steps, frames/s, the synchronised split
+   (``forward_backward``, ``optimizer``), peak memory, the device idle
+   share of 3 steps under ``torch.profiler``, and one evaluated batch's
+   ms. (b) ``ae_indoor_aniso_mix_view_cone_eval.yml`` in eval mode through
+   ``main_ae.main``: its five-scene sweep, each scene's split naming the
+   val sequence, ``eval.ckpt`` (a)'s ``checkpoint-1.pth``, exact launches
+   over the sweep. (d) The same path at depth 2, float32 with
+   ``matmul_precision: highest``, batch 2: 3 steps on the card and on the
+   CPU from the same weights, batch and injected draws (posterior noise
+   and drop-path masks), to (b) of phase 7's bars.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -2428,6 +2451,348 @@ def phase_train() -> dict:
     return {"product": prod["line"], "timing": timing, "reference": ref, "frozen_cache": cache}
 
 
+# --------------------------------------------------------------- phase 8
+AE_CFG = REPO / "configs" / "ae" / "ae_indoor_aniso_mix_view_cone.yml"
+AE_EVAL_CFG = REPO / "configs" / "ae" / "ae_indoor_aniso_mix_view_cone_eval.yml"
+AE_DIR = SCRATCH / "ae"  # tree, outputs and checkpoints of the stage-1 phase
+AE_TREE = AE_DIR / "coloradar"
+AE_TRAIN_SEQS, AE_TRAIN_FRAMES, AE_VAL_FRAMES = 3, 4, 2
+AE_FF_PER_FORWARD = 24  # row 1 in each decoder block of one VAE forward
+
+
+def _ae_tree() -> list:
+    """A synthetic ColoRadar tree at the product's raw shapes (16000 LiDAR
+    points a frame): 3 train sequences of 4 frames and one val sequence of
+    2 (written apart and moved in), ``split_ae.json`` naming it as val and
+    one split file per scene of the eval YAML's sweep, each naming it too.
+    Returns the sweep's scenes."""
+    import shutil
+
+    from rald_torch.config import load_config
+    from rald_torch.data.synthetic import make_synthetic_coloradar
+
+    shutil.rmtree(AE_DIR, ignore_errors=True)
+    make_synthetic_coloradar(AE_TREE, num_train_seqs=AE_TRAIN_SEQS, num_eval_seqs=0,
+                             frames_per_seq=AE_TRAIN_FRAMES, points_per_frame=16000,
+                             radar_shape=(128, 8, 2), seed=51)
+    make_synthetic_coloradar(AE_DIR / "val_tree", num_train_seqs=0, num_eval_seqs=1,
+                             frames_per_seq=AE_VAL_FRAMES, points_per_frame=16000,
+                             radar_shape=(128, 8, 2), seed=52)
+    val = json.loads((AE_DIR / "val_tree" / "split_synth.json").read_text())["val"][0]
+    shutil.move(str(AE_DIR / "val_tree" / val), str(AE_TREE / "synth_val"))
+    split = {"train": json.loads((AE_TREE / "split_synth.json").read_text())["train"],
+             "val": ["synth_val"], "test": ["synth_val"]}
+    (AE_TREE / "split_ae.json").write_text(json.dumps(split))
+    scenes = list(load_config(AE_EVAL_CFG).dataset.split_file)
+    for scene in scenes:
+        (AE_TREE / f"split_{scene}.json").write_text(json.dumps(split))
+    return scenes
+
+
+def _ae_cfg(path: Path, label: str, **train):
+    """A shipped stage-1 YAML pointed at the synthetic tree, outputs under
+    build/: ``cache_voxel: false``, ``train`` keys replaced."""
+    from rald_torch.config import load_config
+
+    cfg = load_config(path)
+    out = AE_DIR / label
+    cfg.dataset.root_dir = str(AE_TREE)
+    cfg.dataset.split_file = "split_ae.json"
+    cfg.dataset.lidar.cache_voxel = False
+    cfg.system.update(output_dir=str(out / "result"), log_dir=str(out / "log"))
+    cfg.train.update({"epochs": 2, "save_ckpt_freq": 1, "eval_freq": 2, **train})
+    return cfg
+
+
+def _ae_product() -> dict:
+    """(a) the shipped stage-1 YAML at full width through ``main_ae.run``: 2
+    epochs of 3 steps, a checkpoint an epoch, evaluation after epoch 2 on
+    the 2-frame val split; then the checkpoint round trip and the resume
+    from ``checkpoint-0.pth``."""
+    from rald_torch.cli import main_ae
+    from rald_torch.ops import reset_launch_counts
+    from rald_torch.train.ae_engine import AEEngine
+    from rald_torch.train.checkpoint import CheckpointManager
+
+    cfg = _ae_cfg(AE_CFG, "product")
+    eng = AEEngine(cfg)
+    check(eng.model_eval.use_fused_ff and eng.model_eval.fold_decode_tail,
+          "ae: the eval model lacks the fused FF / folded decode")
+    captured, train_d, eval_d = {}, [], []
+    init = eng.init_state
+
+    def init_state(*a):
+        st = captured["state"] = init(*a)
+        captured["start"] = {k: v.detach().clone() for k, v in st.params.items()}
+        return st
+
+    eng.init_state = init_state
+    _counted(eng, "train_one_epoch", train_d)
+    _counted(eng, "evaluate", eval_d)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    main_ae.run(cfg, engine=eng, print_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st, records = captured["state"], _records(cfg)
+    out = Path(cfg.system.output_dir)
+    for r in records:
+        check(all(math.isfinite(r[f"train_{k}"]) for k in
+                  ("loss", "loss_vol", "loss_near", "loss_kl", "grad_norm")),
+              f"ae: non-finite record {r}")
+    check([r["epoch"] for r in records] == [0, 1], f"ae: epochs {records}")
+    check(all(math.isfinite(records[1][f"val_{k}"]) for k in ("loss", "iou", "accuracy")),
+          f"ae: eval record {records[1]}")
+    check(st.step == 2 * 3 and st.count == 6, f"ae: step {st.step}, count {st.count}")
+    for k in ("to_outputs.weight", "layers.0.1.fn.net.0.weight", "s_latents.weight"):
+        ema, p, p0 = st.ema_params[k], st.params[k], captured["start"][k]
+        check(not torch.equal(ema, p0) and not torch.equal(ema, p), f"ae: EMA of {k} did not move")
+    check(all((out / f"checkpoint-{e}.pth").exists() for e in (0, 1)), "ae: checkpoints missing")
+    check(all(all(v == 0 for v in d.values()) for d in train_d),
+          f"ae: kernels launched over the train steps {train_d}")
+    n_eval = AE_VAL_FRAMES  # eval_batch_size 1
+    want = {n: 0 for n in KERNEL_NAMES}
+    want.update(fused_ln_geglu_residual=2 * AE_FF_PER_FORWARD * n_eval, nn_min_sq_both=n_eval)
+    check(len(eval_d) == 1, f"ae: {len(eval_d)} evaluations")
+    _check_counts(eval_d[0], want, "ae eval")
+
+    # save -> restore round trip, bitwise
+    fresh = eng.init_state(3, 4)
+    CheckpointManager(out).restore(fresh, out / "checkpoint-1.pth")
+    a, b = st.opt_state(), fresh.opt_state()
+    for k in st.params:
+        for x, y in ((st.params[k], fresh.params[k]), (st.ema_params[k], fresh.ema_params[k]),
+                     (a["mu"][k], b["mu"][k]), (a["nu"][k], b["nu"][k])):
+            check(torch.equal(x, y), f"ae: checkpoint round trip differs at {k}")
+    check(fresh.step == st.step and fresh.count == st.count, "ae: round trip counters")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del fresh
+    torch.cuda.empty_cache()
+
+    # resume from checkpoint-0: epoch 1 only, its loss as the uninterrupted run's
+    rcfg = _ae_cfg(AE_CFG, "resumed", resume=str(out / "checkpoint-0.pth"))
+    lines = []
+    t0 = time.perf_counter()
+    main_ae.run(rcfg, engine=eng, print_fn=lines.append)
+    resume_s = time.perf_counter() - t0
+    rrec = _records(rcfg)
+    check([r["epoch"] for r in rrec] == [1] and "resumed from epoch 0" in lines,
+          f"ae resume: records {rrec}")
+    la, lb = records[1]["train_loss"], rrec[0]["train_loss"]
+    check(abs(la - lb) <= RESUME_LOSS_REL * abs(la), f"ae resume: loss {lb} vs {la}")
+    for f in (AE_DIR / "resumed" / "result").glob("checkpoint-*.pth"):
+        f.unlink()
+    line = {"mode": "ae product train", "wall_s": wall, "steps": st.step,
+            "params_m": eng.param_count(st) / 1e6, "records": records,
+            "resumed_record": rrec[0], "resume_wall_s": resume_s,
+            "resume_loss_rel_diff": abs(la - lb) / abs(la), "peak_gib": peak,
+            "train_step_launches": {k: sum(d[k] for d in train_d) for k in KERNEL_NAMES},
+            "eval_launches_per_batch": {k: v // n_eval for k, v in eval_d[0].items() if v},
+            "device": smi_line()}
+    print("[ae] " + json.dumps(line))
+    # the resumed run's state, which the engine's training model belongs to
+    return {"line": line, "engine": eng, "state": captured["state"], "cfg": cfg,
+            "ckpt": out / "checkpoint-1.pth"}
+
+
+def _ae_eval_sweep(ckpt: Path, scenes: list) -> dict:
+    """(b) the shipped eval YAML in eval mode through ``main_ae.main``: its
+    per-scene sweep, each scene's split naming the 2-frame val sequence,
+    ``eval.ckpt`` (a)'s ``checkpoint-1.pth``; launches over the whole sweep."""
+    import yaml
+
+    from rald_torch.cli import main_ae
+    from rald_torch.config import load_config
+    from rald_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = load_config(AE_EVAL_CFG)
+    out = AE_DIR / "eval"
+    cfg.dataset.root_dir = str(AE_TREE)
+    cfg.dataset.split_file = {s: f"split_{s}.json" for s in scenes}
+    cfg.dataset.lidar.cache_voxel = False
+    cfg.system.update(output_dir=str(out / "result"), log_dir=str(out / "log"))
+    cfg.eval.ckpt = str(ckpt)
+    path = AE_DIR / "eval.yml"
+    path.write_text(yaml.safe_dump(cfg.to_dict()))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = main_ae.main(["--config", str(path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n_eval = AE_VAL_FRAMES * len(scenes)
+    want = {n: 0 for n in KERNEL_NAMES}
+    want.update(fused_ln_geglu_residual=2 * AE_FF_PER_FORWARD * n_eval, nn_min_sq_both=n_eval)
+    _check_counts(counts, want, "ae eval sweep")
+    check(sorted(results) == sorted(scenes), f"ae eval sweep: scenes {sorted(results)}")
+    exp = cfg.system.expname
+    for scene, stats in results.items():
+        check(all(math.isfinite(stats[k]) for k in ("loss", "iou", "accuracy"))
+              and "cd" in stats and "fscore" in stats, f"ae eval sweep {scene}: {stats}")
+        check((out / "result" / exp / scene / "config.yml").exists(), f"ae eval sweep: {scene} config")
+    first = results[scenes[0]]
+    check(all(r[k] == v or abs(r[k] - v) <= 1e-5 * abs(v)
+              for r in results.values() for k, v in first.items()),
+          "ae eval sweep: the same split and weights gave other stats")
+    line = {"mode": "ae eval sweep", "scenes": len(scenes), "wall_s": wall,
+            "s_per_scene": wall / len(scenes), "stats": first,
+            "launches_per_batch": {k: v // n_eval for k, v in counts.items() if v},
+            "device": smi_line()}
+    print("[ae] " + json.dumps(line))
+    return line
+
+
+def _ae_timing(prod: dict) -> dict:
+    """(c) step time at (a)'s configuration, on (a)'s engine and state: the
+    median of 6 warm steps (each ended by a synchronise) and frames/s; the
+    synchronised split of 5 more; peak memory; the device idle share of 3
+    steps traced by ``torch.profiler``; and the ms of one evaluated batch
+    (two full forwards, 5e5 grid queries, threshold, Chamfer), the median
+    of 3 after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rald_torch.cli import main_ae
+
+    eng, st, cfg = prod["engine"], prod["state"], prod["cfg"]
+    train_loader, val_loader, _ = main_ae.build_loaders(cfg)
+    batch, val_batch = next(iter(train_loader)), next(iter(val_loader))
+    bsz = len(batch["lidar_points"])
+
+    def step(it, timings=None):
+        eng.train_step(st, batch, eng.step_generator(9, it), timings=timings)
+        torch.cuda.synchronize()
+
+    for it in range(2):
+        step(it)
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for it in range(6):
+        t0 = time.perf_counter()
+        step(it)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    splits = []
+    for it in range(5):
+        t = {}
+        step(it, t)
+        splits.append(t)
+    split = {k: float(np.median([t[k] for t in splits])) for k in splits[0]}
+    t0 = time.perf_counter()
+    for it in range(3):
+        step(it)
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for it in range(3):
+            step(it)
+    busy, kernels, top = _device_busy_us(prof)
+    eval_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        eng.evaluate(st, [val_batch], print_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(ms))
+    line = {"mode": "ae train timing", "batch": bsz, "step_ms": ms, "median_step_ms": med,
+            "frames_per_s": bsz / med * 1e3, "split_ms": split, "peak_gib": peak,
+            "device_busy_ms_3_steps": busy / 1e3, "wall_ms_3_steps": wall,
+            "device_idle_share": 1.0 - busy / 1e3 / wall, "kernels_3_steps": kernels,
+            "top_kernels_ms_3_steps": top, "eval_batch_ms": eval_ms[1:],
+            "median_eval_batch_ms": float(np.median(eval_ms[1:])), "device": smi_line()}
+    print("[ae] " + json.dumps(line))
+    return line
+
+
+def _ae_card_vs_cpu() -> dict:
+    """(d) the training path at depth 2, width unchanged, in float32 with
+    ``matmul_precision: highest``, batch 2: 3 steps on the card and on the
+    CPU from the same JAX-init weights, the same batch and the same injected
+    draws (posterior noise and drop-path masks, from numpy)."""
+    from rald_torch import apply_matmul_precision
+    from rald_torch.cli import main_ae
+    from rald_torch.train.ae_engine import AEEngine
+    from rald_torch.train.state import global_norm
+
+    apply_matmul_precision("highest")
+    bsz, steps = 2, 3
+    runs = {}
+    batch = None
+    for device in ("cuda", "cpu"):
+        cfg = _ae_cfg(AE_CFG, f"f32_{device}")
+        cfg.system.compute_dtype = "float32"
+        cfg.dataset.batch_size = bsz
+        cfg.lidar_ae.overrides = {**(cfg.lidar_ae.get("overrides") or {}), "depth": 2}
+        eng = AEEngine(cfg, device=device)
+        state = eng.init_state(steps, bsz)
+        if batch is None:
+            batch = next(iter(main_ae.build_loaders(cfg)[0]))
+        sites = sorted(eng.train_model.drop_paths())
+        rng = np.random.default_rng(41)
+        t0 = time.perf_counter()
+        out = {"loss": [], "grad_norm": []}
+        for k in range(steps):
+            eps = rng.standard_normal((bsz, eng.train_model.num_latents,
+                                       eng.train_model.latent_dim)).astype(np.float32)
+            masks = {s: torch.from_numpy(rng.random(bsz) >= 0.1) for s in sites}
+            masks[sites[k]] = torch.tensor([True, False])  # a drop in every step
+            if k == 0:
+                metrics, grads = eng.loss_and_grads(batch, eps=eps, drop_masks=masks)
+                out["grads"] = {n: g.detach().cpu().clone() for n, g in grads.items()}
+                metrics["grad_norm"] = global_norm(grads.values())
+                state.apply_gradients(grads)
+            else:
+                state, metrics = eng.train_step(state, batch, eps=eps, drop_masks=masks)
+            out["loss"].append(float(metrics["loss"]))
+            out["grad_norm"].append(float(metrics["grad_norm"]))
+        out["seconds"] = time.perf_counter() - t0
+        out["params"] = {n: v.cpu() for n, v in state.params.items()}
+        out["ema"] = {n: v.cpu() for n, v in state.ema_params.items()}
+        out["lr"] = eng.lr_schedule
+        runs[device] = out
+        del eng, state
+        torch.cuda.empty_cache()
+    card, cpu = runs["cuda"], runs["cpu"]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    loss_rel = max(rel(a, b) for a, b in zip(card["loss"], cpu["loss"]))
+    norm_rel = max(rel(a, b) for a, b in zip(card["grad_norm"], cpu["grad_norm"]))
+    gmax = max(float(g.abs().max()) for g in cpu["grads"].values())
+    grad_rel = max(float((card["grads"][n] - g).abs().max()) / max(float(g.abs().max()), 1e-2 * gmax)
+                   for n, g in cpu["grads"].items())
+    lr = max(cpu["lr"](c) for c in range(steps + 1))
+    p_abs = max(float((card["params"][n] - v).abs().max()) for n, v in cpu["params"].items())
+    e_abs = max(float((card["ema"][n] - v).abs().max()) for n, v in cpu["ema"].items())
+    line = {"mode": "ae train card vs CPU, depth 2, f32 highest", "batch": bsz, "steps": steps,
+            "loss_card": card["loss"], "loss_cpu": cpu["loss"], "grad_norm_card": card["grad_norm"],
+            "grad_norm_cpu": cpu["grad_norm"], "max_loss_rel": loss_rel,
+            "max_grad_norm_rel": norm_rel, "max_grad_rel_of_tensor_max": grad_rel,
+            "lr": lr, "max_param_abs": p_abs, "max_ema_abs": e_abs,
+            "seconds_card": card["seconds"], "seconds_cpu": cpu["seconds"]}
+    print("[ae] " + json.dumps(line))
+    check(loss_rel <= 1e-4 and norm_rel <= 1e-4, f"ae card vs CPU: loss / norm {line}")
+    check(grad_rel <= 1e-4, f"ae card vs CPU: gradients {grad_rel}")
+    check(p_abs <= 3 * lr and e_abs <= 3 * lr, f"ae card vs CPU: params {p_abs}, EMA {e_abs}, lr {lr}")
+    torch.backends.cudnn.allow_tf32 = True  # torch's defaults again
+    torch.set_float32_matmul_precision("highest")
+    return line
+
+
+def phase_ae() -> dict:
+    """Stage-1 VAE training (phase 8): (a) product training, (c) its timing,
+    (b) the eval YAML's sweep on (a)'s checkpoint, (d) card against CPU."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("highest")
+    scenes = _ae_tree()
+    prod = _ae_product()
+    timing = _ae_timing(prod)
+    del prod["engine"], prod["state"]
+    torch.cuda.empty_cache()
+    sweep = _ae_eval_sweep(prod["ckpt"], scenes)
+    for f in (AE_DIR / "product" / "result").glob("checkpoint-*.pth"):
+        f.unlink()
+    ref = _ae_card_vs_cpu()
+    return {"product": prod["line"], "timing": timing, "sweep": sweep, "reference": ref}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2454,6 +2819,9 @@ def main() -> int:
     t = time.perf_counter()
     train = phase_train()
     print(f"[time] phase 7 (training) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    ae = phase_ae()
+    print(f"[time] phase 8 (stage-1 VAE training) {time.perf_counter() - t:.1f} s")
     # each kernel's launches in the runs of the mode that uses it: the main
     # path's eval step at batch 1 (and 8), or, for the two kernels no
     # inference chain reaches, the module / host API that does
@@ -2498,6 +2866,11 @@ def main() -> int:
         k["train"] = {"train_steps": train["product"]["train_step_launches"][k["name"]],
                       "train_eval_per_batch":
                           train["product"]["eval_launches_per_batch"].get(k["name"], 0)}
+    # stage-1 training (phase 8): launches over its 6 train steps (none) and
+    # per batch of its evaluation
+    for k in kernels:
+        k["ae_train"] = {"train_steps": ae["product"]["train_step_launches"][k["name"]],
+                         "eval_per_batch": ae["product"]["eval_launches_per_batch"].get(k["name"], 0)}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -18,10 +18,14 @@ tree works); outputs are dicts of CPU tensors.
 :func:`train_state_from_flax` carries a JAX ``TrainState`` (params, EMA,
 the optax state, step) into the port's :class:`~rald_torch.train.state.TrainState`:
 every per-parameter tree (params, EMA, Adam's ``mu`` / ``nu``, the
-``MultiSteps`` accumulator) through :func:`edm_state_dict_from_flax`.
+``MultiSteps`` accumulator) through one tree converter,
+:func:`edm_state_dict_from_flax` for the DiT's (``GenerationEngine``) by
+default, or e.g. ``functools.partial(vae_state_dict_from_flax, depth=...,
+query_type=...)`` for the VAE's (``AEEngine``).
 """
 from __future__ import annotations
 
+import functools
 import re
 
 import numpy as np
@@ -179,19 +183,21 @@ def _optax_fields(opt_state, out: dict) -> dict:
     return out
 
 
-def train_state_from_flax(state, params, ema_params, opt_state, step, depth: int = 24):
-    """Load a JAX ``TrainState`` of an ``EDMPrecond`` (its ``params``,
-    ``ema_params``, ``opt_state`` and ``step`` as numpy trees, e.g. from
-    ``jax.device_get``) into the port's ``state`` in place; returns it.
-    Adam's ``count`` (the updates applied) becomes the schedule's count."""
+def train_state_from_flax(state, params, ema_params, opt_state, step, depth: int = 24,
+                          convert=None):
+    """Load a JAX ``TrainState`` (its ``params``, ``ema_params``,
+    ``opt_state`` and ``step`` as numpy trees, e.g. from ``jax.device_get``)
+    into the port's ``state`` in place; returns it. ``convert`` maps each
+    per-parameter tree to a state_dict: an ``EDMPrecond``'s
+    (:func:`edm_state_dict_from_flax` at ``depth``) when None. Adam's
+    ``count`` (the updates applied) becomes the schedule's count."""
+    if convert is None:
+        convert = functools.partial(edm_state_dict_from_flax, depth=depth)
     f = _optax_fields(opt_state, {})
-    opt = {"count": int(np.asarray(f["count"])),
-           "mu": edm_state_dict_from_flax(f["mu"], depth),
-           "nu": edm_state_dict_from_flax(f["nu"], depth)}
+    opt = {"count": int(np.asarray(f["count"])), "mu": convert(f["mu"]), "nu": convert(f["nu"])}
     for name in _OPTAX_COUNTERS:
         if name in f:
             opt[name] = np.asarray(f[name]).item()
     if "acc_grads" in f:
-        opt["acc_grads"] = edm_state_dict_from_flax(f["acc_grads"], depth)
-    return state.load(edm_state_dict_from_flax(params, depth),
-                      edm_state_dict_from_flax(ema_params, depth), opt, int(np.asarray(step)))
+        opt["acc_grads"] = convert(f["acc_grads"])
+    return state.load(convert(params), convert(ema_params), opt, int(np.asarray(step)))

@@ -5,27 +5,38 @@
 complete and round-trips through
 ``rald_tpu.convert.torch_ckpt.convert_vae_state_dict``. It computes the
 encode (``_latent_queries`` and ``encode``, :156-202: ``mix``,
-``learnable`` or FPS ``point`` queries, the KL posterior) and the decode:
+``learnable`` or FPS ``point`` queries, the KL posterior), the decode:
 ``decode_latents`` (:204), ``decode_queries`` (:213-239) and the folded
-decode ``_decode_queries_folded`` (:251-301).
+decode ``_decode_queries_folded`` (:251-301), and the whole forward
+(:meth:`VecSetVAE.forward`, JAX's ``__call__`` :307-319).
+
+Training mode (``module.train()``) is JAX's ``deterministic=False``: each
+self-attention block's two sublayers and the mix attention end in a
+drop-path of rate 0.1 (:50, :128-130), drawn per sample from the
+generator given to :meth:`VecSetVAE.forward`, or injected by module name
+(``drop_masks``). The encoder cross-attention, its FF and the decoder
+cross-attention have none.
 
 JAX's inference flags, with its names and defaults: ``use_fused_ff`` runs
 each self-attention block's FF sublayer (LayerNorm + GEGLU FF + residual)
 through :func:`rald_torch.ops.geglu_kernel.fused_ln_geglu_residual` in
 affine mode, with the ``ff`` LayerNorm's weight and bias as the rows (else
-the plain modules); ``fold_decode_tail`` (with ``output_dim`` 1) decodes
-through the folded tail, else the unfolded point-embed -> LayerNorm ->
-cross-attention -> head. :meth:`VecSetVAE.set_flags` is JAX's
-``vae.copy(**flags)`` for them.
+the plain modules), and raises in training mode: a kernel has no backward,
+and JAX's training forward, which then calls the ``geglu_ff``
+``pallas_call``, cannot be differentiated either; ``fold_decode_tail``
+(with ``output_dim`` 1) decodes through the folded tail, else the unfolded
+point-embed -> LayerNorm -> cross-attention -> head.
+:meth:`VecSetVAE.set_flags` is JAX's ``vae.copy(**flags)`` for them.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
 from torch import nn
 
-from rald_torch.nn.layers import Attention, GEGLUFeedForward, LayerNorm, PointEmbed
+from rald_torch.nn.layers import Attention, DropPath, GEGLUFeedForward, LayerNorm, PointEmbed
 from rald_torch.ops.fps import fps_points
 from rald_torch.ops.geglu_kernel import fused_ln_geglu_residual
 from rald_torch.ops.query_attention import map_query_chunks
@@ -42,18 +53,29 @@ class PreNorm(nn.Module):
             self.norm_context = LayerNorm(context_dim)
 
 
+DROP_PATH_RATE = 0.1  # the self-attention blocks' and the mix attention's
+
+
 class SelfAttnBlock(nn.ModuleList):
     """``layers.{i}``: pre-norm self-attention, then the pre-norm GEGLU FF,
-    both residual."""
+    both residual, each ending in a drop-path of ``DROP_PATH_RATE``."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, use_fused_ff: bool = False):
         super().__init__([
-            PreNorm(dim, Attention(dim, heads=heads, dim_head=dim_head)),
-            PreNorm(dim, GEGLUFeedForward(dim, use_fused=use_fused_ff)),
+            PreNorm(dim, Attention(dim, heads=heads, dim_head=dim_head,
+                                   drop_path_rate=DROP_PATH_RATE)),
+            PreNorm(dim, GEGLUFeedForward(dim, use_fused=use_fused_ff,
+                                          drop_path_rate=DROP_PATH_RATE)),
         ])
         self.use_fused_ff = use_fused_ff
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_fused_ff and self.training:
+            raise ValueError(
+                "VecSetVAE: use_fused_ff in training mode — the fused FF kernel is "
+                "inference-only (no backward), and the JAX package cannot differentiate its "
+                "fused FF either (a pallas_call has no reverse-mode rule); train the plain "
+                "model and set use_fused_ff for evaluation only")
         attn, ff = self[0], self[1]
         x = x + attn.fn(attn.norm(x))
         if not self.use_fused_ff:
@@ -106,7 +128,8 @@ class VecSetVAE(nn.Module):
         elif query_type == "mix":
             self.s_latents = nn.Embedding(num_latents, dim)
             self.d_latents = nn.Embedding(num_latents, dim)
-            self.mix_attn_layer = PreNorm(dim, Attention(dim, dim, heads=heads, dim_head=dim_head))
+            self.mix_attn_layer = PreNorm(dim, Attention(dim, dim, heads=heads, dim_head=dim_head,
+                                                         drop_path_rate=DROP_PATH_RATE))
             self.query_proj = nn.Linear(dim, dim)
         elif query_type != "point":
             raise NotImplementedError(f"Query type {query_type} is not implemented")
@@ -245,3 +268,38 @@ class VecSetVAE(nn.Module):
 
     def decode(self, z: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
         return self.decode_queries(self.decode_latents(z), queries)
+
+    def drop_paths(self) -> dict:
+        """Name -> :class:`DropPath` for every drop-path that draws in
+        training mode (rate > 0): ``layers.{i}.{0,1}.fn.drop_path`` and
+        ``mix_attn_layer.fn.drop_path``, in forward order."""
+        return {k: m for k, m in self.named_modules()
+                if isinstance(m, DropPath) and m.rate > 0}
+
+    @contextmanager
+    def _drop_path_draws(self, generator, drop_masks):
+        sites = self.drop_paths()
+        unknown = set(drop_masks or ()) - set(sites)
+        if unknown:
+            raise KeyError(f"VecSetVAE.forward: no drop-path named {sorted(unknown)}")
+        for name, m in sites.items():
+            m.generator, m.mask = generator, (drop_masks or {}).get(name)
+        try:
+            yield
+        finally:
+            for m in sites.values():
+                m.generator = m.mask = None
+
+    def forward(self, pc: torch.Tensor, queries: torch.Tensor,
+                generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None,
+                sample_posterior: bool = True, drop_masks: Optional[dict] = None) -> dict:
+        """``{"logits": (B, Q) f32, "kl": (B,)}`` of (B, N, 3) clouds at (B, Q,
+        3) queries (JAX ``__call__``). ``generator`` draws the posterior
+        noise (unless ``eps`` is given) and, in training mode, the
+        drop-path masks, in forward order; ``drop_masks`` (name as in
+        :meth:`drop_paths` -> (B,) bool) replaces a site's draw."""
+        with self._drop_path_draws(generator, drop_masks):
+            kl, z = self.encode(pc, generator=generator, eps=eps,
+                                sample_posterior=sample_posterior)
+            logits = self.decode(z, queries)
+        return {"logits": logits.squeeze(-1).float(), "kl": kl}

@@ -1,11 +1,12 @@
 """Shared layers in the reference's torch ``state_dict`` layout.
 
 Counterparts of ``rald_tpu/nn/layers.py``: :class:`PointEmbed` (:50),
-:class:`Attention` (:82), :class:`GEGLUFeedForward` (:137),
-:class:`AdaLayerNorm` (:187) and :class:`FourierTimeEmbedding` (:214).
-DropPath has no counterpart: the DiT's modules are built with rate 0
-(``rald_tpu/nn/layers.py:99,155``), so it is the identity in training
-too.
+:class:`DropPath` (:66), :class:`Attention` (:82),
+:class:`GEGLUFeedForward` (:137), :class:`AdaLayerNorm` (:187) and
+:class:`FourierTimeEmbedding` (:214). ``Attention`` and
+``GEGLUFeedForward`` end in a ``drop_path`` of ``drop_path_rate`` (default
+0, the identity: the DiT's modules and the VAE's cross-attentions); the
+VAE's self-attention blocks and mix attention train with 0.1.
 
 Compute dtype is the parameters' dtype (the engine casts a whole model to
 ``system.compute_dtype`` once, which rounds each weight exactly as the JAX
@@ -77,12 +78,49 @@ class PointEmbed(nn.Module):
         return self.mlp(feats.to(self.mlp.weight.dtype))
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth, timm's semantics as in JAX: in training
+    mode with ``rate > 0``, each sample of the batch is kept with
+    probability ``keep = 1 - rate`` (a ``(B, 1, ..., 1)`` mask) and
+    ``where(mask, x / keep, 0)`` is returned, with ``keep`` cast to x's dtype
+    as JAX casts the weakly typed scalar (bf16 divides by 0.8984375), and a
+    true division, not a product with ``1 / keep``; otherwise ``x`` itself.
+
+    The mask is :attr:`mask` where set (a (B,) bool; tests inject JAX's
+    masks so), else drawn as ``uniform < keep`` from :attr:`generator`
+    (torch's default generator when None). A caller sets the two
+    attributes for one forward
+    (:meth:`rald_torch.models.vecset_vae.VecSetVAE.forward` does) and
+    clears them after."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+        self.mask: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = self.mask
+        if mask is None:
+            mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+        mask = mask.to(x.device, torch.bool).reshape(shape)
+        # a device tensor, not a Python scalar: torch turns division by a
+        # host scalar into a product with its reciprocal
+        divisor = torch.tensor(keep, dtype=x.dtype, device=x.device)
+        return torch.where(mask, x / divisor, torch.zeros_like(x))
+
+
 class Attention(nn.Module):
     """Multi-head softmax attention with optional cross-attention context.
 
     ``fused_kv=True`` is the VAE layout (``to_kv``, ``to_out``);
     ``fused_kv=False`` the DiT layout (``to_k``/``to_v``, ``to_out.0``).
-    Plain matmul -> f32 softmax -> matmul, as the JAX module leaves it to XLA.
+    Plain matmul -> f32 softmax -> matmul, as the JAX module leaves it to XLA,
+    then :class:`DropPath` of ``drop_path_rate`` after ``to_out``.
     """
 
     def __init__(
@@ -93,6 +131,7 @@ class Attention(nn.Module):
         dim_head: int = 64,
         out_dim: Optional[int] = None,
         fused_kv: bool = True,
+        drop_path_rate: float = 0.0,
     ):
         super().__init__()
         inner = heads * dim_head
@@ -106,6 +145,7 @@ class Attention(nn.Module):
             self.to_v = nn.Linear(context_dim, inner, bias=False)
         out = nn.Linear(inner, out_dim or query_dim)
         self.to_out = out if fused_kv else nn.Sequential(out, nn.Dropout(0.0))
+        self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = self.to_q.weight.dtype
@@ -125,7 +165,7 @@ class Attention(nn.Module):
         attn = torch.softmax(sim.float(), dim=-1).to(dt)
         out = torch.matmul(attn, v).transpose(-3, -2)
         out = out.reshape(*out.shape[:-2], self.heads * self.dim_head)
-        return self.to_out(out)
+        return self.drop_path(self.to_out(out))
 
 
 class _GEGLUProj(nn.Module):
@@ -151,16 +191,19 @@ class GEGLUFeedForward(nn.Module):
     the two activations the int8 FF kernels quantize (JAX ``sow_amax``,
     ``rald_tpu/nn/layers.py:146-182``): the calibration of static int8
     activation scales reads them. It runs unfused, as ``sow_amax`` does.
+
+    Either path ends in :class:`DropPath` of ``drop_path_rate``.
     """
 
     def __init__(self, dim: int, mult: int = 4, out_dim: Optional[int] = None,
-                 dit_style: bool = False, use_fused: bool = False):
+                 dit_style: bool = False, use_fused: bool = False, drop_path_rate: float = 0.0):
         super().__init__()
         inner = dim * mult
         first = _GEGLUProj(dim, inner) if dit_style else nn.Linear(dim, 2 * inner)
         self.net = nn.Sequential(first, nn.Identity(), nn.Linear(inner, out_dim or dim))
         self.dit_style = dit_style
         self.use_fused = use_fused
+        self.drop_path = DropPath(drop_path_rate)
 
     @property
     def proj_in(self) -> nn.Linear:
@@ -173,12 +216,13 @@ class GEGLUFeedForward(nn.Module):
     def forward(self, x: torch.Tensor, amax: Optional[list] = None) -> torch.Tensor:
         if self.use_fused and amax is None:
             pi, po = self.proj_in, self.proj_out
-            return geglu_ff(x.to(pi.weight.dtype), pi.weight, pi.bias, po.weight, po.bias)
+            return self.drop_path(geglu_ff(x.to(pi.weight.dtype), pi.weight, pi.bias,
+                                           po.weight, po.bias))
         h, gates = self.proj_in(x).chunk(2, dim=-1)
         g = h * F.gelu(gates)
         if amax is not None:
             amax.append((x.float().abs().amax(), g.float().abs().amax()))
-        return self.proj_out(g)
+        return self.drop_path(self.proj_out(g))
 
 
 class AdaLayerNorm(nn.Module):

@@ -56,8 +56,6 @@ from __future__ import annotations
 
 import math
 import sys
-import time
-from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional
 
@@ -88,9 +86,9 @@ from rald_torch.ops.attn_kernel import merge_int8_trees, quantize_attn_tree
 from rald_torch.ops.geglu_kernel import quantize_ff_tree
 from rald_torch.models.latent_dit import LatentArrayTransformer
 from rald_torch.train.metrics import MetricLogger, epoch_1000x
-from rald_torch.train.profiler import StageTimer
+from rald_torch.train.profiler import StageTimer, synced_ms
 from rald_torch.train.schedule import scale_base_lr, warmup_cosine_schedule
-from rald_torch.train.state import TrainState, global_norm
+from rald_torch.train.state import TrainState, global_norm, masters_of
 
 
 def bce_with_logits(logits, labels, mask=None):
@@ -145,6 +143,12 @@ def init_train_weights(module: nn.Module, generator: torch.Generator) -> None:
             m.proj_out.weight.zero_()
 
 
+def seeded_generator(device, *key: int) -> torch.Generator:
+    """A generator on ``device`` seeded from the integers ``key``."""
+    seed = np.random.SeedSequence(list(key)).generate_state(1)[0]
+    return torch.Generator(device).manual_seed(int(seed))
+
+
 def _bf16_value(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype) if t.dtype == torch.float32 else t
 
@@ -157,7 +161,7 @@ def _round_to_bf16(module: nn.Module) -> None:
         t.copy_(_bf16_value(t))
 
 
-def _torch_dtype(name):
+def torch_dtype(name):
     """A model's own ``dtype`` override (a torch dtype or its name) or None."""
     return getattr(torch, name) if isinstance(name, str) else name
 
@@ -223,7 +227,7 @@ class GenerationEngine:
                 _round_to_bf16(m)
         self._quantize(self.model.state_dict())  # the f32 weights, before the cast
         for m in self.modules():
-            m.to(device=self.device, dtype=_torch_dtype(m.compute_dtype) or dtype)
+            m.to(device=self.device, dtype=torch_dtype(m.compute_dtype) or dtype)
             m.eval().requires_grad_(False)
 
         radar = cfg.dataset.get("radar", {})
@@ -356,14 +360,8 @@ class GenerationEngine:
                 "inference-only (no backward), and the JAX package cannot train such a model "
                 "either; set them in an eval config only")
         init_train_weights(model, torch.Generator().manual_seed(self.seed))
-        dtype = _torch_dtype(model.compute_dtype) or self.dtype
-        model.to(self.device)
-        if dtype == torch.float32:
-            params, working = {k: p.detach() for k, p in model.named_parameters()}, None
-        else:  # f32 masters of the working copy in the compute dtype
-            params = {k: p.detach().float().clone() for k, p in model.named_parameters()}
-            model.to(dtype=dtype)
-            working = dict(model.named_parameters())
+        dtype = torch_dtype(model.compute_dtype) or self.dtype
+        params, working = masters_of(model.to(self.device), dtype)
         model.train().requires_grad_(True)  # JAX's deterministic=False; every rate is 0
         self.train_model = model
         return TrainState(params, self.lr_schedule, clip_grad=self.clip_grad,
@@ -371,9 +369,7 @@ class GenerationEngine:
                           ema_rate=self.ema_rate, working=working)
 
     def _generator(self, *key: int) -> torch.Generator:
-        """A generator on the engine's device seeded from ``key``."""
-        seed = np.random.SeedSequence(list(key)).generate_state(1)[0]
-        return torch.Generator(self.device).manual_seed(int(seed))
+        return seeded_generator(self.device, *key)
 
     def step_generator(self, epoch: int, it: int, *key: int) -> torch.Generator:
         """The generator of step ``it`` of ``epoch``: seeded from (seed,
@@ -626,16 +622,8 @@ class GenerationEngine:
         om = occupancy_metrics(logits, labels, mask=m)
         return bce_with_logits(logits, labels, m), om["iou"], om["accuracy"]
 
-    @contextmanager
     def _stage(self, timings, name):
-        if timings is None:
-            yield
-            return
-        self._sync()
-        t0 = time.perf_counter()
-        yield
-        self._sync()
-        timings[name] = timings.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return synced_ms(timings, name, self.device)
 
     @torch.no_grad()
     def fused_eval_step(

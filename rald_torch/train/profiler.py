@@ -2,7 +2,8 @@
 (``rald_tpu/train/profiler.py:49-89``).
 
 The per-iteration iter/data timers live in
-:class:`rald_torch.train.metrics.MetricLogger.log_every`.
+:class:`rald_torch.train.metrics.MetricLogger.log_every`; :func:`synced_ms`
+is the engines' synchronised stage split of a step.
 """
 from __future__ import annotations
 
@@ -54,3 +55,19 @@ class StageTimer:
 
     def report(self) -> dict:
         return dict(sorted(self.seconds.items(), key=lambda kv: -kv[1]))
+
+
+@contextlib.contextmanager
+def synced_ms(timings, name: str, device):
+    """Add the block's wall milliseconds to ``timings[name]``, the CUDA
+    ``device`` synchronised before and after; a no-op when ``timings`` is
+    None."""
+    if timings is None:
+        yield
+        return
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda *_: None)
+    sync(device)
+    t0 = time.perf_counter()
+    yield
+    sync(device)
+    timings[name] = timings.get(name, 0.0) + (time.perf_counter() - t0) * 1e3

@@ -171,6 +171,18 @@ class TrainState:
         return self
 
 
+def masters_of(model: torch.nn.Module, dtype: torch.dtype) -> tuple:
+    """``(params, working)`` of a model whose float32 parameters train in
+    ``dtype``: in float32 the model's own parameters and None; otherwise
+    float32 masters, with the model cast to ``dtype`` as their working
+    copy (name -> the model's parameter)."""
+    if dtype == torch.float32:
+        return {k: p.detach() for k, p in model.named_parameters()}, None
+    params = {k: p.detach().float().clone() for k, p in model.named_parameters()}
+    model.to(dtype=dtype)
+    return params, dict(model.named_parameters())
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over all tensors (``optax.global_norm``)."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))

@@ -26,8 +26,6 @@ Pallas ``nn_min_sq_both`` kernel (exact subtract-square) in interpret
 mode. The
 test tree and the weights' seed are chosen so that the tiny radar encoder
 conditions every frame to <= 1e-6 on both sides (ROADMAP C5)."""
-import contextlib
-import functools
 import json
 
 import jax
@@ -38,6 +36,7 @@ import torch
 
 from rald_torch.config import Config as TConfig
 from torch_parity import DRAW_SEED, draw_params, jax_engine_and_params
+from torch_parity import jax_exact_chamfer as _jax_exact_chamfer
 
 PARAM_SEED = 1  # jax_engine_and_params(1): every frame of the tree conditions to <= 1e-6
 TREE_SEED = 1
@@ -51,25 +50,6 @@ def _highest_precision():
     with jax.default_matmul_precision("highest"):
         yield
     torch.set_float32_matmul_precision(before)
-
-
-@contextlib.contextmanager
-def _jax_exact_chamfer():
-    """rald_tpu's ``chamfer_and_fscore_batch`` on its TPU branch (the Pallas
-    ``nn_min_sq_both`` kernel, exact subtract-square), in interpret mode."""
-    import rald_tpu.eval.chamfer as jc
-    import rald_tpu.ops.nn_dist_kernel as nk
-
-    class _Tpu:
-        def __getattr__(self, name):
-            return (lambda: "tpu") if name == "default_backend" else getattr(jax, name)
-
-    kernel, jc.jax = nk.nn_min_sq_both, _Tpu()
-    nk.nn_min_sq_both = functools.partial(kernel, interpret=True)
-    try:
-        yield
-    finally:
-        nk.nn_min_sq_both, jc.jax = kernel, jax
 
 
 @pytest.fixture(scope="module")

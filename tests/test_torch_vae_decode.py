@@ -113,7 +113,7 @@ def test_decode_needs_one_output():
     head ``fold_decode_tail`` is ignored and the decode runs unfolded, as
     in JAX (``vecset_vae.py:229``)."""
     tvae = t_get_ae("kl_d512_m512_l32_mix", N=256, overrides=dict(OVERRIDES, output_dim=2),
-                    fold_decode_tail=True)
+                    fold_decode_tail=True).eval()  # no drop-path draws
     z, q = _latents_and_queries(n_q=64)
     with torch.no_grad():
         got = tvae.decode(torch.from_numpy(z), torch.from_numpy(q))

@@ -76,7 +76,7 @@ def test_encode_matches_jax(name):
     tm = get_ae_model(name, N=N, overrides=overrides)
     qt = AE_VARIANTS[name].get("query_type", "point")
     tm.load_state_dict(vae_state_dict_from_flax(params, depth=2, query_type=qt))
-    tm.requires_grad_(False)
+    tm.eval().requires_grad_(False)  # JAX's deterministic default: no drop-path draws
     x = torch.from_numpy(pc)
     deterministic = AE_VARIANTS[name].get("deterministic", False)
     eps = None if deterministic else torch.from_numpy(

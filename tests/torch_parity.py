@@ -3,6 +3,7 @@ config, flax parameters in ``model.init``'s tree and distributions, and
 carried into the port through ``rald_torch.convert.flax_params``."""
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 
@@ -135,3 +136,22 @@ def torch_engine(params, vae_params, **cfg_updates):
         vae_state_dict_from_flax(vae_params, depth=cfg.lidar_ae.overrides.depth, query_type="mix"),
     )
     return eng
+
+
+@contextlib.contextmanager
+def jax_exact_chamfer():
+    """rald_tpu's ``chamfer_and_fscore_batch`` on its TPU branch (the Pallas
+    ``nn_min_sq_both`` kernel, exact subtract-square), in interpret mode."""
+    import rald_tpu.eval.chamfer as jc
+    import rald_tpu.ops.nn_dist_kernel as nk
+
+    class _Tpu:
+        def __getattr__(self, name):
+            return (lambda: "tpu") if name == "default_backend" else getattr(jax, name)
+
+    kernel, jc.jax = nk.nn_min_sq_both, _Tpu()
+    nk.nn_min_sq_both = functools.partial(kernel, interpret=True)
+    try:
+        yield
+    finally:
+        nk.nn_min_sq_both, jc.jax = kernel, jax
