@@ -62,7 +62,8 @@ Phases, each printed before the last line:
 6. dataset eval: the eval entry point ``rald_torch.cli.main_generation.run``
    at full width over a synthetic ColoRadar tree (product raw shapes: radar
    (128, 8, 2), 16000 LiDAR and 512 raw CFAR points a frame, two test
-   sequences of 3 frames, one split file per scene), with the engine's
+   sequences of 3 frames, one split file per scene; the voxel caches
+   written by the port's ``dump_voxel``, as in phases 7 and 8), with the engine's
    seeded random weights (decoder sharpened as in phase 4) saved as
    reference ``.pth`` files and read back through ``eval.ckpt`` /
    ``lidar_ae.ckpt`` / ``radar_enc.ckpt``: the eval YAML as shipped (the
@@ -106,7 +107,7 @@ Phases, each printed before the last line:
    (``kl_d512_m512_l32_mix`` at full width: dim 512, 24 blocks, 512 x 32
    latents, 8 heads; N = 10000 points, batch 4, bf16, lr from ``blr``,
    JAX-init weights), cut to 2 epochs of 3 steps, ``save_ckpt_freq: 1``,
-   ``eval_freq: 2``, ``cache_voxel: false``: finite losses, step 6, the
+   ``eval_freq: 2``: finite losses, step 6, the
    EMA moved, ``checkpoint-0/1.pth`` read back bitwise, no kernel launch
    over the 6 train steps and exactly 48 of row 1 and 1 of row 2 per
    evaluated batch (two full forwards, 5e5 grid queries); a run resumed
@@ -122,6 +123,34 @@ Phases, each printed before the last line:
    ``matmul_precision: highest``, batch 2: 3 steps on the card and on the
    CPU from the same weights, batch and injected draws (posterior noise
    and drop-path masks), to (b) of phase 7's bars.
+9. data preparation: (a) a raw ColoRadar-layout tree from a seed: two
+   sequences (train and test in a split file) of 8 raw frames, 6 aligned
+   through the index files; int16 ADC at the product chirp,
+   (3, 4, 128, 128, 2) a frame (point targets of a room scene plus noise);
+   65536 x 4 LiDAR returns a scan (one OS1-64 sweep: the room, returns
+   behind the sensor and zero returns). (b) The five preprocessing CLIs
+   through their ``main`` on the card, with ``configs/preprocess/
+   coloradar.yml`` and ``coloradar_test_set.yml`` as shipped (only the
+   root, output, voxel and split paths replaced): ``relink``,
+   ``preprocess_lidar``, ``preprocess_radar`` ((128, 8, 2, 3) train cubes),
+   ``preprocess_radar --test-set`` ((128, 32, 16, 3) cubes), ``cache_cfar``
+   ((256, 256, 128), 8e5 points before the FOV filter) and ``dump_voxel
+   --mode sc_cone``. (c) Checks: every output file with its shape;
+   ``raeivv_map_batch`` on the card against the CPU on 8 frames of each
+   chirp (dB within 1e-3, velocity and validity equal on >= 99 % of
+   cells); ``cfar_points_from_cube`` on one high-res cube (equal budgets,
+   >= 99.9 % shared cells); ``os_cfar``, ``nq_cfar_2d``, ``mask_real_2d``
+   (masks equal, values within 1e-5 relative); ``rald_torch.native``
+   built, its voxelizer bitwise the numpy one on a scan; each test frame's
+   ``cache_voxel: true`` item bitwise its ``cache_voxel: false`` item.
+   (d) The processed test sequence through ``main_generation`` (eval mode,
+   the eval YAML as shipped with ``cache_voxel: true``; phase 6's ``.pth``
+   weights, the occupancy bias centred on this tree's cubes): every frame
+   evaluated, finite CD / F, one non-empty PLY a frame, rows 1 and 2
+   launched per batch as in phase 6. (e) The ``[prep]`` line: wall s per
+   frame of each CLI, CUDA-event ms of ``raeivv_map_batch`` per batch of 8
+   (both chirps) and of ``cfar_points_from_cube`` per frame, the host share
+   of a ``cache_cfar`` frame, peak device memory of the CLIs.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -154,6 +183,8 @@ import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 PRODUCT_CFG = REPO / "configs" / "generation" / "ge_indoor_unfreeze_enc_ints_only_eval.yml"
+PREP_CFG = REPO / "configs" / "preprocess" / "coloradar.yml"
+PREP_TEST_CFG = REPO / "configs" / "preprocess" / "coloradar_test_set.yml"
 
 # NVIDIA H100 SXM data-sheet peaks at 700 W (dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
@@ -1363,16 +1394,18 @@ def _inputs(cfg, bsz: int, rng: np.random.Generator, n_eval: int = 16384, n_cfar
     )
 
 
-def _center_occupancy(eng, batches) -> float:
+def _center_occupancy(eng, batches, sharpen: bool = True) -> float:
     """Make random weights give a real cloud on every frame. Random weights
     attend almost uniformly, so each query gets about its frame's mean
     logit and frames differ by more than queries do: the decoder's query
-    projection is sharpened 10x and the occupancy bias set so that at least
-    a fifth of each frame's probe queries score positive (the centring
+    projection is sharpened 10x (unless ``sharpen`` is False: weights that
+    were sharpened before) and the occupancy bias set so that at least a
+    fifth of each frame's probe queries score positive (the centring
     scripts/full_parity.py does, per frame)."""
     probe = np.random.default_rng(1).uniform(-1, 1, size=(1, 65536, 3)).astype(np.float32)
-    with torch.no_grad():
-        eng.vae.decoder_cross_attn.fn.to_q.weight.mul_(10.0)
+    if sharpen:
+        with torch.no_grad():
+            eng.vae.decoder_cross_attn.fn.to_q.weight.mul_(10.0)
     q80 = []
     for inputs in batches:
         tokens = eng.sample_tokens(inputs["radar_cube"], inputs["seeds_or_prior"])
@@ -1856,11 +1889,25 @@ EVAL_FRAMES = 3  # frames per test sequence; two sequences, one scene each
 EVAL_SCENES = ("scene_a", "scene_b")
 
 
+def _dump_voxels(tree: Path) -> int:
+    """The voxel caches of a synthetic tree, written by the port's
+    ``dump_voxel`` (``--mode sc_cone``, ``configs/preprocess/coloradar.yml``'s
+    voxel settings) into ``<tree>_voxel`` and linked into each sequence, as
+    the shipped YAMLs' ``cache_voxel: true`` reads them."""
+    from rald_torch.cli import dump_voxel
+    from rald_torch.config import load_config
+
+    cfg = load_config(PREP_CFG)
+    cfg.output_dir = str(tree)
+    cfg.voxel_output_dir = str(tree.parent / f"{tree.name}_voxel")
+    return dump_voxel.run(cfg, mode="sc_cone")
+
+
 def _eval_tree() -> dict:
     """A synthetic ColoRadar tree at the product YAML's raw shapes (radar
     (128, 8, 2), 16000 LiDAR points and 512 raw CFAR points a frame), two
-    test sequences of EVAL_FRAMES frames, and one split file per scene.
-    Returns {scene: test sequence}."""
+    test sequences of EVAL_FRAMES frames, their voxel caches, and one split
+    file per scene. Returns {scene: test sequence}."""
     import shutil
 
     from rald_torch.data.synthetic import make_synthetic_coloradar
@@ -1869,6 +1916,7 @@ def _eval_tree() -> dict:
     make_synthetic_coloradar(EVAL_ROOT, num_train_seqs=0, num_eval_seqs=2,
                              frames_per_seq=EVAL_FRAMES, points_per_frame=16000,
                              radar_shape=(128, 8, 2), helper_points=512, seed=21)
+    _dump_voxels(EVAL_ROOT)
     test = json.loads((EVAL_ROOT / "split_synth.json").read_text())["test"]
     for scene, seq in zip(EVAL_SCENES, test):
         (EVAL_ROOT / f"split_{scene}.json").write_text(
@@ -1878,30 +1926,28 @@ def _eval_tree() -> dict:
 
 def _eval_cfg(path: Path, label: str, **system):
     """A shipped YAML pointed at the synthetic tree, its outputs under
-    build/: split files per scene, ``cache_voxel: false`` (the voxel cache
-    is written by a tool the port lacks), ``system`` keys replaced."""
+    build/: split files per scene, ``system`` keys replaced."""
     from rald_torch.config import load_config
 
     cfg = load_config(path)
     out = SCRATCH / "eval" / label
     cfg.dataset.root_dir = str(EVAL_ROOT)
     cfg.dataset.split_file = {s: f"split_{s}.json" for s in EVAL_SCENES}
-    cfg.dataset.lidar.cache_voxel = False
     cfg.system.update(output_dir=str(out / "result"), log_dir=str(out / "log"), **system)
     cfg.eval.store_base_dir = str(out / "dumps")
     return cfg
 
 
-def _eval_cubes(cfg, scene: str) -> list:
-    """The dataset's first two test cubes of a scene, as engine inputs."""
+def _eval_cubes(cfg, scene: str, frames: int = 2) -> list:
+    """The dataset's first test cubes of a scene, as engine inputs."""
+    from rald_torch.config import Config
     from rald_torch.data.coloradar import ColoRadarDataset
 
     sub = json.loads(json.dumps(cfg.dataset.to_dict()))
-    sub["split_file"] = f"split_{scene}.json"
-    from rald_torch.config import Config
-
-    ds = ColoRadarDataset(EVAL_ROOT, Config(sub), loader_type="test")
-    return [{"radar_cube": ds[i]["radar_cube"][None], "seeds_or_prior": [i]} for i in range(2)]
+    split = cfg.dataset.split_file
+    sub["split_file"] = split[scene] if isinstance(split, dict) else split
+    ds = ColoRadarDataset(cfg.dataset.root_dir, Config(sub), loader_type="test")
+    return [{"radar_cube": ds[i]["radar_cube"][None], "seeds_or_prior": [i]} for i in range(frames)]
 
 
 def _save_weights(eng, label: str) -> dict:
@@ -1928,7 +1974,7 @@ def _set_ckpts(cfg, paths: dict):
     return cfg
 
 
-def _eval_run(cfg, label: str, scene: str, seq: str, engine=None) -> dict:
+def _eval_run(cfg, label: str, scene: str, seq: str, engine=None, n_frames=EVAL_FRAMES) -> dict:
     """One scene through ``rald_torch.cli.main_generation.run`` (the engine
     built and its ``.pth`` weights loaded unless ``engine`` is given), with a
     StageTimer, the launch counters zeroed just before and read just after.
@@ -1954,8 +2000,8 @@ def _eval_run(cfg, label: str, scene: str, seq: str, engine=None) -> dict:
     modular = bool(ev.get("store_pc", False))
     step = "sample_decode" if modular else "fused_eval_step"
     frames = st.counts.get(step, 0)
-    check(frames == EVAL_FRAMES, f"eval {label} {scene}: {frames} frames evaluated, "
-                                 f"want {EVAL_FRAMES} ({st.counts})")
+    check(frames == n_frames, f"eval {label} {scene}: {frames} frames evaluated, "
+                              f"want {n_frames} ({st.counts})")
     for k in ("loss", "iou", "accuracy", "cd", "fscore"):
         check(math.isfinite(stats[k]), f"eval {label} {scene}: {k} = {stats[k]}")
     per_batch = _per_nfe_cfg(sub) + int((sub.lidar_ae.get("overrides") or {}).get("depth", 24))
@@ -1967,7 +2013,7 @@ def _eval_run(cfg, label: str, scene: str, seq: str, engine=None) -> dict:
     if modular:
         d = Path(ev.store_base_dir) / ev.exp_name / seq / ev.save_pc_dir_name
         got = sorted(p.name for p in d.glob("*.ply"))
-        check(got == [f"{i:04d}.ply" for i in range(EVAL_FRAMES)], f"eval {label}: PLY files {got}")
+        check(got == [f"{i:04d}.ply" for i in range(n_frames)], f"eval {label}: PLY files {got}")
         points = [len(read_ply(d / f)) for f in got]
         check(all(n > 0 for n in points), f"eval {label} {scene}: empty clouds {points}")
     eval_s = sum(st.seconds.values())
@@ -2125,19 +2171,19 @@ def _train_tree() -> None:
     train = json.loads((TRAIN_TREE / "split_synth.json").read_text())["train"]
     (TRAIN_TREE / "split_train.json").write_text(
         json.dumps({"train": train, "val": ["synth_test"], "test": ["synth_test"]}))
+    _dump_voxels(TRAIN_TREE)
 
 
 def _train_cfg(path: Path, label: str, **train):
     """A shipped training YAML pointed at the synthetic tree, outputs under
-    build/: ``cache_voxel: false``, ``train`` keys replaced, the frozen
-    VAE and radar encoder from phase 6's ``.pth`` files."""
+    build/: ``train`` keys replaced, the frozen VAE and radar encoder from
+    phase 6's ``.pth`` files."""
     from rald_torch.config import load_config
 
     cfg = load_config(path)
     out = TRAIN_DIR / label
     cfg.dataset.root_dir = str(TRAIN_TREE)
     cfg.dataset.split_file = "split_train.json"
-    cfg.dataset.lidar.cache_voxel = False
     cfg.system.update(output_dir=str(out / "result"), log_dir=str(out / "log"))
     cfg.train.update({"epochs": 2, "save_ckpt_freq": 1, "eval_freq": 2, **train})
     cfg.lidar_ae.cache_path = str(TRAIN_DIR / "latent_cache")
@@ -2483,6 +2529,7 @@ def _ae_tree() -> list:
     split = {"train": json.loads((AE_TREE / "split_synth.json").read_text())["train"],
              "val": ["synth_val"], "test": ["synth_val"]}
     (AE_TREE / "split_ae.json").write_text(json.dumps(split))
+    _dump_voxels(AE_TREE)
     scenes = list(load_config(AE_EVAL_CFG).dataset.split_file)
     for scene in scenes:
         (AE_TREE / f"split_{scene}.json").write_text(json.dumps(split))
@@ -2491,14 +2538,13 @@ def _ae_tree() -> list:
 
 def _ae_cfg(path: Path, label: str, **train):
     """A shipped stage-1 YAML pointed at the synthetic tree, outputs under
-    build/: ``cache_voxel: false``, ``train`` keys replaced."""
+    build/: ``train`` keys replaced."""
     from rald_torch.config import load_config
 
     cfg = load_config(path)
     out = AE_DIR / label
     cfg.dataset.root_dir = str(AE_TREE)
     cfg.dataset.split_file = "split_ae.json"
-    cfg.dataset.lidar.cache_voxel = False
     cfg.system.update(output_dir=str(out / "result"), log_dir=str(out / "log"))
     cfg.train.update({"epochs": 2, "save_ckpt_freq": 1, "eval_freq": 2, **train})
     return cfg
@@ -2610,7 +2656,6 @@ def _ae_eval_sweep(ckpt: Path, scenes: list) -> dict:
     out = AE_DIR / "eval"
     cfg.dataset.root_dir = str(AE_TREE)
     cfg.dataset.split_file = {s: f"split_{s}.json" for s in scenes}
-    cfg.dataset.lidar.cache_voxel = False
     cfg.system.update(output_dir=str(out / "result"), log_dir=str(out / "log"))
     cfg.eval.ckpt = str(ckpt)
     path = AE_DIR / "eval.yml"
@@ -2793,6 +2838,410 @@ def phase_ae() -> dict:
     return {"product": prod["line"], "timing": timing, "sweep": sweep, "reference": ref}
 
 
+# --------------------------------------------------------------- phase 9
+PREP_DIR = SCRATCH / "prep"  # raw and processed trees, voxel caches and YAMLs of phase 9
+PREP_SEQS = ("prep_train", "prep_test")  # train and test sequence of the split file
+PREP_SPLIT = "split_prep.json"
+PREP_RAW_FRAMES, PREP_INDEX = 8, (0, 1, 3, 4, 6, 7)  # raw frames a sequence, the aligned ones
+LIDAR_SWEEP = 65536  # returns of one Ouster OS1-64 sweep (64 beams x 1024 columns)
+CONE_DIR = "cone_sc_0.05_0.25_0.5"  # dump_voxel --mode sc_cone at the shipped voxel size
+# card against CPU, stated before the first run: the CPU tests' bars against
+# JAX (raeivv_map: dB within 1e-3 abs, velocity and validity equal on >= 99 %
+# of cells; cfar_points_from_cube: equal budgets, >= 99.9 % shared cells;
+# the CFAR detectors: masks equal, values within 1e-5 relative)
+RAE_DB_ABS, RAE_AGREE, CFAR_SHARED, CFAR_REL = 1e-3, 0.99, 0.999, 1e-5
+
+
+def _dev_ms(fn, dev, iters: int = 5) -> float:
+    """Device ms per call (CUDA events); host ms where ``dev`` is the CPU."""
+    if torch.device(dev).type == "cuda":
+        return cuda_ms(fn, iters, warmup=1)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _adc_frame(rng, params, txl, rxl, targets: np.ndarray) -> np.ndarray:
+    """One int16 ADC frame (ntx, nrx, nc, ns, 2): each target (range m,
+    azimuth rad, elevation rad, velocity m/s, amplitude) a beat tone at its
+    range, a doppler phase ramp over each TX's chirps and a steering phase
+    over the virtual array, plus complex noise."""
+    ntx, nrx, nc, ns = params.num_tx, params.num_rx, params.num_chirps, params.num_adc_samples
+    taz, tel, raz, rel = np.zeros(ntx), np.zeros(ntx), np.zeros(nrx), np.zeros(nrx)
+    taz[txl[:, 0]], tel[txl[:, 0]] = txl[:, 1], txl[:, 2]
+    raz[rxl[:, 0]], rel[rxl[:, 0]] = rxl[:, 1], rxl[:, 2]
+    r, az, el, v, amp = targets.T
+    vmax = (3e8 / params.start_frequency) / (4 * params.chirp_time * ntx)
+    tone = np.exp(2j * np.pi * (r / params.max_range)[:, None] * np.arange(ns))
+    chirp = np.arange(nc)[None, :] + np.arange(ntx)[:, None] / ntx  # (ntx, nc) in chirp periods
+    dopp = np.exp(1j * np.pi * (v / vmax)[:, None, None] * chirp)
+    pos_az = taz[:, None] + raz[None, :]
+    pos_el = tel[:, None] + rel[None, :]
+    steer = np.exp(1j * np.pi * ((np.sin(az) * np.cos(el))[:, None, None] * pos_az
+                                 + np.sin(el)[:, None, None] * pos_el))
+    sig = np.einsum("k,kab,kac,kd->abcd", amp, steer, dopp, tone, optimize=True)
+    sig = sig + rng.normal(scale=8.0, size=sig.shape) + 1j * rng.normal(scale=8.0, size=sig.shape)
+    iq = np.stack([sig.real, sig.imag], axis=-1)
+    return np.clip(np.round(iq), -32768, 32767).astype(np.int16)
+
+
+def _lidar_scan(rng, room: np.ndarray, to_lidar: np.ndarray) -> np.ndarray:
+    """One LIDAR_SWEEP x 4 float32 scan in the LiDAR frame: the room's
+    returns, returns behind the sensor (outside the radar's FOV) and zero
+    returns, in random order, with an intensity column."""
+    from rald_torch import geometry as geo
+
+    n_zero, n_back = LIDAR_SWEEP // 20, LIDAR_SWEEP // 5
+    n_room = LIDAR_SWEEP - n_zero - n_back
+    back = room[rng.choice(len(room), n_back)] * np.float32(-1.0)
+    pts = np.concatenate([room[:n_room], back])
+    scan = np.zeros((LIDAR_SWEEP, 4), np.float32)
+    scan[:n_room + n_back, :3] = geo.transform_points(pts, to_lidar)
+    scan[:n_room + n_back, 3] = rng.uniform(0, 1, n_room + n_back)
+    return scan[rng.permutation(LIDAR_SWEEP)]
+
+
+def _prep_raw_tree() -> None:
+    """(a) the raw ColoRadar-layout tree from seed 91."""
+    import shutil
+
+    from rald_torch import geometry as geo
+    from rald_torch.constants import T_RADAR_TO_LIDAR
+    from rald_torch.data.synthetic import _room_points
+    from rald_torch.dsp import RadarParams, parse_antenna_array
+
+    shutil.rmtree(PREP_DIR, ignore_errors=True)
+    raw = PREP_DIR / "raw"
+    params = RadarParams.from_yaml(REPO / "configs" / "preprocess" / "1843_coloradar.yml")
+    txl, rxl = parse_antenna_array(REPO / "configs" / "preprocess" / "antenna_array.txt")
+    to_lidar = geo.get_inverse_tf(T_RADAR_TO_LIDAR)
+    rng = np.random.default_rng(91)
+    for seq in PREP_SEQS:
+        for d in ("cascade", "groundtruth", "imu"):
+            (raw / seq / d).mkdir(parents=True)
+        adc_dir = raw / seq / "single_chip" / "adc_samples" / "data"
+        lidar_dir = raw / seq / "lidar" / "pointclouds"
+        adc_dir.mkdir(parents=True)
+        lidar_dir.mkdir(parents=True)
+        for i in range(PREP_RAW_FRAMES):
+            room = _room_points(rng, LIDAR_SWEEP)
+            while len(room) < LIDAR_SWEEP:
+                room = np.concatenate([room, _room_points(rng, LIDAR_SWEEP)])
+            _lidar_scan(rng, room, to_lidar).tofile(lidar_dir / f"lidar_pointcloud_{i}.bin")
+            polar = geo.cartesian2polar(room[rng.choice(len(room), 24)].astype(np.float64))
+            targets = np.column_stack([polar[:, 0], np.radians(polar[:, 1]), np.radians(polar[:, 2]),
+                                       rng.normal(scale=0.5, size=24), rng.uniform(20, 80, 24)])
+            _adc_frame(rng, params, txl, rxl, targets).tofile(adc_dir / f"frame_{i}.bin")
+        for d in (adc_dir.parent, lidar_dir.parent):
+            name = "radar_index_sequence.txt" if d == adc_dir.parent else "lidar_index_sequence.txt"
+            (d / name).write_text("\n".join(map(str, PREP_INDEX)))
+    (raw / "calib").mkdir()
+    out = PREP_DIR / "processed"
+    out.mkdir()
+    (out / PREP_SPLIT).write_text(json.dumps({"train": [PREP_SEQS[0]], "val": [], "test": [PREP_SEQS[1]]}))
+
+
+def _prep_yaml(src: Path) -> Path:
+    """A shipped preprocessing YAML with only its paths replaced."""
+    from rald_torch.config import dump_config, load_config
+
+    cfg = load_config(src)
+    cfg.root_dir = str(PREP_DIR / "linked")
+    cfg.output_dir = str(PREP_DIR / "processed")
+    cfg.voxel_output_dir = str(PREP_DIR / "voxel")
+    cfg.split_file = PREP_SPLIT
+    path = PREP_DIR / src.name
+    dump_config(cfg, path)
+    return path
+
+
+def _prep_clis(device=None) -> dict:
+    """(b) the five CLIs through their ``main``, in order; wall s per item
+    (frame, or sequence for relink) and the peak device memory."""
+    from rald_torch.cli import cache_cfar, dump_voxel, preprocess_lidar, preprocess_radar, relink
+
+    cfg, test = str(_prep_yaml(PREP_CFG)), str(_prep_yaml(PREP_TEST_CFG))
+    dev = ["--device", device] if device else []
+    n, n_test = len(PREP_SEQS) * len(PREP_INDEX), len(PREP_INDEX)
+    steps = (("relink", relink.main, ["--src", str(PREP_DIR / "raw"), "--dst", str(PREP_DIR / "linked")],
+              len(PREP_SEQS)),
+             ("preprocess_lidar", preprocess_lidar.main, ["--config", cfg], n),
+             ("preprocess_radar", preprocess_radar.main, ["--config", cfg], n),
+             ("preprocess_radar --test-set", preprocess_radar.main, ["--config", test, "--test-set"], n_test),
+             ("cache_cfar", cache_cfar.main, ["--config", test], n_test),
+             ("dump_voxel --mode sc_cone", dump_voxel.main, ["--config", cfg, "--mode", "sc_cone"], n))
+    cuda = torch.cuda.is_available() and device is None
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for name, fn, argv, want in steps:
+        t0 = time.perf_counter()
+        got = fn(argv + dev)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(got == want, f"prep {name}: {got} items, want {want}")
+        out[name] = {"items": got, "wall_s": wall, "s_per_item": wall / got}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+    return out
+
+
+def _prep_check_files() -> dict:
+    """(c) every output file, with its shape: LiDAR inside the FOV, finite
+    cubes, helper points inside the FOV, voxel dicts, links."""
+    from rald_torch import geometry as geo
+    from rald_torch.cli.preprocess_lidar import fov_limits
+    from rald_torch.config import load_config
+
+    base = PREP_DIR / "processed"
+    lo, hi = np.array(fov_limits(load_config(PREP_CFG).single_chip_mode.lidar.FOV)).T
+    names = [f"{i:04d}" for i in range(len(PREP_INDEX))]
+
+    def listing(d: Path, suffix: str) -> list:
+        got = sorted(d.glob(f"*{suffix}"))
+        check([p.stem for p in got] == names, f"prep: {d} holds {[p.name for p in got]}")
+        return got
+
+    def in_fov(polar, what):
+        check(len(polar) > 0 and bool(((polar >= lo - 1e-3) & (polar <= hi + 1e-3)).all()),
+              f"prep: {what} outside the FOV or empty")
+
+    counts = {"lidar_points": [], "cfar_points": [], "voxels": []}
+    for seq in PREP_SEQS:
+        for f in listing(base / seq / "lidar_sc", ".bin"):
+            pts = np.fromfile(f, np.float32)
+            check(pts.size % 3 == 0, f"prep: {f} size {pts.size}")
+            in_fov(geo.cartesian2polar(pts.reshape(-1, 3)), f)
+            counts["lidar_points"].append(pts.size // 3)
+        for f in listing(base / seq / "single_chip" / "radarcube_raw", ".bin"):
+            cube = np.fromfile(f, np.float32)
+            check(cube.size == 128 * 8 * 2 * 3 and np.isfinite(cube).all(), f"prep: {f} size {cube.size}")
+        link = base / seq / CONE_DIR
+        check(link.is_symlink() and link.resolve() == (PREP_DIR / "voxel" / seq / CONE_DIR).resolve(),
+              f"prep: {link} is not the voxel cache's link")
+        for f in listing(link, ".npy"):
+            d = np.load(f, allow_pickle=True).item()
+            check(list(d) == ["voxels", "voxel_coords", "voxel_num_points"]
+                  and d["voxel_coords"].dtype == np.int32 and d["voxels"].shape[1:] == (10, 3)
+                  and len(d["voxel_coords"]) == len(d["voxels"]) == len(d["voxel_num_points"]) > 0,
+                  f"prep: {f} holds {[(k, v.dtype, v.shape) for k, v in d.items()]}")
+            counts["voxels"].append(len(d["voxel_coords"]))
+    test = base / PREP_SEQS[1] / "single_chip"
+    for f in listing(test / "radarcube_high_res", ".bin"):
+        cube = np.fromfile(f, np.float32)
+        check(cube.size == 128 * 32 * 16 * 3 and np.isfinite(cube).all(), f"prep: {f} size {cube.size}")
+    for f in listing(test / "radar_cfar_low_thrd", ".bin"):
+        pts = np.fromfile(f, np.float32)
+        check(pts.size % 3 == 0 and pts.size // 3 <= 800_000, f"prep: {f} size {pts.size}")
+        in_fov(pts.reshape(-1, 3), f)
+        counts["cfar_points"].append(pts.size // 3)
+    for seq in PREP_SEQS:
+        check(sorted(p.name for p in (PREP_DIR / "linked" / seq).iterdir())
+              == ["cascade", "groundtruth", "imu", "lidar", "single_chip"], f"prep: relinked {seq}")
+    return counts
+
+
+def _prep_dsp(dev="cuda") -> dict:
+    """(c) the DSP on ``dev`` against the CPU, and its times: raeivv_map_batch
+    on 8 raw frames of each chirp, cfar_points_from_cube on one high-res
+    cube, the three CFAR detectors once."""
+    from rald_torch.dsp import (RadarParams, cfar_points_from_cube, mask_real_2d, nq_cfar_2d,
+                                os_cfar, parse_antenna_array, rae_interpo, weighted_allocation)
+    from rald_torch.dsp.rae import load_adc_frame, raeivv_map_batch
+
+    pre = REPO / "configs" / "preprocess"
+    txl, rxl = parse_antenna_array(pre / "antenna_array.txt")
+    adc_dir = PREP_DIR / "raw" / PREP_SEQS[0] / "single_chip" / "adc_samples" / "data"
+    out = {}
+    for label, name in (("train", "1843_coloradar.yml"), ("test_set", "1843_coloradar_test_set.yml")):
+        params = RadarParams.from_yaml(pre / name)
+        frames = torch.from_numpy(np.stack([load_adc_frame(adc_dir / f"frame_{i}.bin", params)
+                                            for i in range(8)]))
+        t0 = time.perf_counter()
+        cpu = raeivv_map_batch(frames, params, txl, rxl).numpy()
+        cpu_s = time.perf_counter() - t0
+        fd = frames.to(dev)
+        got = raeivv_map_batch(fd, params, txl, rxl).cpu().numpy()
+        err = float(np.abs(got[..., 0] - cpu[..., 0]).max())
+        vel, val = float((got[..., 1] == cpu[..., 1]).mean()), float((got[..., 2] == cpu[..., 2]).mean())
+        check(got.shape == cpu.shape == (8, 128, params.azimuth_fftsize, params.elevation_fftsize, 3)
+              and err <= RAE_DB_ABS and vel >= RAE_AGREE and val >= RAE_AGREE,
+              f"prep raeivv_map_batch {label}: dB {err}, velocity {vel}, validity {val}")
+        out[f"raeivv_{label}"] = {"db_max_abs": err, "velocity_agree": vel, "validity_agree": val,
+                                  "ms_per_batch8": _dev_ms(lambda: raeivv_map_batch(fd, params, txl, rxl),
+                                                           dev),
+                                  "cpu_s_per_batch8": cpu_s}
+
+    cube = np.fromfile(PREP_DIR / "processed" / PREP_SEQS[1] / "single_chip" / "radarcube_high_res"
+                       / "0000.bin", np.float32).reshape(128, 32, 16, 3)[..., 0].copy()
+    tgt, total, max_range = (256, 256, 128), 800_000, RadarParams.from_yaml(pre / "1843_coloradar.yml").max_range
+
+    def budgets(x):
+        up = rae_interpo(x, *tgt)
+        return weighted_allocation(up.sum(dim=(1, 2)) / up.sum(), total).cpu().numpy()
+
+    x = torch.from_numpy(cube)
+    t0 = time.perf_counter()
+    want, _ = cfar_points_from_cube(x, *tgt, total, max_range)
+    cpu_s = time.perf_counter() - t0
+    xd = x.to(dev)
+    got, _ = cfar_points_from_cube(xd, *tgt, total, max_range)
+    shared = float((got.cpu() == want).all(dim=1).float().mean())
+    same = bool(np.array_equal(budgets(xd), budgets(x)))
+    check(same and shared >= CFAR_SHARED, f"prep cfar_points_from_cube: budgets equal {same}, shared {shared}")
+    out["cfar_points"] = {"budgets_equal": same, "shared_cells": shared, "cpu_s_per_frame": cpu_s,
+                          "ms_per_frame": _dev_ms(lambda: cfar_points_from_cube(xd, *tgt, total, max_range),
+                                                  dev)}
+
+    rng = np.random.default_rng(92)
+    prof = rng.exponential(size=128).astype(np.float32)
+    prof[[20, 70]] = (100.0, 80.0)
+    plane = rng.exponential(size=(128, 128)).astype(np.float32)
+    plane[[5, 60, 99], [5, 64, 120]] = (500.0, 300.0, 200.0)
+    power = rng.exponential(size=(2, 8, 128, 128)).astype(np.float32)
+    power[0, 3, 40, 50] = power[1, 6, 90, 17] = 400.0
+    p = RadarParams.from_yaml(pre / "1843_coloradar.yml")
+    runs = {"os_cfar": lambda a: (os_cfar(a, ws=16, ngc=2, tos=6),),
+            "nq_cfar_2d": lambda a: nq_cfar_2d(a, ws=4, ngc=2, quantile=0.75, tos=8),
+            "mask_real_2d": lambda a: mask_real_2d(a, p, ws=4, ngc=2, quantile=0.75, tos=2)}
+    for (name, fn), arr in zip(runs.items(), (prof, plane, power)):
+        a = torch.from_numpy(arr)
+        cpu_out, dev_out = fn(a), [t.cpu() for t in fn(a.to(dev))]
+        fires = int(cpu_out[0].sum())
+        check(fires > 0 and torch.equal(dev_out[0], cpu_out[0]), f"prep {name}: masks differ ({fires} fire)")
+        for g, w in zip(dev_out[1:], cpu_out[1:]):
+            check(bool(((g - w).abs() <= CFAR_REL * w.abs()).all()), f"prep {name}: values differ")
+        out[name] = {"fires": fires}
+    return out
+
+
+def _prep_native_and_items(eval_cfg) -> dict:
+    """(c) ``rald_torch.native`` built, its voxelizer bitwise the numpy one
+    on a scan; each test frame's ``cache_voxel: true`` item bitwise its
+    ``cache_voxel: false`` item (the eval YAML's dataset section)."""
+    from rald_torch import geometry as geo
+    from rald_torch import native
+    from rald_torch.config import Config, load_config
+    from rald_torch.data.coloradar import ColoRadarDataset
+    from rald_torch.data.voxelizer import voxelize
+
+    check(native.available(), "prep: rald_torch.native did not build")
+    lidar = load_config(PREP_CFG).single_chip_mode.lidar
+    pts = np.fromfile(PREP_DIR / "processed" / PREP_SEQS[0] / "lidar_sc" / "0000.bin", np.float32)
+    pts = geo.cartesian2polar(pts.reshape(-1, 3)).astype(np.float32)
+    args = (lidar.voxel_size, lidar.pc_range, lidar.voxel_max_num_points, lidar.max_voxels)
+    a, b = native.voxelize(pts, *args), voxelize(pts, *args)
+    for k in ("voxels", "coords", "num_points", "grid_size"):
+        check(getattr(a, k).dtype == getattr(b, k).dtype and np.array_equal(getattr(a, k), getattr(b, k)),
+              f"prep: native voxelize {k} differs from numpy")
+    sub = json.loads(json.dumps(eval_cfg.dataset.to_dict()))
+    sub["split_file"] = PREP_SPLIT
+    cached = ColoRadarDataset(eval_cfg.dataset.root_dir, Config(sub), loader_type="test")
+    sub["lidar"]["cache_voxel"] = False
+    live = ColoRadarDataset(eval_cfg.dataset.root_dir, Config(sub), loader_type="test")
+    check(cached.cache_voxel and not live.cache_voxel and len(cached) == len(PREP_INDEX),
+          f"prep: {len(cached)} test items")
+    for i in range(len(cached)):
+        x, y = cached[i], live[i]
+        check(sorted(x) == sorted(y), f"prep item {i}: keys {sorted(x)} vs {sorted(y)}")
+        for k, v in x.items():
+            same = (v.dtype == y[k].dtype and np.array_equal(v, y[k])) if isinstance(v, np.ndarray) \
+                else v == y[k]
+            check(same, f"prep item {i}: {k} differs between cache_voxel true and false")
+    return {"native_voxels": len(a.coords), "items_compared": len(cached)}
+
+
+def _prep_eval_cfg():
+    """The eval YAML as shipped (``cache_voxel: true``), pointed at the
+    processed tree with its split as one scene, outputs under build/, and
+    phase 6's ``.pth`` weights."""
+    from rald_torch.config import load_config
+
+    cfg = load_config(PRODUCT_CFG)
+    out = SCRATCH / "eval" / "prep"
+    cfg.dataset.root_dir = str(PREP_DIR / "processed")
+    cfg.dataset.split_file = {"prep": PREP_SPLIT}
+    cfg.system.update(output_dir=str(out / "result"), log_dir=str(out / "log"))
+    cfg.eval.store_base_dir = str(out / "dumps")
+    ckpt = SCRATCH / "eval" / "ckpt"
+    return _set_ckpts(cfg, {"eval.ckpt": str(ckpt / "unfrozen_edm.pth"),
+                            "lidar_ae.ckpt": str(ckpt / "unfrozen_vae.pth")})
+
+
+def _prep_eval(cfg) -> dict:
+    """(d) the processed test sequence through ``main_generation.run``: an
+    engine loaded from phase 6's ``.pth`` files, its occupancy bias centred
+    on this tree's cubes (the query projection stays as phase 6 sharpened
+    it), then ``_eval_run``'s checks."""
+    from rald_torch.cli import main_generation as mg
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    _phase6_weights()
+    eng = GenerationEngine(cfg)
+    lines = []
+    mg.load_eval_checkpoint(cfg, eng, lines.append)
+    mg.load_frozen_modules(cfg, eng, lines.append)
+    check(not any(l.startswith("WARNING") for l in lines), f"prep eval: {lines}")
+    shift = _center_occupancy(eng, _eval_cubes(cfg, "prep", len(PREP_INDEX)), sharpen=False)
+    print(f"[prep] eval weights from phase 6 (occupancy bias shift {shift:+.6f})")
+    line = _eval_run(cfg, "prep", "prep", PREP_SEQS[1], engine=eng, n_frames=len(PREP_INDEX))
+    del eng
+    torch.cuda.empty_cache()
+    return line
+
+
+def _prep_cfar_host_share(dev="cuda") -> dict:
+    """(e) cache_cfar's frame split: reading the cube and moving its
+    intensity to the device, the device call (its result back on the host),
+    and the FOV filter and write, over the test frames."""
+    from rald_torch import geometry as geo
+    from rald_torch.cli.preprocess_lidar import fov_limits
+    from rald_torch.config import load_config
+    from rald_torch.dsp import RadarParams, cfar_points_from_cube
+
+    cfg = load_config(PREP_TEST_CFG)
+    limits = fov_limits(cfg.single_chip_mode.lidar.FOV)
+    max_range = RadarParams.from_yaml(cfg.single_chip_mode.radar.config).max_range
+    cubes = PREP_DIR / "processed" / PREP_SEQS[1] / "single_chip" / "radarcube_high_res"
+    t = {"read": 0.0, "device": 0.0, "filter_write": 0.0}
+    for f in sorted(cubes.glob("*.bin")):
+        t0 = time.perf_counter()
+        cube = np.fromfile(f, np.float32).reshape(128, 32, 16, 3)
+        x = torch.from_numpy(np.ascontiguousarray(cube[..., 0])).to(dev)
+        t1 = time.perf_counter()
+        coords = cfar_points_from_cube(x, 256, 256, 128, 800_000, max_range)[0].cpu().numpy()
+        t2 = time.perf_counter()
+        geo.filter_points_polar(coords, limits).astype(np.float32).tofile(PREP_DIR / "cfar_probe.bin")
+        t3 = time.perf_counter()
+        for k, dt in zip(t, (t1 - t0, t2 - t1, t3 - t2)):
+            t[k] += dt * 1e3 / len(PREP_INDEX)
+    return {"ms_per_frame": t, "host_share": (t["read"] + t["filter_write"]) / sum(t.values())}
+
+
+def phase_prep() -> dict:
+    """Data preparation (phase 9): (a) the raw tree, (b) the five CLIs on the
+    card, (c) the checks, (d) the end-to-end eval, (e) the ``[prep]`` line."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("highest")
+    t0 = time.perf_counter()
+    _prep_raw_tree()
+    raw_s = time.perf_counter() - t0
+    clis = _prep_clis()
+    files = _prep_check_files()
+    dsp = _prep_dsp()
+    cfg = _prep_eval_cfg()
+    items = _prep_native_and_items(cfg)
+    split = _prep_cfar_host_share()
+    ev = _prep_eval(cfg)
+    line = {"raw_tree_s": raw_s, "clis": clis, "files": files, "dsp": dsp, "cfar_frame": split,
+            **items, "eval": {k: ev[k] for k in ("frames", "s_per_frame", "stats", "ply_points",
+                                                 "launches_per_batch")},
+            "device": smi_line()}
+    print("[prep] " + json.dumps(line))
+    return {"line": line, "eval": ev}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2822,6 +3271,9 @@ def main() -> int:
     t = time.perf_counter()
     ae = phase_ae()
     print(f"[time] phase 8 (stage-1 VAE training) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    prep = phase_prep()
+    print(f"[time] phase 9 (data preparation) {time.perf_counter() - t:.1f} s")
     # each kernel's launches in the runs of the mode that uses it: the main
     # path's eval step at batch 1 (and 8), or, for the two kernels no
     # inference chain reaches, the module / host API that does
@@ -2871,6 +3323,10 @@ def main() -> int:
     for k in kernels:
         k["ae_train"] = {"train_steps": ae["product"]["train_step_launches"][k["name"]],
                          "eval_per_batch": ae["product"]["eval_launches_per_batch"].get(k["name"], 0)}
+    # data preparation (phase 9): launches per batch of the processed raw
+    # tree's eval (the DSP itself reaches no kernel of the table)
+    for k in kernels:
+        k["prep_eval_per_batch"] = prep["eval"]["launches_per_batch"].get(k["name"], 0)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -113,7 +113,13 @@ def run(cfg: Config, inputs: str, out_dir: str, batch: int = 0, threshold: float
     file count, per-file point counts, mean points, seconds and frames/s
     (IO included). ``system.matmul_precision``, where set, is applied to the
     process first (:func:`rald_torch.apply_matmul_precision`), as JAX's CLI
-    applies it; the engine itself changes no global state."""
+    applies it; the engine itself changes no global state. ``WORLD_SIZE``
+    above 1 raises: the split of the files across ranks is not ported
+    (ROADMAP A11)."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "rald_torch.cli.infer: WORLD_SIZE > 1, but the port runs one process on "
+            "one card; torch.distributed / NCCL is not ported (ROADMAP A11)")
     if cfg.system.get("matmul_precision"):
         apply_matmul_precision(cfg.system.matmul_precision)
     if engine is None:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import os
 import time
 from pathlib import Path
 
@@ -27,7 +28,12 @@ from rald_torch.train.gen_engine import GenerationEngine
 
 def run(cfg, device=None, engine: GenerationEngine | None = None, print_fn=print) -> Path:
     """Write the cache; returns its directory. ``engine`` replaces the one
-    built (and loaded) from ``cfg``."""
+    built (and loaded) from ``cfg``. ``WORLD_SIZE`` above 1 raises: the
+    sharded sampler across ranks is not ported (ROADMAP A11)."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "rald_torch.cli.main_cache: WORLD_SIZE > 1, but the port runs one process on "
+            "one card; torch.distributed / NCCL is not ported (ROADMAP A11)")
     if cfg.system.get("matmul_precision"):
         apply_matmul_precision(cfg.system.matmul_precision)
     dataset = get_dataset(cfg.dataset, "train", seed=int(cfg.system.get("seed", 0)))

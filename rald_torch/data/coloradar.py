@@ -1,6 +1,9 @@
 """ColoRadar dataset: split indexing + per-frame sample assembly; the port's
 own copy of ``rald_tpu/data/coloradar.py:38-366``, item for item the same
-arrays as the JAX package's dataset on the same tree and seed.
+arrays as the JAX package's dataset on the same tree and seed, but for one
+repair: with ``cache_voxel: false`` it voxelizes with the configured voxel
+size in float64, as the voxel caches are written, where JAX rounds it to
+float32 first (ROADMAP C8), so a cached item equals the live one.
 
 Capability parity with reference
 ``datasets/aligned_coloradar/Coloradar_dataset.py`` (:19-524): identical
@@ -31,7 +34,8 @@ from rald_torch import geometry as geo
 from rald_torch.data.bucket import DEFAULT_EVAL_BUCKETS, pad_axis0, pick_bucket
 from rald_torch.data.query import aug_query_helper, sample_eval_queries, sample_train_queries
 from rald_torch.data.radar_proc import process_radar_cube
-from rald_torch.data.voxelizer import grid_size_of, voxelize
+from rald_torch.data.voxelizer import grid_size_of
+from rald_torch.native import voxelize  # C++ when built, numpy otherwise
 
 
 class ColoRadarDataset:
@@ -85,6 +89,11 @@ class ColoRadarDataset:
         self.num_samples = lidar.num_samples
         self.voxel_size = np.array(lidar.voxel_size, dtype=np.float32)
         self.grid_size = grid_size_of(self.pc_range, self.voxel_size)
+        # the voxelizer gets the configured values in float64, as dump_voxel
+        # gives them: float32's 0.05 puts a point on a voxel boundary (a range
+        # of exactly 10.5 m) one cell below the one its cache holds (ROADMAP C8)
+        self.voxelize_args = (np.asarray(lidar.voxel_size, np.float64),
+                              np.asarray(lidar.pc_range, np.float64))
         self.max_points_per_voxel = lidar.max_points_per_voxel
         self.max_voxels = lidar.max_number_of_voxels
         self.view_cone_mode = lidar.get("view_cone_mode", False)
@@ -227,7 +236,7 @@ class ColoRadarDataset:
         if self.cache_voxel:
             d = np.load(self.lidar_voxel_path_list[idx], allow_pickle=True).item()
             return d["voxels"], d["voxel_coords"], d["voxel_num_points"]
-        grid = voxelize(points, self.voxel_size, self.pc_range, self.max_points_per_voxel, self.max_voxels)
+        grid = voxelize(points, *self.voxelize_args, self.max_points_per_voxel, self.max_voxels)
         return grid.voxels, grid.coords, grid.num_points
 
     def _norm(self, pts):

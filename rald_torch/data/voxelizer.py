@@ -8,8 +8,8 @@
 - at most ``max_voxels`` voxels are kept (later ones dropped);
 - returned coordinates are (z, y, x).
 
-The JAX package also binds a C++ version of the same contract
-(``native/rald_native.cpp``); the port does not bind it yet.
+``native/rald_native.cpp`` implements the same contract in C++;
+:func:`rald_torch.native.voxelize` binds it and falls back to this one.
 """
 from __future__ import annotations
 

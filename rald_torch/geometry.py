@@ -1,8 +1,8 @@
-"""Point normalization, polar <-> cartesian and the FOV mask
-(``rald_tpu/geometry.py:28-104``).
+"""Point normalization, polar <-> cartesian, FOV masks and filters, rigid
+transforms (``rald_tpu/geometry.py:28-158``).
 
-Every function takes a torch tensor or a numpy array and returns the same
-kind. Conventions are the reference's: polar points are (range [m],
+The first six functions take a torch tensor or a numpy array and return
+the same kind; the host-side filters and transforms take numpy arrays. Conventions are the reference's: polar points are (range [m],
 azimuth [deg], elevation [deg]); ``cartesian2polar`` negates azimuth and
 ``polar2cartesian`` inverts that.
 """
@@ -96,3 +96,34 @@ def transform_points(points: np.ndarray, T) -> np.ndarray:
     return points @ np.asarray(T[:3, :3], dtype=points.dtype).T + np.asarray(
         T[:3, 3], dtype=points.dtype
     )
+
+
+def remove_points_outside_fov(points: np.ndarray) -> np.ndarray:
+    """Host-side compacting FOV filter (reference: utils/utils.py:106-112)."""
+    points = np.asarray(points)
+    return points[fov_mask(points)]
+
+
+def filter_points_polar(points: np.ndarray, range_limits) -> np.ndarray:
+    """Host-side compacting polar FOV filter (reference: lidar.py:92-109)."""
+    points = np.asarray(points)
+    return points[polar_range_mask(points, range_limits)]
+
+
+def remove_empty_points(points: np.ndarray) -> np.ndarray:
+    """Drop all-zero (invalid) lidar returns (reference: lidar.py:111-121)."""
+    return points[np.linalg.norm(points[:, :3], axis=1) > 0]
+
+
+def get_inverse_tf(T) -> np.ndarray:
+    """Closed-form inverse of a rigid 4x4 transform (reference: utils/utils.py:9-21)."""
+    T = np.asarray(T)
+    R = T[0:3, 0:3]
+    t = T[0:3, 3].reshape(3, 1)
+    top = np.concatenate([R.T, -R.T @ t], axis=1)
+    return np.concatenate([top, np.asarray([[0.0, 0.0, 0.0, 1.0]], dtype=top.dtype)], axis=0)
+
+
+def compact_points(points: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Host-boundary compaction of a masked point set."""
+    return np.asarray(points)[np.asarray(mask)]

@@ -92,8 +92,8 @@ def test_unknown_radar_param_is_refused():
 
 def test_import_pulls_in_no_jax_no_reference_no_triton(tmp_path):
     modules = sorted(
-        ".".join(p.relative_to(REPO).with_suffix("").parts)
-        for p in PORT.rglob("*.py") if p.name != "__init__.py"
+        ".".join(p.relative_to(REPO).with_suffix("").parts[: -1 if p.name == "__init__.py" else None])
+        for p in PORT.rglob("*.py")
     )
     code = (
         "import sys\n"
@@ -107,18 +107,24 @@ def test_import_pulls_in_no_jax_no_reference_no_triton(tmp_path):
                          timeout=120, env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    assert len(modules) >= 15
+    assert len(modules) >= 15 and "rald_torch.native" in modules
 
 
 def test_import_builds_nothing():
+    from rald_torch import native
     from rald_torch.ops import _build
 
-    assert _build.BUILD_DIR.parent.parent == REPO
-    before = sorted(_build.BUILD_DIR.glob("*.so")) if _build.BUILD_DIR.exists() else []
-    subprocess.run([sys.executable, "-c", "import rald_torch.ops, rald_torch.train.gen_engine"],
+    dirs = (_build.BUILD_DIR, native.BUILD_DIR)
+    assert all(d.parent.parent == REPO for d in dirs)
+
+    def built():
+        return [sorted(d.glob("*.so")) if d.exists() else [] for d in dirs]
+
+    before = built()
+    subprocess.run([sys.executable, "-c", "import rald_torch.ops, rald_torch.train.gen_engine, "
+                    "rald_torch.native, rald_torch.data.coloradar"],
                    cwd=REPO, check=True, timeout=120)
-    after = sorted(_build.BUILD_DIR.glob("*.so")) if _build.BUILD_DIR.exists() else []
-    assert after == before
+    assert built() == before
 
 
 def test_source_scan_has_no_jax_or_reference_imports():

@@ -237,3 +237,17 @@ def test_fast_inference_off_builds_the_plain_models(tmp_path):
     assert all(b.use_fused_ff and set(b.int8) == {"ff", "attn1"}
                for b in fast.model.model.transformer_blocks)
     assert fast.vae.fold_decode_tail and all(b.use_fused_ff for b in fast.vae.layers)
+
+
+def test_cli_refuses_world_size_above_one(tmp_path, monkeypatch):
+    """Under ``torchrun`` every rank would infer every file into the same
+    paths: the CLI refuses, as ``main_generation`` and ``main_ae`` do, until
+    the split across ranks is ported (ROADMAP A11)."""
+    from rald_torch.cli import infer
+
+    _raw_cubes(tmp_path / "in", {"s": 1})
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="WORLD_SIZE.*ROADMAP A11"):
+        infer.run(_cli_cfg(tmp_path), str(tmp_path / "in"), str(tmp_path / "o"), device="cpu",
+                  print_fn=lambda *_: None)
+    assert not (tmp_path / "o").exists()

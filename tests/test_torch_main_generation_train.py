@@ -143,6 +143,19 @@ def test_eval_cli_reads_trainer_checkpoint(tree, trained, tmp_path, use_ema):
     assert f"Using {'EMA' if use_ema else 'model'} parameters for evaluation" in lines
 
 
+def test_main_cache_refuses_world_size_above_one(tree, tmp_path, monkeypatch):
+    """Every rank would cache every train frame into the same files: the CLI
+    refuses, as ``main_generation`` does, until the sharded sampler across
+    ranks is ported (ROADMAP A11)."""
+    from rald_torch.cli import main_cache
+
+    cfg = _cfg(tree, tmp_path, **{"train.epochs": 1, "train.eval_freq": 0})
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="WORLD_SIZE.*ROADMAP A11"):
+        main_cache.run(cfg, device="cpu", print_fn=lambda *_: None)
+    assert not (tmp_path / "latent_cache").exists()
+
+
 def test_main_cache_then_cached_latent_epoch(tree, tmp_path):
     from rald_torch.cli import main_cache, main_generation as mg
     from rald_torch.data.registry import get_dataset
