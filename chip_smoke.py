@@ -151,6 +151,28 @@ Phases, each printed before the last line:
    frame of each CLI, CUDA-event ms of ``raeivv_map_batch`` per batch of 8
    (both chirps) and of ``cfar_points_from_cube`` per frame, the host share
    of a ``cache_cfar`` frame, peak device memory of the CLIs.
+10. multi-process runs (``rald_torch.parallel``), each child a process of
+   its own with the rendezvous in its environment, killed with the others
+   when one fails or DIST_TIMEOUT runs out. (a) ``main_generation`` in
+   train mode with ``WORLD_SIZE=1 RANK=0 LOCAL_RANK=0
+   MASTER_ADDR=127.0.0.1``: the shipped ``ge_indoor_unfreeze_enc_ints_only.yml``
+   at full width (bf16, batch 8) over phase 7's tree, one epoch of 3 steps
+   and its EMA evaluation: a process group on NCCL on cuda:0, no kernel
+   launch over the steps and exactly 864 of row 1 and 1 of row 2 per eval
+   batch, and the checkpoint's params and EMA bitwise those of the same
+   steps run with no process group (a mean over one rank is the identity;
+   cuDNN deterministic in both). (b) Two ranks that share cuda:0 over gloo
+   (NCCL refuses two ranks on one device): two stage-2 steps at depth 2 in
+   float32 ``highest``, local batch 4 of one global batch of 8, the draws
+   from the engine's generators: the ranks bitwise equal after each step,
+   within DIST_REL (loss, grad norm) and ``k * 1e-6 + 2 * lr * k`` (params,
+   EMA) of one process on the batch of 8; then ``infer`` over phase 4's
+   nine cubes at batch 8, rank ``r`` taking files ``r::2``: the union of the
+   two ranks' PLY files byte for byte the one-process run's, and 864
+   launches of row 1 per rank. (c) NCCL at world size 2 on cuda:0 and
+   cuda:1, the steps of (b), where the machine has two cards. The ``[dist]``
+   lines: timings and peak memory per rank beside the card's name and power
+   limit.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -3242,6 +3264,447 @@ def phase_prep() -> dict:
     return {"line": line, "eval": ev}
 
 
+# --------------------------------------------------------------- phase 10
+DIST_DIR = SCRATCH / "dist"  # outputs, payloads and child logs of the multi-process phase
+DIST_STEPS = 2
+DIST_TIMEOUT = 300  # s for one launch of child processes, then every child is killed
+# (b) two gloo ranks (local batch 4) against one process (batch 8), the
+# stage-2 path at depth 2 in float32 with matmul_precision "highest": loss
+# and grad norm within 1e-4 relative, params and EMA within k * 1e-6 + 2 *
+# lr * k absolute after k steps (the bars of tests/test_torch_parallel.py on
+# the CPU), stated before the first run
+DIST_REL = 1e-4
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_launch(jobs: list, env_of) -> list:
+    """One child process per job (``_dist_child(<job file>)``), ``env_of(i)``
+    the rendezvous variables of child ``i``; their output goes to a log
+    file each."""
+    import os
+
+    procs = []
+    for i, job in enumerate(jobs):
+        path = DIST_DIR / f"{job['label']}.json"
+        path.write_text(json.dumps(job))
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+                            "JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")}
+        env.update(env_of(i))
+        log = open(DIST_DIR / f"{job['label']}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke as c; sys.exit(c._dist_child(sys.argv[1]))",
+             str(path)], cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), job))
+        log.close()
+    return procs
+
+
+def _dist_wait(procs: list) -> list:
+    """Each child's result (its job's ``result`` file); every child is
+    killed when one fails or DIST_TIMEOUT runs out, and the phase fails."""
+    t0 = time.perf_counter()
+    while any(p.poll() is None for p, _ in procs):
+        failed = [j["label"] for p, j in procs if p.poll() not in (None, 0)]
+        if failed or time.perf_counter() - t0 > DIST_TIMEOUT:
+            for p, _ in procs:
+                p.kill()
+            for p, _ in procs:
+                p.wait()
+            logs = "\n".join((DIST_DIR / f"{j['label']}.log").read_text()[-4000:] for _, j in procs)
+            check(False, f"dist: {failed or 'timed out'}:\n{logs}")
+        time.sleep(0.2)
+    for p, j in procs:
+        check(p.returncode == 0, f"dist {j['label']}: exit {p.returncode}:\n"
+              + (DIST_DIR / f"{j['label']}.log").read_text()[-4000:])
+    return [torch.load(j["result"], weights_only=False) for _, j in procs]
+
+
+def _dist_train_cfg(label: str):
+    """(a) the shipped training YAML (bf16, batch 8, full width) over phase
+    7's tree: one epoch of 3 steps, a checkpoint, the EMA evaluation on the
+    2-frame test scene."""
+    cfg = _train_cfg(TRAIN_CFG, label, epochs=1, eval_freq=1, save_ckpt_freq=1)
+    cfg.eval.use_test_set = True
+    return cfg
+
+
+def _dist_f32_cfg(label: str, bsz: int):
+    """(b) the same YAML at depth 2 (DiT and VAE), float32 with
+    ``matmul_precision: highest``, ``bsz`` frames a rank."""
+    cfg = _train_cfg(TRAIN_CFG, label)
+    cfg.system.update(compute_dtype="float32", matmul_precision="highest")
+    cfg.dataset.batch_size = bsz
+    for sec in (cfg.ar_model, cfg.lidar_ae):
+        sec.overrides = {**(sec.get("overrides") or {}), "depth": 2}
+    return cfg
+
+
+def _dist_infer_cfg():
+    """(b) the product eval YAML with phase 6's ``.pth`` weights."""
+    d = SCRATCH / "eval" / "ckpt"
+    cfg = _eval_cfg(PRODUCT_CFG, "dist_infer")
+    return _set_ckpts(cfg, {"eval.ckpt": str(d / "unfrozen_edm.pth"),
+                            "lidar_ae.ckpt": str(d / "unfrozen_vae.pth")})
+
+
+def _digest(tree: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        h.update(k.encode())
+        h.update(tree[k].detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dist_steps(batch: dict, rows: slice, label: str, keep: bool) -> dict:
+    """DIST_STEPS stage-2 steps of ``_dist_f32_cfg`` on ``rows`` of the
+    global batch, the draws from the engine's generators (under a process
+    group each rank's rows of the global draws): per step the loss, grad
+    norm, ms and the digests of params and EMA (and, with ``keep``, their
+    values on the host); the peak memory."""
+    from rald_torch import apply_matmul_precision
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    local = {k: v[rows] for k, v in batch.items()}
+    bsz = len(local["lidar_points"])
+    apply_matmul_precision("highest")
+    eng = GenerationEngine(_dist_f32_cfg(label, bsz))
+    state = eng.init_state(3, len(batch["lidar_points"]))
+    torch.cuda.reset_peak_memory_stats()
+    recs = []
+    for k in range(DIST_STEPS):
+        torch.cuda.synchronize()
+        t0, split = time.perf_counter(), {}
+        latents, cube = eng.prepare_inputs(local, eng.step_generator(0, k, 99), timings=split)
+        state, m = eng.train_step(state, latents, cube, eng.step_generator(0, k), timings=split)
+        torch.cuda.synchronize()
+        rec = {"ms": (time.perf_counter() - t0) * 1e3, "split_ms": split, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "params_sha": _digest(state.params),
+               "ema_sha": _digest(state.ema_params), "lr": eng.lr_schedule(k)}
+        if keep:
+            rec["params"] = {n: v.cpu().clone() for n, v in state.params.items()}
+            rec["ema"] = {n: v.cpu().clone() for n, v in state.ema_params.items()}
+        recs.append(rec)
+    out = {"steps": recs, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del eng, state
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True  # torch's defaults again
+    torch.set_float32_matmul_precision("highest")
+    return out
+
+
+def _dist_infer(out_dir: Path, thr: float) -> dict:
+    """``infer.run`` over phase 4's nine cubes at batch 8 (under a process
+    group: this rank's files), the launch counters zeroed just before and
+    read just after."""
+    from rald_torch.cli import infer
+    from rald_torch.ops import launch_counts, reset_launch_counts
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("highest")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = infer.run(_dist_infer_cfg(), str(SCRATCH / "cli_cubes"), str(out_dir), batch=8,
+                      threshold=thr, print_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0, "files": stats["files"],
+            "points": stats["points"], "launches": launch_counts()}
+
+
+def _dist_child(job_path: str) -> int:
+    """A child of phase 10: joins the group its environment describes and
+    runs its job, writing the job's ``result`` (``torch.save``)."""
+    from rald_torch.parallel import backend, destroy, init_distributed
+
+    sys.path.insert(0, str(REPO))
+    job = json.loads(Path(job_path).read_text())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t_start = time.perf_counter()
+    if job["kind"] == "train_cli":
+        out = _dist_train_child(job)
+    else:
+        info = init_distributed(job["device"], backend=job["backend"])
+        rank = info["rank"]
+        batch = torch.load(job["batch"], weights_only=False)
+        n = len(batch["lidar_points"]) // info["world_size"]
+        out = {"info": info, "backend": backend(), "device": job["device"],
+               "steps": _dist_steps(batch, slice(rank * n, (rank + 1) * n), job["label"],
+                                    keep=rank == 0)}
+        if job.get("infer_out"):
+            out["infer"] = _dist_infer(Path(job["infer_out"]), job["threshold"])
+    out["wall_s"] = time.perf_counter() - t_start
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    destroy()
+    torch.save(out, job["result"])
+    return 0
+
+
+def _dist_train_child(job: dict) -> dict:
+    """(a) in the child: ``main_generation.run`` on ``_dist_train_cfg``, which
+    joins the group of one its environment describes."""
+    from rald_torch.cli import main_generation as mg
+    from rald_torch.ops import reset_launch_counts
+    from rald_torch.parallel import backend, process_info
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    cfg = _dist_train_cfg(job["label"])
+    eng = GenerationEngine(cfg)
+    captured, init = {}, eng.init_state
+    eng.init_state = lambda *a: captured.setdefault("state", init(*a))
+    train_d, eval_d, lines = [], [], []
+    _counted(eng, "train_one_epoch", train_d)
+    _counted(eng, "evaluate", eval_d)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    mg.run(cfg, engine=eng, print_fn=lines.append)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    # the synchronised split of 4 more steps (the first a warm-up), after the run
+    batch = next(iter(mg.build_train_loader(cfg, print_fn=lambda *_: None)))
+    splits = []
+    for it in range(4):
+        t = {}
+        latents, cube = eng.prepare_inputs(batch, eng.step_generator(9, it, 99), timings=t)
+        eng.train_step(captured["state"], latents, cube, eng.step_generator(9, it), timings=t)
+        splits.append(t)
+    return {"run_s": run_s, "backend": backend(), "info": process_info(),
+            "current_device": torch.cuda.current_device(),
+            "dist_lines": [l for l in lines if l.startswith("distributed:")],
+            "train_launches": train_d, "eval_launches": eval_d, "records": _records(cfg),
+            "split_ms": {k: float(np.median([t[k] for t in splits[1:]])) for k in splits[0]}}
+
+
+def _dist_nccl_world1() -> dict:
+    """(a) ``main_generation`` in train mode in a child with ``WORLD_SIZE=1
+    RANK=0 LOCAL_RANK=0 MASTER_ADDR=127.0.0.1``: NCCL on cuda:0, exact
+    launches (none over the steps; rows 1 and 2 per eval batch), and its
+    checkpoint's params and EMA bitwise those of the same steps run here
+    with no process group."""
+    from rald_torch.cli import main_generation as mg
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    port = _free_port()
+    job = {"kind": "train_cli", "label": "nccl_world1", "result": str(DIST_DIR / "nccl_world1.out")}
+    t0 = time.perf_counter()
+    (child,) = _dist_wait(_dist_launch([job], lambda i: {
+        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": "1", "RANK": "0",
+        "LOCAL_RANK": "0"}))
+    child_s = time.perf_counter() - t0
+    check(child["backend"] == "nccl" and child["current_device"] == 0,
+          f"dist (a): backend {child['backend']} on cuda:{child['current_device']}")
+    check(child["dist_lines"] == ["distributed: rank 0/1 backend nccl device cuda:0"],
+          f"dist (a): {child['dist_lines']}")
+    check([r["epoch"] for r in child["records"]] == [0] and "val_loss" in child["records"][0],
+          f"dist (a): records {child['records']}")
+    check(all(all(v == 0 for v in d.values()) for d in child["train_launches"]),
+          f"dist (a): kernels launched over the train steps {child['train_launches']}")
+    want = {n: 0 for n in KERNEL_NAMES}
+    want.update(fused_ln_geglu_residual=864 * TEST_FRAMES, nn_min_sq_both=TEST_FRAMES)
+    check(len(child["eval_launches"]) == 1, f"dist (a): {len(child['eval_launches'])} evaluations")
+    _check_counts(child["eval_launches"][0], want, "dist (a) eval")
+
+    # the same steps here, with no process group
+    cfg = _dist_train_cfg("nccl_world1_ref")
+    cfg.train.eval_freq = 0
+    eng = GenerationEngine(cfg)
+    captured, init = {}, eng.init_state
+    eng.init_state = lambda *a: captured.setdefault("state", init(*a))
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    mg.run(cfg, engine=eng, print_fn=lambda *_: None)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = det
+    st = captured["state"]
+    ckpt = Path(_dist_train_cfg("nccl_world1").system.output_dir) / "checkpoint-0.pth"
+    ck = torch.load(ckpt, map_location="cpu", weights_only=True)
+    check(ck["step"] == st.step == 3, f"dist (a): steps {ck['step']} / {st.step}")
+    for key, tree in (("model", st.params), ("model_ema", st.ema_params)):
+        bad = [n for n, v in tree.items() if not torch.equal(ck[key][n], v.cpu())]
+        check(not bad, f"dist (a): NCCL world-1 {key} differs from no group at {bad[:4]}")
+    del eng, st, ck, captured
+    for label in ("nccl_world1", "nccl_world1_ref"):
+        for f in (TRAIN_DIR / label / "result").glob("checkpoint-*.pth"):
+            f.unlink()
+    torch.cuda.empty_cache()
+    line = {"mode": "(a) NCCL world 1, main_generation train", "backend": child["backend"],
+            "child_wall_s": child_s, "child_run_s": child["run_s"],
+            "child_peak_gib": child["peak_gib"], "no_group_run_s": ref_s,
+            "split_ms": child["split_ms"],
+            "records": child["records"], "params_ema_bitwise_no_group": True,
+            "eval_launches_per_batch": {k: v // TEST_FRAMES
+                                        for k, v in child["eval_launches"][0].items() if v},
+            "device": smi_line()}
+    print("[dist] " + json.dumps(line))
+    return line
+
+
+def _dist_pair(backend: str, devices: tuple, batch_path: Path, ref: dict, infer_thr=None,
+               infer_ref: Path = None) -> dict:
+    """Two ranks (``backend`` on ``devices``): DIST_STEPS steps of local
+    batch 4, the ranks bitwise equal after each, within DIST_REL and the
+    params bar of the one-process batch-8 run ``ref``; with ``infer_thr``
+    also ``infer.run``, whose union of PLY files must be ``infer_ref``'s,
+    byte for byte, with exact launches per rank."""
+    import shutil
+
+    port = _free_port()
+    infer_out = DIST_DIR / f"infer_{backend}"
+    shutil.rmtree(infer_out, ignore_errors=True)
+    jobs = [{"kind": "steps", "label": f"{backend}_world2_rank{r}", "device": devices[r],
+             "backend": backend, "batch": str(batch_path),
+             "result": str(DIST_DIR / f"{backend}_world2_rank{r}.out"),
+             **({"infer_out": str(infer_out), "threshold": infer_thr} if infer_thr is not None
+                else {})} for r in range(2)]
+    t0 = time.perf_counter()
+    outs = _dist_wait(_dist_launch(jobs, lambda i: {
+        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": "2", "RANK": str(i),
+        "LOCAL_RANK": devices[i].split(":")[1]}))
+    wall = time.perf_counter() - t0
+    for r, o in enumerate(outs):
+        check(o["backend"] == backend and o["info"]["rank"] == r and o["info"]["world_size"] == 2,
+              f"dist {backend}: rank {r} joined {o['info']} on {o['backend']}")
+    r0, r1 = (o["steps"]["steps"] for o in outs)
+    worst = {"loss_rel": 0.0, "grad_norm_rel": 0.0, "params_abs": 0.0, "ema_abs": 0.0}
+    lr_sum = 0.0
+    for k, (a, b, w) in enumerate(zip(r0, r1, ref["steps"]), start=1):
+        check(a["params_sha"] == b["params_sha"] and a["ema_sha"] == b["ema_sha"]
+              and a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"],
+              f"dist {backend}: the ranks differ after step {k}")
+        lr_sum += w["lr"]
+        worst["loss_rel"] = max(worst["loss_rel"], abs(a["loss"] - w["loss"]) / abs(w["loss"]))
+        worst["grad_norm_rel"] = max(worst["grad_norm_rel"],
+                                     abs(a["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"]))
+        bar = k * 1e-6 + 2 * lr_sum
+        for tree, key in (("params", "params_abs"), ("ema", "ema_abs")):
+            worst[key] = max(worst[key], max(float((a[tree][n] - v).abs().max())
+                                             for n, v in w[tree].items()))
+        check(worst["loss_rel"] <= DIST_REL and worst["grad_norm_rel"] <= DIST_REL
+              and worst["params_abs"] <= bar and worst["ema_abs"] <= bar,
+              f"dist {backend}: step {k}: {worst} against world 1 (params bar {bar})")
+        worst["params_bar"] = bar
+    line = {"mode": f"(b/c) {backend} world 2 on {list(devices)}", "wall_s": wall,
+            "rank_wall_s": [o["wall_s"] for o in outs], "rank_peak_gib": [o["peak_gib"] for o in outs],
+            "rank_step_ms": [[s["ms"] for s in o["steps"]["steps"]] for o in outs],
+            "world1_step_ms": [s["ms"] for s in ref["steps"]], "world1_peak_gib": ref["peak_gib"],
+            "rank_all_reduce_ms": [[s["split_ms"]["all_reduce"] for s in o["steps"]["steps"]]
+                                   for o in outs],
+            "world1_all_reduce_ms": [s["split_ms"]["all_reduce"] for s in ref["steps"]],
+            "loss": [s["loss"] for s in r0], "world1_loss": [s["loss"] for s in ref["steps"]],
+            "grad_norm": [s["grad_norm"] for s in r0],
+            "world1_grad_norm": [s["grad_norm"] for s in ref["steps"]], **worst,
+            "ranks_bitwise_equal": True, "device": smi_line()}
+    if infer_thr is not None:
+        got = {str(p.relative_to(infer_out)): p.read_bytes() for p in sorted(infer_out.rglob("*.ply"))}
+        want = {str(p.relative_to(infer_ref)): p.read_bytes() for p in sorted(infer_ref.rglob("*.ply"))}
+        check(sorted(got) == sorted(want) and len(want) == sum(CLI_FRAMES),
+              f"dist {backend} infer: PLY files {sorted(got)} vs {sorted(want)}")
+        diff = [k for k in want if got[k] != want[k]]
+        check(not diff, f"dist {backend} infer: PLY files differ from world 1: {diff}")
+        per_nfe = (2 * 18 - 1) * 24
+        for r, o in enumerate(outs):
+            inf = o["infer"]
+            check(inf["files"] == len(range(r, sum(CLI_FRAMES), 2)), f"dist infer rank {r}: {inf}")
+            want_l = {n: 0 for n in KERNEL_NAMES}
+            want_l["fused_ln_geglu_residual"] = -(-inf["files"] // 8) * (per_nfe + 24)
+            _check_counts(inf["launches"], want_l, f"dist {backend} infer rank {r}")
+        points = [n for o in outs for n in o["infer"]["points"]]
+        check(sum(n > 0 for n in points) >= 8, f"dist {backend} infer: empty clouds {points}")
+        line["infer"] = {"rank_files": [o["infer"]["files"] for o in outs],
+                         "rank_wall_s": [o["infer"]["wall_s"] for o in outs],
+                         "rank_launches": [{k: v for k, v in o["infer"]["launches"].items() if v}
+                                           for o in outs],
+                         "ply_union_bytewise_world1": True,
+                         "points": [o["infer"]["points"] for o in outs]}
+    print("[dist] " + json.dumps(line))
+    return line
+
+
+def phase_dist() -> dict:
+    """Multi-process runs (phase 10): (a) NCCL at world size 1 through
+    ``main_generation``; (b) two ranks sharing cuda:0 over gloo (NCCL
+    refuses two ranks on one device): stage-2 steps and ``infer``; (c) NCCL
+    at world size 2 where the machine has two cards."""
+    import shutil
+
+    from rald_torch.cli import main_generation as mg
+
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    _phase6_weights()
+    if not (TRAIN_TREE / "split_train.json").exists():
+        _train_tree()
+    if not (SCRATCH / "cli_cubes").exists():
+        _cli_cubes(_product_cfg())
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    a = _dist_nccl_world1()
+    a_s = time.perf_counter() - t0
+
+    # (b): the global batch of 8 and the one-process references
+    t0 = time.perf_counter()
+    loader = mg.build_train_loader(_dist_f32_cfg("dist_batch", 8), print_fn=lambda *_: None)
+    full = next(iter(loader))
+    batch = {k: torch.from_numpy(np.asarray(full[k])) for k in ("lidar_points", "radar_cube")}
+    batch_path = DIST_DIR / "batch.pt"
+    torch.save(batch, batch_path)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ref = _dist_steps(batch, slice(0, 8), "dist_world1", keep=True)
+    thr = _dist_threshold()
+    infer_ref = DIST_DIR / "infer_world1"
+    ref_infer = _dist_infer(infer_ref, thr)
+    torch.backends.cudnn.deterministic = det
+    print("[dist] (b) two ranks share cuda:0 over gloo: NCCL refuses two ranks on one device "
+          "(\"Duplicate GPU detected\")")
+    b = _dist_pair("gloo", ("cuda:0", "cuda:0"), batch_path, ref, thr, infer_ref)
+    b["world1_infer"] = {"wall_s": ref_infer["wall_s"],
+                         "launches": {k: v for k, v in ref_infer["launches"].items() if v}}
+    b_s = time.perf_counter() - t0
+    n = torch.cuda.device_count()
+    if n >= 2:
+        print(f"[dist] (c) {n} cards: NCCL at world size 2 on cuda:0 and cuda:1")
+        c = _dist_pair("nccl", ("cuda:0", "cuda:1"), batch_path, ref)
+    else:
+        print(f"[dist] (c) skipped: {n} card, NCCL at world size 2 needs two")
+        c = None
+    print(f"[dist] phase 10 split: (a) {a_s:.1f} s, (b) {b_s:.1f} s")
+    return {"nccl_world1": a, "gloo_world2": b, "nccl_world2": c}
+
+
+def _dist_threshold() -> float:
+    """The least of the first 8 cubes' 90th logit percentiles, from the
+    engine ``infer`` builds from the same YAML: a threshold that leaves
+    every one of them a cloud."""
+    from rald_torch.cli import infer
+    from rald_torch.cli.main_generation import load_eval_checkpoint, load_frozen_modules
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    cfg = _dist_infer_cfg()
+    eng = GenerationEngine(cfg)
+    load_eval_checkpoint(cfg, eng, print_fn=lambda *_: None)
+    load_frozen_modules(cfg, eng, print_fn=lambda *_: None)
+    files = infer.collect_inputs(str(SCRATCH / "cli_cubes"))[:8]
+    cubes = np.stack([infer.preprocess(infer.load_cube(f), cfg.dataset.radar) for f in files])
+    grid = torch.from_numpy(infer.query_grid(cfg)).cuda()[None].expand(8, -1, -1)
+    logits = eng.decode_queries(eng.sample_tokens(cubes, list(range(8))), grid)
+    thr = float(torch.quantile(logits[:, ::16].float(), 0.9, dim=1).min())
+    del eng
+    torch.cuda.empty_cache()
+    return thr
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3274,6 +3737,9 @@ def main() -> int:
     t = time.perf_counter()
     prep = phase_prep()
     print(f"[time] phase 9 (data preparation) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    dist = phase_dist()
+    print(f"[time] phase 10 (multi-process) {time.perf_counter() - t:.1f} s")
     # each kernel's launches in the runs of the mode that uses it: the main
     # path's eval step at batch 1 (and 8), or, for the two kernels no
     # inference chain reaches, the module / host API that does
@@ -3327,6 +3793,15 @@ def main() -> int:
     # tree's eval (the DSP itself reaches no kernel of the table)
     for k in kernels:
         k["prep_eval_per_batch"] = prep["eval"]["launches_per_batch"].get(k["name"], 0)
+    # multi-process runs (phase 10): rows 1 and 2 per eval batch of the NCCL
+    # world-1 training run, and per rank of the two-rank gloo infer
+    for k in kernels:
+        if k["name"] in ("fused_ln_geglu_residual", "nn_min_sq_both"):
+            k["dist"] = {
+                "nccl_world1_eval_per_batch":
+                    dist["nccl_world1"]["eval_launches_per_batch"].get(k["name"], 0),
+                "gloo_world2_infer_per_rank": [l.get(k["name"], 0) for l in
+                                               dist["gloo_world2"]["infer"]["rank_launches"]]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

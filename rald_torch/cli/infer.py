@@ -28,10 +28,16 @@ does), ``radar_enc.ckpt`` are reference-layout ``.pth`` files, read as
 ``main_generation`` reads them; a missing one warns and samples seeded
 random weights, as JAX does.
 
-Where it differs from the JAX tool: it runs as one process on one card (no
-multi-host split of the file list, and ``shard_queries`` has nothing to
-shard over); an orbax checkpoint directory raises ``NotImplementedError``
-(reading orbax is not ported).
+N processes (``torchrun --nproc_per_node=N -m rald_torch.cli.infer ...``, or
+the same ``MASTER_ADDR`` / ``WORLD_SIZE`` / ``RANK`` environment) split the
+file list: rank ``r`` takes files ``r, r + N, ...`` and writes their PLY
+files, and each frame keeps the prior seed of its index in the whole list,
+so its cloud does not depend on how many ranks share the job (JAX's
+``rald_tpu/cli/infer.py:125-131``, ``:173``).
+
+Where it differs from the JAX tool: ``shard_queries`` has nothing to shard
+over (one card a process); an orbax checkpoint directory raises
+``NotImplementedError`` (reading orbax is not ported).
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ import torch
 
 from rald_torch import apply_matmul_precision
 from rald_torch import geometry as geo
-from rald_torch.cli.main_generation import load_eval_checkpoint, load_frozen_modules
+from rald_torch.cli.main_generation import join, load_eval_checkpoint, load_frozen_modules
 from rald_torch.config import Config, load_config
 from rald_torch.data.radar_proc import process_radar_cube
 from rald_torch.eval.ply import write_ply
@@ -113,13 +119,11 @@ def run(cfg: Config, inputs: str, out_dir: str, batch: int = 0, threshold: float
     file count, per-file point counts, mean points, seconds and frames/s
     (IO included). ``system.matmul_precision``, where set, is applied to the
     process first (:func:`rald_torch.apply_matmul_precision`), as JAX's CLI
-    applies it; the engine itself changes no global state. ``WORLD_SIZE``
-    above 1 raises: the split of the files across ranks is not ported
-    (ROADMAP A11)."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "rald_torch.cli.infer: WORLD_SIZE > 1, but the port runs one process on "
-            "one card; torch.distributed / NCCL is not ported (ROADMAP A11)")
+    applies it; the engine itself changes no global state. Under a process
+    group (joined first) the counts and times are this rank's, over its
+    files ``rank::world``."""
+    info = join(device, print_fn)
+    world, rank = info["world_size"], info["rank"]
     if cfg.system.get("matmul_precision"):
         apply_matmul_precision(cfg.system.matmul_precision)
     if engine is None:
@@ -129,8 +133,12 @@ def run(cfg: Config, inputs: str, out_dir: str, batch: int = 0, threshold: float
     lidar = cfg.dataset.lidar
     aniso, iso = lidar.norm_anisotropy, lidar.norm_isotropy
     grid = query_grid(cfg)
-    files = collect_inputs(inputs)
-    outs = output_paths(files, Path(out_dir))
+    all_files = collect_inputs(inputs)
+    # rank r: files r, r + world, ... (as ShardedSampler without shuffling)
+    files = all_files[rank::world]
+    outs = output_paths(all_files, Path(out_dir))[rank::world]
+    if world > 1:
+        print_fn(f"rank {rank}/{world}: {len(files)} files")
     bsz = batch or int(cfg.dataset.get("eval_batch_size", 1))
 
     def prep(cube: np.ndarray) -> np.ndarray:
@@ -147,7 +155,9 @@ def run(cfg: Config, inputs: str, out_dir: str, batch: int = 0, threshold: float
             cubes = np.concatenate([cubes, np.repeat(cubes[-1:], bsz - len(chunk), axis=0)])
         if engine.frozen_radar_enc:
             cubes = engine.encode_radar(cubes)
-        tokens = engine.sample_tokens(cubes, list(range(start, start + bsz)))
+        # seeds by index in the whole list, so a frame's cloud does not
+        # depend on how many ranks share the job
+        tokens = engine.sample_tokens(cubes, [i * world + rank for i in range(start, start + bsz)])
         hits = (engine.decode_queries(tokens, grid_dev) > threshold).cpu().numpy()
         for i, out_path in enumerate(outs[start:start + len(chunk)]):
             pred = geo.inverse_norm_points(grid[hits[i]], lidar.pc_range, aniso, iso)

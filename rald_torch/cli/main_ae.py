@@ -23,22 +23,27 @@ file does.
 
 Either mode snapshots the config into ``system.output_dir/config.yml``,
 applies ``system.matmul_precision`` where set, and runs once per scene when
-``dataset.split_file`` is a dict. The run is one process on one card
-(``--device cpu`` runs the plain versions on the CPU); ``WORLD_SIZE`` above
-1 raises: ``torch.distributed`` is not ported (ROADMAP A11).
+``dataset.split_file`` is a dict. One process runs on one card (``--device
+cpu`` runs the plain versions on the CPU); N processes, one a card, under
+``torchrun --nproc_per_node=N -m rald_torch.cli.main_ae --config ...`` (or
+the same environment, as ``main_generation``): each rank trains and
+evaluates on its shard of the split, the gradients and metrics are averaged
+over the ranks, ``blr`` is scaled by the batch of all ranks, and rank 0
+alone writes ``config.yml``, ``log.txt``, TensorBoard and the checkpoints.
 """
 from __future__ import annotations
 
 import argparse
 import datetime
-import os
 import time
 from pathlib import Path
 
 from rald_torch import apply_matmul_precision
 from rald_torch.config import Config, dump_config, expand_experiment_sweep, finalize_dirs, load_config
 from rald_torch.data.loader import DataLoader, ShardedSampler
+from rald_torch.cli.main_generation import join
 from rald_torch.data.registry import get_dataset
+from rald_torch.parallel.dist import world_rank
 from rald_torch.train.ae_engine import AEEngine
 from rald_torch.train.checkpoint import CheckpointManager, load_torch_checkpoint
 from rald_torch.train.metrics import JsonlLogger, TensorBoardLogger
@@ -47,8 +52,9 @@ MODES = ("train", "eval")
 
 
 def build_loaders(cfg: Config) -> tuple:
-    """JAX's ``build_loaders`` for one process: ``(train loader, val
-    loader, batch)``. The datasets load no radar cube: stage 1 reads none,
+    """JAX's ``build_loaders``: ``(train loader, val loader, batch)``, each
+    this rank's shard (the val loader with ``pad_last``), ``batch`` frames a
+    train batch on each rank. The datasets load no radar cube: stage 1 reads none,
     and the shipped stage-1 YAMLs have no ``dataset.radar`` section (JAX's
     CLI loads the cubes and fails on them there). The cube is read after
     every draw of a frame, so the frames are the same either way."""
@@ -62,14 +68,14 @@ def build_loaders(cfg: Config) -> tuple:
     train_loader = DataLoader(
         train_set,
         batch_size=batch,
-        sampler=ShardedSampler(len(train_set), 1, 0, shuffle=True, seed=seed),
+        sampler=ShardedSampler(len(train_set), *world_rank(), shuffle=True, seed=seed),
         num_workers=int(ds_cfg.get("num_workers", 4)),
         drop_last=True,
     )
     val_loader = DataLoader(
         val_set,
         batch_size=int(ds_cfg.get("eval_batch_size", 1)),
-        sampler=ShardedSampler(len(val_set), 1, 0, shuffle=False),
+        sampler=ShardedSampler(len(val_set), *world_rank(), shuffle=False),
         num_workers=int(ds_cfg.get("eval_num_workers", 1)),
         drop_last=False,
         pad_last=True,
@@ -95,20 +101,19 @@ def eval_weights(cfg: Config, output_dir: Path) -> tuple:
 def run(cfg: Config, device=None, engine: AEEngine | None = None, print_fn=print) -> dict:
     """One experiment (one scene of a sweep) in its ``system.mode``: returns
     the evaluate stats (in train mode those of the last evaluation, or
-    {}). ``engine`` replaces the one built from ``cfg``."""
+    {}). ``engine`` replaces the one built from ``cfg``. The process joins
+    the process group the environment describes first."""
     mode = cfg.system.get("mode", "train")
     if mode not in MODES:
         raise NotImplementedError(
             f"rald_torch.cli.main_ae: unknown system.mode {mode!r} (one of {MODES})")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "rald_torch.cli.main_ae: WORLD_SIZE > 1, but the port runs one process on one "
-            "card; torch.distributed / NCCL is not ported (ROADMAP A11)")
+    info = join(device, print_fn)
     if cfg.system.get("matmul_precision"):
         apply_matmul_precision(cfg.system.matmul_precision)
     output_dir = Path(cfg.system.get("output_dir", "./result/ae"))
     output_dir.mkdir(parents=True, exist_ok=True)
-    dump_config(cfg, output_dir / "config.yml")
+    if info["is_main_process"]:
+        dump_config(cfg, output_dir / "config.yml")
 
     train_loader, val_loader, batch = build_loaders(cfg)
     if engine is None:
@@ -120,11 +125,11 @@ def run(cfg: Config, device=None, engine: AEEngine | None = None, print_fn=print
         return engine.evaluate(params, val_loader, use_ema=use_ema, print_fn=print_fn)
 
     t = cfg.train
-    state = engine.init_state(len(train_loader), batch)
+    state = engine.init_state(len(train_loader), batch * info["world_size"])
     print_fn(f"number of params (M): {engine.param_count(state) / 1e6:.2f}")
     ckpt = CheckpointManager(output_dir)
-    jsonl = JsonlLogger(output_dir)
-    tb = TensorBoardLogger(cfg.system.get("log_dir"))
+    jsonl = JsonlLogger(output_dir, enabled=info["is_main_process"])
+    tb = TensorBoardLogger(cfg.system.get("log_dir"), enabled=info["is_main_process"])
 
     start_epoch = 0
     if t.get("resume"):

@@ -7,33 +7,36 @@ random weights, with a warning) over the train split, queries on and
 radar off, in order, and writes each frame's posterior latents as
 ``<lidar_ae.cache_path>/<lidar_ae.name>/<lidar_ae.cache_name>/<seq>/<frame>.npz``
 (key ``res_tokens``), the layout ``train.use_cache_latent`` reads; prints
-the decode IoU on the query points. One process on one card
-(``--device cpu`` runs on the CPU).
+the decode IoU on the query points. Each frame's posterior noise is drawn
+from its dataset index. One process on one card (``--device cpu`` runs on
+the CPU), or N under ``torchrun --nproc_per_node=N -m
+rald_torch.cli.main_cache ...``: each rank caches its shard of the frames
+(the sampler pads the last shard with duplicates, which write the same
+file with the same latents; every file is written aside and renamed), and
+the union of the ranks' files is the one-process cache.
 """
 from __future__ import annotations
 
 import argparse
 import datetime
-import os
 import time
 from pathlib import Path
 
 from rald_torch import apply_matmul_precision
-from rald_torch.cli.main_generation import load_frozen_modules
+from rald_torch.cli.main_generation import join, load_frozen_modules
 from rald_torch.config import finalize_dirs, load_config
 from rald_torch.data.loader import DataLoader, ShardedSampler
 from rald_torch.data.registry import get_dataset
+from rald_torch.parallel.dist import world_rank
 from rald_torch.train.gen_engine import GenerationEngine
 
 
 def run(cfg, device=None, engine: GenerationEngine | None = None, print_fn=print) -> Path:
     """Write the cache; returns its directory. ``engine`` replaces the one
-    built (and loaded) from ``cfg``. ``WORLD_SIZE`` above 1 raises: the
-    sharded sampler across ranks is not ported (ROADMAP A11)."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "rald_torch.cli.main_cache: WORLD_SIZE > 1, but the port runs one process on "
-            "one card; torch.distributed / NCCL is not ported (ROADMAP A11)")
+    built (and loaded) from ``cfg``. Under a process group (joined first)
+    each rank caches its shard of the train split (JAX's
+    ``rald_tpu/cli/main_cache.py:35``)."""
+    join(device, print_fn)
     if cfg.system.get("matmul_precision"):
         apply_matmul_precision(cfg.system.matmul_precision)
     dataset = get_dataset(cfg.dataset, "train", seed=int(cfg.system.get("seed", 0)))
@@ -42,7 +45,7 @@ def run(cfg, device=None, engine: GenerationEngine | None = None, print_fn=print
     loader = DataLoader(
         dataset,
         batch_size=int(cfg.dataset.batch_size),
-        sampler=ShardedSampler(len(dataset), 1, 0, shuffle=False),
+        sampler=ShardedSampler(len(dataset), *world_rank(), shuffle=False),
         num_workers=int(cfg.dataset.get("num_workers", 4)),
         drop_last=False,
     )

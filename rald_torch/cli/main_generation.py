@@ -28,16 +28,27 @@ whose ``model_ema`` is read with ``train.use_ema``), ``lidar_ae.ckpt``
 (the frozen VAE) and, with the frozen radar encoder, ``radar_enc.ckpt`` (a
 radar autoencoder, of which the encoder is used). A missing file warns and
 leaves the engine's seeded random weights, as JAX does; an orbax
-checkpoint directory raises. The run is one process on one card
-(``--device cpu`` runs the plain versions on the CPU); ``WORLD_SIZE`` above
-1 raises: ``torch.distributed`` is not ported (ROADMAP A11).
+checkpoint directory raises.
+
+One process runs on one card (``--device cpu`` runs the plain versions on
+the CPU). N processes, one a card, run under ``torchrun`` (or the same
+``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK`` environment;
+:func:`rald_torch.parallel.init_distributed`; NCCL on the cards, gloo with
+``--device cpu``):
+
+    torchrun --nproc_per_node=N -m rald_torch.cli.main_generation --config ...
+
+Each rank reads its shard of the split (``ShardedSampler``), the
+gradients are averaged over the ranks every step, ``blr`` is scaled by the
+batch of all ranks, and rank 0 alone writes ``config.yml``, ``log.txt``,
+TensorBoard and the checkpoints; in eval mode each rank evaluates its shard
+and the metrics are averaged over all of them.
 """
 from __future__ import annotations
 
 import argparse
 import copy
 import datetime
-import os
 import time
 from pathlib import Path
 
@@ -45,6 +56,7 @@ from rald_torch import apply_matmul_precision
 from rald_torch.config import Config, dump_config, expand_experiment_sweep, finalize_dirs, load_config
 from rald_torch.data.loader import DataLoader, ShardedSampler
 from rald_torch.data.registry import get_dataset
+from rald_torch.parallel.dist import backend, init_distributed, local_device, world_rank
 from rald_torch.train.checkpoint import (
     CheckpointManager,
     load_torch_checkpoint,
@@ -70,10 +82,10 @@ def _wire_cache(cfg: Config, print_fn=print) -> None:
 
 
 def build_train_loader(cfg: Config, print_fn=print) -> DataLoader:
-    """The train side of JAX's ``build_loaders`` for one process: the train
-    split without query points, ``batch_size`` frames a batch, shuffled by a
-    sampler seeded from ``system.seed`` (its epoch set per epoch),
-    ``drop_last``; cached latents with ``train.use_cache_latent``."""
+    """The train side of JAX's ``build_loaders``: the train split without
+    query points, ``batch_size`` frames a batch on each rank, this rank's
+    shard of a shuffle seeded from ``system.seed`` (its epoch set per
+    epoch), ``drop_last``; cached latents with ``train.use_cache_latent``."""
     _wire_cache(cfg, print_fn)
     ds_cfg = cfg.dataset
     seed = int(cfg.system.get("seed", 0))
@@ -82,17 +94,17 @@ def build_train_loader(cfg: Config, print_fn=print) -> DataLoader:
     return DataLoader(
         train_set,
         batch_size=int(ds_cfg.batch_size),
-        sampler=ShardedSampler(len(train_set), 1, 0, shuffle=True, seed=seed),
+        sampler=ShardedSampler(len(train_set), *world_rank(), shuffle=True, seed=seed),
         num_workers=int(ds_cfg.get("num_workers", 4)),
         drop_last=True,
     )
 
 
 def build_eval_loader(cfg: Config, mode: str, print_fn=print) -> DataLoader:
-    """The eval side of JAX's ``build_loaders`` for one process: the test
-    split in eval mode (or with ``eval.use_test_set``), else the val split,
-    ``eval_batch_size`` frames a batch, ``pad_last``; cached latents are
-    never read on this side."""
+    """The eval side of JAX's ``build_loaders``: this rank's shard of the
+    test split in eval mode (or with ``eval.use_test_set``), else of the val
+    split, ``eval_batch_size`` frames a batch, ``pad_last``; cached latents
+    are never read on this side."""
     _wire_cache(cfg, print_fn)
     ds_cfg = cfg.dataset
     eval_cfg = copy.deepcopy(ds_cfg)
@@ -103,7 +115,7 @@ def build_eval_loader(cfg: Config, mode: str, print_fn=print) -> DataLoader:
     return DataLoader(
         test_set,
         batch_size=int(ds_cfg.get("eval_batch_size", 1)),
-        sampler=ShardedSampler(len(test_set), 1, 0, shuffle=False),
+        sampler=ShardedSampler(len(test_set), *world_rank(), shuffle=False),
         num_workers=int(ds_cfg.get("eval_num_workers", 1)),
         drop_last=False,
         pad_last=True,
@@ -159,20 +171,19 @@ def run(cfg: Config, device=None, engine: GenerationEngine | None = None, print_
     ``system.matmul_precision``, where set, is applied to the process
     first, as JAX's CLI applies it. ``engine`` replaces the one built from
     ``cfg`` (in eval mode also its loading); ``stage_timer`` goes to
-    ``evaluate`` in eval mode."""
+    ``evaluate`` in eval mode. The process joins the process group the
+    environment describes first (:func:`join`)."""
     mode = cfg.system.get("mode", "train")
     if mode not in MODES:
         raise NotImplementedError(
             f"rald_torch.cli.main_generation: unknown system.mode {mode!r} (one of {MODES})")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "rald_torch.cli.main_generation: WORLD_SIZE > 1, but the port runs one process on "
-            "one card; torch.distributed / NCCL is not ported (ROADMAP A11)")
+    info = join(device, print_fn)
     if cfg.system.get("matmul_precision"):
         apply_matmul_precision(cfg.system.matmul_precision)
     output_dir = Path(cfg.system.get("output_dir", "./result/generation"))
     output_dir.mkdir(parents=True, exist_ok=True)
-    dump_config(cfg, output_dir / "config.yml")
+    if info["is_main_process"]:
+        dump_config(cfg, output_dir / "config.yml")
     if mode == "eval":
         eval_loader = build_eval_loader(cfg, mode, print_fn)
         if engine is None:
@@ -184,6 +195,17 @@ def run(cfg: Config, device=None, engine: GenerationEngine | None = None, print_
     return train(cfg, output_dir, device, engine, print_fn)
 
 
+def join(device=None, print_fn=print) -> dict:
+    """:func:`init_distributed` on ``device`` (default: ``cuda:{LOCAL_RANK}``)
+    and, under a process group, one line naming rank, world, backend and
+    device; returns the process info."""
+    info = init_distributed(device)
+    if backend() is not None:
+        print_fn(f"distributed: rank {info['rank']}/{info['world_size']} backend {backend()} "
+                 f"device {local_device(device)}")
+    return info
+
+
 def _build_engine(cfg: Config, device, print_fn) -> GenerationEngine:
     engine = GenerationEngine(cfg, device=device)
     n_params = sum(p.numel() for m in engine.modules() for p in m.parameters())
@@ -193,20 +215,22 @@ def _build_engine(cfg: Config, device, print_fn) -> GenerationEngine:
 
 def train(cfg: Config, output_dir: Path, device=None, engine: GenerationEngine | None = None,
           print_fn=print) -> dict:
-    """The train loop (JAX ``run``'s train branch, :130-178)."""
+    """The train loop (JAX ``run``'s train branch, :130-178): every rank
+    trains on its shard; rank 0 logs and writes the checkpoints."""
     t = cfg.train
+    world, rank = world_rank()
     train_loader = build_train_loader(cfg, print_fn)
     eval_freq = int(t.get("eval_freq", 0) or 0)
     eval_loader = build_eval_loader(cfg, "train", print_fn) if eval_freq else None
     if engine is None:
         engine = _build_engine(cfg, device, print_fn)
-    state = engine.init_state(len(train_loader), int(cfg.dataset.batch_size))
+    state = engine.init_state(len(train_loader), int(cfg.dataset.batch_size) * world)
     print_fn(f"number of trained params (M): "
              f"{sum(p.numel() for p in state.params.values()) / 1e6:.2f}")
     load_frozen_modules(cfg, engine, print_fn)
     ckpt = CheckpointManager(output_dir)
-    jsonl = JsonlLogger(output_dir)
-    tb = TensorBoardLogger(cfg.system.get("log_dir"))
+    jsonl = JsonlLogger(output_dir, enabled=rank == 0)
+    tb = TensorBoardLogger(cfg.system.get("log_dir"), enabled=rank == 0)
 
     start_epoch = 0
     if t.get("resume") and Path(str(t.resume)).exists():

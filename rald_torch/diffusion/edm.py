@@ -14,6 +14,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from rald_torch.parallel.dist import draw_rows
+
 
 def karras_sigmas(num_steps: int = 18, sigma_min: float = 0.002, sigma_max: float = 80.0,
                   rho: float = 7.0, device=None) -> torch.Tensor:
@@ -124,12 +126,15 @@ def edm_loss(
     * sigma`` of ``y``'s shape, loss ``mean(weight * (D(y + n, sigma) -
     y)^2)`` in float32 with ``weight = (sigma^2 + sigma_data^2) / (sigma *
     sigma_data)^2``. The two unit-normal draws come from ``generator`` (on
-    ``y``'s device), in that order, unless given as ``rnd`` / ``noise``."""
+    ``y``'s device), in that order, unless given as ``rnd`` / ``noise``;
+    under a process group each is drawn at the global batch and this rank
+    keeps its rows (:func:`rald_torch.parallel.draw_rows`), as JAX draws at
+    the sharded batch's global shape."""
     dev = y.device
     if rnd is None:
-        rnd = torch.randn((y.shape[0], 1, 1), generator=generator, device=dev)
+        rnd = draw_rows(torch.randn, (y.shape[0], 1, 1), generator=generator, device=dev)
     if noise is None:
-        noise = torch.randn(y.shape, generator=generator, device=dev)
+        noise = draw_rows(torch.randn, y.shape, generator=generator, device=dev)
     sigma = torch.exp(rnd.to(dev, torch.float32) * p_std + p_mean)
     weight = (sigma ** 2 + sigma_data ** 2) / (sigma * sigma_data) ** 2
     n = noise.to(dev, torch.float32) * sigma

@@ -17,12 +17,15 @@ import numpy as np
 import torch
 
 from rald_torch import geometry as geo
+from rald_torch.parallel.dist import draw_rows
 
 
 def densify_queries(points_norm, mask, k: int, generator: torch.Generator, pc_range,
                     voxel_size, aug_bias_scale: int, anisotropic: bool, isotropic: bool):
     """(B, N, 3) normalized candidates + (B, N) validity -> (B, k, 3)
-    normalized queries, (B, k) slot validity, (B,) valid-input counts."""
+    normalized queries, (B, k) slot validity, (B,) valid-input counts.
+    Under a process group the draws are this rank's rows of draws at the
+    global batch (:func:`rald_torch.parallel.draw_rows`)."""
     bsz, n_in = mask.shape
     dev = points_norm.device
     mask = mask.bool()
@@ -37,7 +40,7 @@ def densify_queries(points_norm, mask, k: int, generator: torch.Generator, pc_ra
 
     s = torch.arange(k, device=dev)[None]
     bound = torch.clamp(torch.clamp(n, max=k), min=1)[:, None].float()
-    u_pick = torch.rand((bsz, k), generator=generator, device=dev)
+    u_pick = draw_rows(torch.rand, (bsz, k), generator=generator, device=dev)
     pick = torch.minimum((u_pick * bound).long(), bound.long() - 1)
     is_orig = s < n[:, None]
     rsel = torch.where(is_orig, torch.clamp(s, max=k - 1), pick)
@@ -47,8 +50,9 @@ def densify_queries(points_norm, mask, k: int, generator: torch.Generator, pc_ra
     pc = np.asarray(pc_range, np.float32)
     vs = torch.as_tensor(np.asarray(voxel_size, np.float32), device=dev)
     pos_un = geo.inverse_norm_points(pos, pc, anisotropic, isotropic)
-    u = torch.rand((bsz, k, 3), generator=generator, device=dev) * 2.0 - 1.0
-    scale = torch.randint(1, aug_bias_scale + 1, (bsz, k), generator=generator, device=dev).float()
+    u = draw_rows(torch.rand, (bsz, k, 3), generator=generator, device=dev) * 2.0 - 1.0
+    scale = draw_rows(lambda shape, **kw: torch.randint(1, aug_bias_scale + 1, shape, **kw),
+                      (bsz, k), generator=generator, device=dev).float()
     aug = pos_un + u * vs * scale[..., None]
     aug = torch.clamp(aug, torch.as_tensor(pc[:3], device=dev), torch.as_tensor(pc[3:6], device=dev))
     out_un = torch.where(is_orig[..., None], pos_un, aug)

@@ -2,6 +2,7 @@
 ``rald_tpu/eval/ply.py`` (the reference wrote them with open3d)."""
 from __future__ import annotations
 
+import os
 import struct
 from pathlib import Path
 
@@ -9,7 +10,9 @@ import numpy as np
 
 
 def write_ply(path, points: np.ndarray, colors: np.ndarray | None = None) -> None:
-    """Write (N, 3) float points (optionally (N, 3) uint8 colors) as binary PLY."""
+    """Write (N, 3) float points (optionally (N, 3) uint8 colors) as binary
+    PLY. The file is written aside and renamed: ranks that write the same
+    frame (a sampler's padding) never leave a torn file."""
     points = np.ascontiguousarray(np.asarray(points, np.float32).reshape(-1, 3))
     n = len(points)
     header = [
@@ -29,13 +32,15 @@ def write_ply(path, points: np.ndarray, colors: np.ndarray | None = None) -> Non
 
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "wb") as f:
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
         f.write(("\n".join(header) + "\n").encode("ascii"))
         if colors is None:
             f.write(points.tobytes())
         else:
             for p, c in zip(points, colors):
                 f.write(struct.pack("<fffBBB", p[0], p[1], p[2], c[0], c[1], c[2]))
+    os.replace(tmp, path)
 
 
 def read_ply(path) -> np.ndarray:

@@ -40,6 +40,7 @@ from rald_torch.nn.layers import Attention, DropPath, GEGLUFeedForward, LayerNor
 from rald_torch.ops.fps import fps_points
 from rald_torch.ops.geglu_kernel import fused_ln_geglu_residual
 from rald_torch.ops.query_attention import map_query_chunks
+from rald_torch.parallel.dist import draw_rows
 
 
 class PreNorm(nn.Module):
@@ -183,7 +184,9 @@ class VecSetVAE(nn.Module):
         """(B, N, 3) -> ``(kl (B,), z (B, M, latent_dim))``, z in the model's
         dtype: ``mean + exp(logvar / 2) * eps`` with ``logvar`` clipped to
         [-30, 20] and ``eps ~ N(0, 1)`` from ``generator`` (on ``pc``'s
-        device) unless given, or ``mean`` without ``sample_posterior``. With
+        device; under a process group this rank's rows of the draw at the
+        global batch) unless given, or ``mean`` without
+        ``sample_posterior``. With
         ``deterministic_latent`` the encoder output itself, and a zero KL."""
         if pc.shape[1] != self.num_inputs:
             raise ValueError(f"VecSetVAE.encode: {pc.shape[1]} points, the model takes "
@@ -201,7 +204,7 @@ class VecSetVAE(nn.Module):
         if not sample_posterior:
             return kl, mean.to(self.dtype)
         if eps is None:
-            eps = torch.randn(mean.shape, generator=generator, device=mean.device)
+            eps = draw_rows(torch.randn, mean.shape, generator=generator, device=mean.device)
         z = mean + torch.exp(0.5 * logvar) * eps.to(mean.device, torch.float32)
         return kl, z.to(self.dtype)
 

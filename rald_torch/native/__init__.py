@@ -27,6 +27,7 @@ import numpy as np
 _REPO = Path(__file__).resolve().parents[2]
 _SRC = _REPO / "native" / "rald_native.cpp"
 BUILD_DIR = _REPO / "build" / "rald_native"
+BUILD_TIMEOUT = 600
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
@@ -40,7 +41,9 @@ def _lib_path() -> Path:
 def build() -> bool:
     """Compile the shared library with g++ unless it is built; returns
     success. The output is written under a temporary name and renamed, so
-    concurrent builds never load a half-written file."""
+    concurrent builds never load a half-written file; a build that takes
+    more than ``BUILD_TIMEOUT`` seconds counts as failed (the numpy
+    versions serve)."""
     out = _lib_path()
     if out.exists():
         return True
@@ -49,9 +52,9 @@ def build() -> bool:
     try:
         subprocess.run(
             ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-Wall", "-o", str(tmp), str(_SRC)],
-            check=True, capture_output=True, text=True,
+            check=True, capture_output=True, text=True, timeout=BUILD_TIMEOUT,
         )
-    except (subprocess.CalledProcessError, FileNotFoundError):
+    except (subprocess.CalledProcessError, subprocess.TimeoutExpired, FileNotFoundError):
         tmp.unlink(missing_ok=True)
         return False
     os.replace(tmp, out)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rald_torch.ops.geglu_kernel import geglu_ff
+from rald_torch.parallel.dist import draw_rows
 
 
 def point_fourier_basis(hidden_dim: int) -> np.ndarray:
@@ -88,8 +89,9 @@ class DropPath(nn.Module):
 
     The mask is :attr:`mask` where set (a (B,) bool; tests inject JAX's
     masks so), else drawn as ``uniform < keep`` from :attr:`generator`
-    (torch's default generator when None). A caller sets the two
-    attributes for one forward
+    (torch's default generator when None), at the global batch under a
+    process group (this rank's rows, :func:`rald_torch.parallel.draw_rows`).
+    A caller sets the two attributes for one forward
     (:meth:`rald_torch.models.vecset_vae.VecSetVAE.forward` does) and
     clears them after."""
 
@@ -106,7 +108,7 @@ class DropPath(nn.Module):
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
         mask = self.mask
         if mask is None:
-            mask = torch.rand(shape, generator=self.generator, device=x.device) < keep
+            mask = draw_rows(torch.rand, shape, generator=self.generator, device=x.device) < keep
         mask = mask.to(x.device, torch.bool).reshape(shape)
         # a device tensor, not a Python scalar: torch turns division by a
         # host scalar into a product with its reciprocal

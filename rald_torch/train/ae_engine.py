@@ -44,6 +44,7 @@ from rald_torch.eval.chamfer import chamfer_and_fscore_batch
 from rald_torch.eval.occupancy import occupancy_metrics
 from rald_torch.eval.queries import build_query_grid
 from rald_torch.models.registry import get_ae_model
+from rald_torch.parallel.dist import all_reduce_mean_, draw_rows
 from rald_torch.train.gen_engine import (
     bce_with_logits,
     init_train_weights,
@@ -144,9 +145,10 @@ class AEEngine:
         """Posterior noise of evaluated batch ``it``: ``which`` 0 for the
         metrics forward, 5 for the grid forward (JAX folds 0 and 5 into the
         batch's key ``fold_in(PRNGKey(seed + 7), it)``; torch's stream
-        differs)."""
+        differs). Under a process group: this rank's rows of the draw at the
+        global batch, as JAX draws at the sharded batch's shape."""
         gen = seeded_generator(self.device, self.seed + 7, it, which)
-        return torch.randn(shape, generator=gen, device=self.device)
+        return draw_rows(torch.randn, shape, generator=gen, device=self.device)
 
     def _to_dev(self, a) -> Optional[torch.Tensor]:
         if a is None:
@@ -174,7 +176,10 @@ class AEEngine:
     def loss_and_grads(self, batch, generator: Optional[torch.Generator] = None, eps=None,
                        drop_masks: Optional[dict] = None, timings: Optional[dict] = None):
         """The training forward and its gradients: ``(metrics, {name: f32
-        grad})``, the metrics detached."""
+        grad})``, the metrics detached. Under a process group the metrics and
+        the gradients are the means over the ranks (one all-reduce), as JAX's
+        come out of a step on the sharded global batch; the drop-path masks
+        and the posterior noise are this rank's rows of the global draw."""
         model = self.train_model
         with synced_ms(timings, "forward_backward", self.device):
             loss, metrics = self.loss_and_metrics(model, batch, generator, eps, drop_masks)
@@ -182,7 +187,10 @@ class AEEngine:
             grads = torch.autograd.grad(loss, params, allow_unused=True)
             grads = {k: torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
                      for k, p, g in zip(names, params, grads)}
-        return {k: v.detach() for k, v in metrics.items()}, grads
+        metrics = {k: v.detach().clone() for k, v in metrics.items()}
+        with synced_ms(timings, "all_reduce", self.device):
+            all_reduce_mean_([*metrics.values(), *grads.values()])
+        return metrics, grads
 
     def train_step(self, state: TrainState, batch, generator: Optional[torch.Generator] = None,
                    eps=None, drop_masks: Optional[dict] = None, timings: Optional[dict] = None):
@@ -245,7 +253,10 @@ class AEEngine:
         :meth:`load_eval_params`); returns the mean ``loss`` /
         ``loss_vol`` / ``loss_near`` / ``loss_kl`` / ``iou`` / ``accuracy``
         and, unless ``eval.iou_test_onlytest``, ``cd`` / ``fscore``. Only
-        every ``eval.freq``-th batch is evaluated."""
+        every ``eval.freq``-th batch is evaluated. Under a process group each
+        rank evaluates its loader's shard and the means are over every rank's
+        batches (JAX averages its jitted metrics over the global batch and
+        keeps ``cd`` / ``fscore`` rank-local: ROADMAP C10)."""
         self.load_eval_params(state_or_params, use_ema)
         print_fn(f"Using {'EMA' if use_ema else 'model'} parameters for evaluation")
         cfg, model = self.cfg, self.model_eval

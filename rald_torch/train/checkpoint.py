@@ -30,6 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rald_torch.parallel.dist import barrier, is_main_process
+
 STATE_KEY = "model"
 EMA_KEY = "model_ema"
 
@@ -92,20 +94,24 @@ class CheckpointManager:
 
     def save(self, state, epoch: int) -> Path:
         """Write the state (on the CPU) and the epoch; the file appears whole
-        or not at all (written aside, then renamed)."""
-        payload = {STATE_KEY: _to_cpu(state.params), EMA_KEY: _to_cpu(state.ema_params),
-                   "optimizer": _to_cpu(state.opt_state()), "step": int(state.step),
-                   "epoch": int(epoch)}
+        or not at all (written aside, then renamed). Under a process group
+        rank 0 writes (every rank holds the same state) and every rank waits
+        for it at a barrier, so no rank can read a half-written file."""
         path = self._path(epoch)
-        tmp = path.with_name(path.name + ".tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
+        if is_main_process():
+            payload = {STATE_KEY: _to_cpu(state.params), EMA_KEY: _to_cpu(state.ema_params),
+                       "optimizer": _to_cpu(state.opt_state()), "step": int(state.step),
+                       "epoch": int(epoch)}
+            tmp = path.with_name(path.name + ".tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+        barrier()
         return path
 
     def restore(self, state, path=None):
         """Load a checkpoint into ``state`` (in place); returns ``(state,
         epoch)``. ``path``: an epoch number, a file, or None (the latest
-        under ``output_dir``)."""
+        under ``output_dir``). Every rank reads the file itself."""
         if path is None:
             path = self.latest_epoch()
             if path is None:

@@ -50,11 +50,16 @@ loads the state's params or EMA into the eval DiT. Prior noise comes from
 entry point calls (a test may swap in another draw, such as the JAX
 package's per-seed stream); the training draws (posterior noise, sigma,
 noise) come from generators seeded from (``system.seed``, epoch, step), or
-are injected.
+are injected. Under a process group (:mod:`rald_torch.parallel`) every
+rank draws at the global batch and keeps its rows, averages the step's
+loss and gradients over the ranks, and so holds the same state as every
+other rank; :meth:`evaluate` and :meth:`cache_latents` average their
+meters over the ranks.
 """
 from __future__ import annotations
 
 import math
+import os
 import sys
 from pathlib import Path
 from typing import Optional
@@ -85,6 +90,7 @@ from rald_torch.models.registry import get_ae_model, get_generation_model, get_r
 from rald_torch.ops.attn_kernel import merge_int8_trees, quantize_attn_tree
 from rald_torch.ops.geglu_kernel import quantize_ff_tree
 from rald_torch.models.latent_dit import LatentArrayTransformer
+from rald_torch.parallel.dist import all_reduce_mean_, world_rank
 from rald_torch.train.metrics import MetricLogger, epoch_1000x
 from rald_torch.train.profiler import StageTimer, synced_ms
 from rald_torch.train.schedule import scale_base_lr, warmup_cosine_schedule
@@ -342,7 +348,8 @@ class GenerationEngine:
     def init_state(self, steps_per_epoch: int, world_batch: int) -> TrainState:
         """Build the training DiT (plain modules, JAX-init weights seeded from
         ``system.seed``) and its :class:`TrainState`: ``train.lr``, else
-        ``blr`` scaled by the world batch, under the warmup-cosine schedule;
+        ``blr`` scaled by the world batch (the batch of every rank together,
+        as JAX's CLI passes it), under the warmup-cosine schedule;
         clip, ``skip_nonfinite_updates`` and ``accum_iter`` from ``train``."""
         cfg, t = self.cfg, self.cfg.train
         lr = t.get("lr")
@@ -407,7 +414,10 @@ class GenerationEngine:
                        rnd=None, noise=None, timings: Optional[dict] = None):
         """EDM loss of the training DiT and its gradients: ``(loss, {name: f32
         grad})``. The in-graph encoder's cube is upsampled on the device first.
-        ``rnd`` / ``noise``: injected unit-normal draws of :func:`edm_loss`."""
+        ``rnd`` / ``noise``: injected unit-normal draws of :func:`edm_loss`
+        (this rank's rows). Under a process group the loss and the gradients
+        are the means over the ranks (one all-reduce), as JAX's come out of a
+        step on the sharded global batch; every rank then holds the same."""
         model = self.train_model
         if radar_cube is not None and not self.frozen_radar_enc:
             with self._stage(timings, "upsample"):
@@ -419,16 +429,20 @@ class GenerationEngine:
             grads = torch.autograd.grad(loss, params, allow_unused=True)
             grads = {k: torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
                      for k, p, g in zip(names, params, grads)}
-        return loss.detach(), grads
+        loss = loss.detach()
+        with self._stage(timings, "all_reduce"):
+            all_reduce_mean_([loss, *grads.values()])
+        return loss, grads
 
     def train_step(self, state: TrainState, latents, radar_cube,
                    generator: Optional[torch.Generator] = None, rnd=None, noise=None,
                    timings: Optional[dict] = None):
         """One step (JAX ``_train_step_impl``): loss and gradients, then
         ``state.apply_gradients``. Returns ``(state, {"loss", "grad_norm"})``,
-        the norm taken before the clip. ``timings``, when a dict, gets the
-        synchronised ms of ``upsample``, ``forward_backward`` and
-        ``optimizer`` (clip + AdamW + EMA + working-copy refresh)."""
+        the norm taken before the clip (of the gradients averaged over the
+        ranks). ``timings``, when a dict, gets the synchronised ms of
+        ``upsample``, ``forward_backward``, ``all_reduce`` and ``optimizer``
+        (clip + AdamW + EMA + working-copy refresh)."""
         loss, grads = self.loss_and_grads(latents, radar_cube, generator, rnd, noise, timings)
         with self._stage(timings, "optimizer"):
             g_norm = global_norm(grads.values())
@@ -466,16 +480,31 @@ class GenerationEngine:
         print_fn(f"Averaged stats: {logger}")
         return state, logger.averages()
 
+    def frame_eps(self, indices) -> torch.Tensor:
+        """(len(indices), M, latent_dim) posterior noise, one generator per
+        frame seeded from (seed + 3, dataset index): a frame's cached latent
+        depends neither on its batch nor on the number of ranks."""
+        shape = (self.vae.num_latents, self.vae.latent_dim)
+        return torch.stack([torch.randn(shape, generator=self._generator(self.seed + 3, int(i)),
+                                        device=self.device) for i in indices])
+
     @torch.no_grad()
     def cache_latents(self, loader, cache_base_path, print_fn=print) -> dict:
         """Frozen-VAE latents of every frame of ``loader`` (queries on) as
         ``<cache_base_path>/<seq>/<frame>.npz`` (key ``res_tokens``), with the
-        decode IoU of each batch on its query points (JAX ``cache_latents``).
-        Batch ``it`` draws its posterior noise from seed (seed + 3, it)."""
+        decode IoU of each batch on its query points (JAX ``cache_latents``);
+        the IoU is averaged over the ranks. Each frame draws its posterior
+        noise from its dataset index (:meth:`frame_eps`; the loader's sampler
+        gives the indices). A file is written aside and renamed, so two ranks
+        that write the same frame (the sampler's padding) never leave a torn
+        file."""
         cache_base_path = Path(cache_base_path)
         logger = MetricLogger(print_fn=print_fn)
+        order = list(loader.sampler)
+        bsz = loader.batch_size
         for it, batch in enumerate(logger.log_every(iter(loader), 50, "Caching: ")):
-            z = self.vae_encode(batch["lidar_points"], self._generator(self.seed + 3, it))
+            pcs = batch["lidar_points"]
+            z = self.vae_encode(pcs, eps=self.frame_eps(order[it * bsz:it * bsz + len(pcs)]))
             logits = self.decode_queries(z, batch["query_points"])
             m = occupancy_metrics(logits, self._to_dev(batch["query_labels"]))
             logger.update(iou=float(m["iou"]))
@@ -484,7 +513,11 @@ class GenerationEngine:
                 p = Path(lidar_path)
                 d = cache_base_path / p.parts[-3]
                 d.mkdir(parents=True, exist_ok=True)
-                np.savez(d / (p.parts[-1] + ".npz"), res_tokens=z_np[i])
+                path = d / (p.parts[-1] + ".npz")
+                tmp = d / f".{p.parts[-1]}.{os.getpid()}.tmp.npz"
+                np.savez(tmp, res_tokens=z_np[i])
+                os.replace(tmp, path)
+        logger.synchronize_between_processes()
         return logger.averages()
 
     # ---------------------------------------------------------------- pieces
@@ -784,7 +817,16 @@ class GenerationEngine:
         ``accuracy`` / ``cd`` / ``fscore`` (-1 where a mode skips them).
 
         Each batch of ``B`` frames samples from prior seeds ``it*B ..
-        it*B+B-1`` (through :attr:`draw_prior`). The one-step fused path
+        it*B+B-1`` (through :attr:`draw_prior`). Under a process group each
+        rank evaluates its loader's shard, as JAX does: batch ``it`` of rank
+        ``r`` is rows ``r*B .. r*B+B-1`` of a global batch of ``world*B``
+        frames, whose seeds start at ``it*world*B``; the device draws of the
+        fused step are the rank's rows of the global draw; the meters are
+        averaged over every rank's batches (JAX keeps every meter of this
+        loop rank-local and gives every rank the seeds ``it*B ..``: ROADMAP
+        C10).
+        The host draws (grid, helper densify, refine jitter) come from each
+        rank's own ``rng_np``. The one-step fused path
         (:meth:`fused_eval_step`) runs unless ``eval.store_pc`` /
         ``store_latent`` dump, ``use_pred_latent`` decodes stored latents,
         ``test_sample_speed`` times the sampler alone or ``iou_test_only``
@@ -830,6 +872,7 @@ class GenerationEngine:
         use_cart_query = bool(ev.get("use_cart_query", False))
         rng_np = np.random.default_rng(self.seed)
         logger = MetricLogger(print_fn=print_fn)
+        world, rank = world_rank()
 
         def make_grid():
             return build_query_grid(lidar, num_query, use_cart_query, rng_np)
@@ -851,7 +894,9 @@ class GenerationEngine:
             bsz = surface.shape[0]
             # bucket-padded ragged eval: real per-frame counts for GT slicing
             pts_num = np.asarray(batch.get("points_num", [surface.shape[1]] * bsz), np.int64)
-            seeds = list(range(it * bsz, it * bsz + bsz))
+            # the rows of the global batch ``it`` (every rank's batch ``it``)
+            first = (it * world + rank) * bsz
+            seeds = list(range(first, first + bsz))
             radar_cube = None
             if self.use_radar_cond:
                 with st("radar_encode"):

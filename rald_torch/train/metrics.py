@@ -3,9 +3,13 @@ the port's own copy of ``rald_tpu/train/metrics.py``.
 
 Capability parity with ``utils/misc.py:21-164`` (``SmoothedValue``,
 ``MetricLogger.log_every``) and the per-epoch JSON-lines ``log.txt``
-(``main_ae.py:186-190``). The port runs one process on one card, so
-``synchronize_between_processes`` is a no-op kept for API familiarity, as
-in the JAX package. The peak device memory of ``log_every`` is
+(``main_ae.py:186-190``). ``synchronize_between_processes`` sums each
+meter's ``(count, total)`` over the ranks of the process group, as the
+reference's ``misc.py:39-50`` does (JAX's is a no-op: its train-step
+metrics come out of the jitted step averaged over the global batch, but
+its eval meters ``cd`` / ``fscore``, and every meter of the generation
+engine's ``evaluate``, stay rank-local, ROADMAP C10); the window stays
+local. The peak device memory of ``log_every`` is
 ``torch.cuda.max_memory_allocated`` where JAX reads ``memory_stats``.
 """
 from __future__ import annotations
@@ -18,6 +22,8 @@ from pathlib import Path
 from typing import Iterable, Optional
 
 import torch
+
+from rald_torch.parallel.dist import all_reduce_sum
 
 
 class SmoothedValue:
@@ -36,7 +42,10 @@ class SmoothedValue:
         self.total += value * n
 
     def synchronize_between_processes(self):
-        pass  # one process: nothing to reduce
+        """``count`` and ``total`` summed over the ranks (the window stays
+        local); nothing changes in one process."""
+        count, total = all_reduce_sum([self.count, self.total])
+        self.count, self.total = int(count), total
 
     @property
     def median(self):
@@ -80,8 +89,12 @@ class MetricLogger:
         self.meters[name] = meter
 
     def synchronize_between_processes(self):
-        for m in self.meters.values():
-            m.synchronize_between_processes()
+        """Every meter's ``(count, total)`` summed over the ranks, in one
+        collective (the ranks update the same meters in the same order)."""
+        meters = list(self.meters.values())
+        sums = all_reduce_sum([v for m in meters for v in (m.count, m.total)])
+        for i, m in enumerate(meters):
+            m.count, m.total = int(sums[2 * i]), sums[2 * i + 1]
 
     def __str__(self):
         return self.delimiter.join(f"{name}: {meter}" for name, meter in self.meters.items())

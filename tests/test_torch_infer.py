@@ -240,14 +240,16 @@ def test_fast_inference_off_builds_the_plain_models(tmp_path):
 
 
 def test_cli_refuses_world_size_above_one(tmp_path, monkeypatch):
-    """Under ``torchrun`` every rank would infer every file into the same
-    paths: the CLI refuses, as ``main_generation`` and ``main_ae`` do, until
-    the split across ranks is ported (ROADMAP A11)."""
+    """``WORLD_SIZE=2`` with no rendezvous address: the CLI raises before any
+    work, naming ``MASTER_ADDR``, rather than running one rank alone (the
+    two-rank split itself runs in ``tests/test_torch_parallel.py``)."""
     from rald_torch.cli import infer
 
     _raw_cubes(tmp_path / "in", {"s": 1})
+    for var in ("MASTER_ADDR", "JAX_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="WORLD_SIZE.*ROADMAP A11"):
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2.*MASTER_ADDR"):
         infer.run(_cli_cfg(tmp_path), str(tmp_path / "in"), str(tmp_path / "o"), device="cpu",
                   print_fn=lambda *_: None)
     assert not (tmp_path / "o").exists()

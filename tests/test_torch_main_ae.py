@@ -18,7 +18,8 @@ one val sequence of 4; 128 LiDAR points a frame, 256 grid queries):
 - a dict-valued ``split_file`` runs eval once per scene, each into its own
   output directory;
 - an orbax checkpoint directory (the JAX run's) as ``eval.ckpt`` raises,
-  and so does ``WORLD_SIZE`` > 1."""
+  and so does ``WORLD_SIZE`` > 1 without a rendezvous address (naming
+  ``MASTER_ADDR``)."""
 import copy
 import json
 
@@ -195,6 +196,8 @@ def test_orbax_directory_and_world_size_raise(tree, jax_trained, tmp_path, monke
                                                "eval.ckpt": str(jax_trained / "checkpoint-2")})
     with pytest.raises(NotImplementedError, match="orbax"):
         main_ae.run(Config(d), device="cpu", print_fn=lambda *_: None)
+    for var in ("MASTER_ADDR", "JAX_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="WORLD_SIZE"):
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2.*MASTER_ADDR"):
         main_ae.run(Config(d), device="cpu", print_fn=lambda *_: None)

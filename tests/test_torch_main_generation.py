@@ -4,8 +4,9 @@ its ``.pth`` checkpoints, on the CPU with the JAX test harness's tiny config:
 - eval mode over a two-scene ``split_file`` dict: one result per scene,
   ``config.yml`` per scene, PLY dumps per scene, equal to the engine's own
   ``evaluate`` on the same config;
-- an unknown ``system.mode``, train mode under ``WORLD_SIZE`` > 1 (no
-  ``torch.distributed`` yet) and an orbax directory in ``eval.ckpt`` raise;
+- an unknown ``system.mode``, train mode under ``WORLD_SIZE`` > 1 with no
+  rendezvous address (naming ``MASTER_ADDR``) and an orbax directory in
+  ``eval.ckpt`` raise;
 - checkpoint round trip: the port's weights -> ``.pth`` -> the port reads
   them back strictly, and rald_tpu's own ``load_torch_checkpoint`` +
   ``convert_{edm,vae,radar_autoencoder}_state_dict`` read the same files
@@ -86,8 +87,10 @@ def test_main_generation_refuses_train_mode_and_orbax(tree, tmp_path, monkeypatc
     with pytest.raises(NotImplementedError, match="unknown system.mode"):
         mg.run(_cfg(tree, tmp_path, **{"system.mode": "cache"}), device="cpu")
     with monkeypatch.context() as m:
+        for var in ("MASTER_ADDR", "JAX_COORDINATOR_ADDRESS"):
+            m.delenv(var, raising=False)
         m.setenv("WORLD_SIZE", "2")
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        with pytest.raises(RuntimeError, match="WORLD_SIZE=2.*MASTER_ADDR"):
             mg.run(_cfg(tree, tmp_path, **{"system.mode": "train"}), device="cpu")
     (tmp_path / "checkpoint-9").mkdir()
     for key in ("eval.ckpt", "lidar_ae.ckpt"):

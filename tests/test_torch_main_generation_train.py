@@ -144,14 +144,16 @@ def test_eval_cli_reads_trainer_checkpoint(tree, trained, tmp_path, use_ema):
 
 
 def test_main_cache_refuses_world_size_above_one(tree, tmp_path, monkeypatch):
-    """Every rank would cache every train frame into the same files: the CLI
-    refuses, as ``main_generation`` does, until the sharded sampler across
-    ranks is ported (ROADMAP A11)."""
+    """``WORLD_SIZE=2`` with no rendezvous address: the CLI raises before it
+    writes anything, naming ``MASTER_ADDR``, rather than caching alone (the
+    two-rank cache itself runs in ``tests/test_torch_parallel.py``)."""
     from rald_torch.cli import main_cache
 
     cfg = _cfg(tree, tmp_path, **{"train.epochs": 1, "train.eval_freq": 0})
+    for var in ("MASTER_ADDR", "JAX_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="WORLD_SIZE.*ROADMAP A11"):
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2.*MASTER_ADDR"):
         main_cache.run(cfg, device="cpu", print_fn=lambda *_: None)
     assert not (tmp_path / "latent_cache").exists()
 

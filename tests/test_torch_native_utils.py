@@ -163,9 +163,19 @@ def test_thread_map_imap_and_async_pool():
 
 
 def test_imap_tqdm_spawns_worker_processes():
-    from rald_torch.utils import imap_tqdm
+    """In a process of its own, under a hard limit: a pool whose worker dies
+    (a spawned child killed when memory runs short) waits for the lost task
+    forever, and inside a test worker that would hold the whole run."""
+    import subprocess
+    import sys
+    from pathlib import Path
 
-    assert imap_tqdm(abs, [-1, -2, 3], processes=2) == [1, 2, 3]
+    code = ("from rald_torch.utils import imap_tqdm; "
+            "print(imap_tqdm(abs, [-1, -2, 3], processes=2))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.splitlines()[-1] == "[1, 2, 3]"
 
 
 def test_shell_cmd():
