@@ -173,6 +173,25 @@ Phases, each printed before the last line:
    cuda:1, the steps of (b), where the machine has two cards. The ``[dist]``
    lines: timings and peak memory per rank beside the card's name and power
    limit.
+11. the rest of the port (``phase_rest()``, under ``build/chip_smoke/rest/``).
+   (a) Stochastic churn (``s_churn 40, s_min 0.05, s_max 50, s_noise
+   1.003``) on the product eval chain at full width, bf16 with
+   ``use_fused_attn``, batch 1 and 8: non-empty clouds, finite CD / F, row
+   1 at 864 and row 7 at 840 launches a batch (one AdaLN row per frame at
+   every NFE); frames 0 and 5 sampled alone against the same seeds inside
+   the batch of 8 (``CHURN_ALONE_BAR``); ``int8_ff: "static"`` + churn at
+   batch 1: row 4 at 840, row 5 at 0 (churn takes no scale rows); a
+   depth-2 f32 chain on the card against the CPU with injected prior and
+   churn draws (``CHURN_F32_BAR``). (b) ``python -m
+   rald_torch.cli.calibrate_int8`` with its defaults on phase 6's EDM
+   ``.pth`` (the npz beside it) and ``int8_gate`` in all four modes over
+   scene a of phase 6's tree: rows 4, 5 and 9 launched in their modes. (c)
+   ``convert_ckpt`` of phase 6's EDM ``.pth`` -> ``train.resume`` for one
+   epoch (3 steps) of ``main_generation`` train mode at full width; the
+   frozen YAML's radar autoencoder ``encode`` -> ``decode`` at the product
+   cube (128, 64, 32) on the card against the CPU in f32 (``RADAR_AE_BAR``);
+   ``maybe_trace`` around one ``sample_tokens`` call, its Chrome trace
+   naming the ``annotate`` region and row 1's GEMM kernels.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -3705,6 +3724,310 @@ def _dist_threshold() -> float:
     return thr
 
 
+# -------------------------------------------------------------- phase 11
+REST_DIR = SCRATCH / "rest"  # YAMLs, scales, artifacts, traces and checkpoints of phase 11
+CHURN = {"s_churn": 40.0, "s_min": 0.05, "s_max": 50.0, "s_noise": 1.003}
+# a frame sampled alone against the same seed inside the batch of 8: phase
+# 5's bf16 bar (5 % of max(rms, 1) on the max token difference); card
+# against CPU at depth 2 in f32: phase 5's f32 bar (1e-3 of max(rms, 1));
+# the radar autoencoder card against CPU in f32: 1e-4 of max |pred|
+CHURN_ALONE_BAR, CHURN_F32_BAR, RADAR_AE_BAR = 0.05, 1e-3, 1e-4
+
+
+def _churn_cfg(**kw):
+    cfg = _product_cfg(**kw)
+    cfg.eval.inference.update(CHURN)
+    return cfg
+
+
+def _rest_churn() -> dict:
+    """(a) churn on the product eval chain at full width: bf16 with
+    ``use_fused_attn`` at batch 1 and 8 (rows 1 and 7 launched exactly, the
+    AdaLN rows per frame at every NFE), a frame alone against the same seed
+    in the batch of 8, ``int8_ff: "static"`` + churn at batch 1 (the dynamic
+    row 4 runs, row 5 does not), then a depth-2 f32 chain on the card
+    against the CPU with injected prior and churn draws."""
+    from rald_torch import apply_matmul_precision
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("highest")
+    cfg = _churn_cfg(fused_attn=True)
+    rng = np.random.default_rng(cfg.system.seed)
+    inputs = {b: _inputs(cfg, b, rng) for b in (1, 8)}
+    runs = {}
+    eng = _build(cfg, "churn use_fused_attn", inputs.values())
+    for bsz in (1, 8):
+        runs[("churn use_fused_attn", bsz)] = _main_run(eng, inputs[bsz], bsz, "churn use_fused_attn",
+                                                        _want_launches(eng))
+    cube = inputs[8]["radar_cube"]
+    batch = eng.sample_tokens(cube, list(range(8)))
+    alone = []
+    for i in (0, 5):
+        tok = eng.sample_tokens(cube[i:i + 1], [i])
+        rms = float(batch[i].pow(2).mean().sqrt())
+        alone.append({"frame": i, "max_abs_diff": float((tok[0] - batch[i]).abs().max()),
+                      "rms": rms, "bar": CHURN_ALONE_BAR * max(rms, 1.0)})
+        check(alone[-1]["max_abs_diff"] <= alone[-1]["bar"], f"churn alone vs batch: {alone[-1]}")
+    print("[rest] " + json.dumps({"mode": "churn frame alone vs batch of 8", "frames": alone}))
+    del eng
+    torch.cuda.empty_cache()
+
+    scales = REST_DIR / "int8_act_scales_unused.npz"  # churn takes no scale rows
+    scales.parent.mkdir(parents=True, exist_ok=True)
+    depth = 24
+    np.savez(scales, ah=np.full((18, depth), 4.0, np.float32), ag=np.full((18, depth), 2.0, np.float32),
+             num_steps=18)
+    eng = _build(_churn_cfg(int8_ff="static", act_scales=scales), "churn int8_ff=static",
+                 [inputs[1]])
+    want = _want_launches(eng)
+    want["fused_ln_geglu_residual_int8"] = want.pop("fused_ln_geglu_residual_int8_static")
+    want["fused_ln_geglu_residual_int8_static"] = 0
+    runs[("churn int8_ff=static", 1)] = _main_run(eng, inputs[1], 1, "churn int8_ff=static", want)
+    del eng
+    torch.cuda.empty_cache()
+
+    # depth 2, f32 highest: the card against the CPU, same weights, injected draws
+    apply_matmul_precision("highest")
+    toks = {}
+    sd = None
+    for device in ("cuda", "cpu"):
+        c = _churn_cfg(fused_attn=True, f32=True, depth=2)
+        eng = GenerationEngine(c, device=device)
+        if sd is None:
+            sd = {k: v.cpu() for k, v in eng.model.state_dict().items()}
+        else:
+            eng.load_state_dicts(edm_state_dict=sd)
+        m = eng.model
+        eng.draw_prior = _numpy_prior
+        eng.draw_churn = lambda seeds, step, n, ch, dev: torch.from_numpy(np.stack([
+            np.random.default_rng([int(s), step, 7]).standard_normal((n, ch)).astype(np.float32)
+            for s in seeds])).to(dev)
+        toks[device] = eng.sample_tokens(inputs[1]["radar_cube"], [3]).cpu()
+        del eng, m
+    torch.cuda.empty_cache()
+    rms = float(toks["cpu"].pow(2).mean().sqrt())
+    err = float((toks["cuda"] - toks["cpu"]).abs().max())
+    f32 = {"mode": "churn card vs CPU, depth 2, f32 highest, use_fused_attn",
+           "tokens_max_abs_diff": err, "tokens_rms": rms, "bar": CHURN_F32_BAR * max(rms, 1.0)}
+    print("[rest] " + json.dumps(f32))
+    check(err <= f32["bar"], f"churn card vs CPU: {f32}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("highest")
+    return {"runs": runs, "alone": alone, "f32": f32}
+
+
+def _rest_cfg_file(cfg, name: str) -> Path:
+    import yaml
+
+    path = REST_DIR / name
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(cfg.to_dict()))
+    return path
+
+
+def _rest_int8_drivers() -> dict:
+    """(b) ``calibrate_int8`` with its defaults on phase 6's EDM ``.pth`` (the
+    npz beside it), then ``int8_gate`` in all four modes over scene a of
+    phase 6's tree, each mode's launches counted."""
+    from rald_torch.cli import calibrate_int8, int8_gate
+    from rald_torch.config import expand_experiment_sweep, finalize_dirs, load_config
+    from rald_torch.train.gen_engine import act_scales_path
+
+    _phase6_weights()
+    if not (EVAL_ROOT / "split_scene_a.json").exists():
+        _eval_tree()
+    ckpt = SCRATCH / "eval" / "ckpt" / "unfrozen_edm.pth"
+    cfg = _set_ckpts(_eval_cfg(PRODUCT_CFG, "rest_int8"),
+                     {"lidar_ae.ckpt": str(SCRATCH / "eval" / "ckpt" / "unfrozen_vae.pth")})
+    cfg.system.output_dir = str(REST_DIR / "int8")
+    scene = dict(expand_experiment_sweep(finalize_dirs(copy.deepcopy(cfg))))["scene_a"]
+    yml = _rest_cfg_file(scene, "int8_scene_a.yml")
+    act_scales_path(ckpt).unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    lines = []
+    path = calibrate_int8.main(["--config", str(yml), "--ckpt", str(ckpt)])
+    cal_s = time.perf_counter() - t0
+    check(path == act_scales_path(ckpt) and path.exists(), f"calibrate_int8 wrote {path}")
+    with np.load(path) as z:
+        ah, ag = z["ah"], z["ag"]
+    check(ah.shape == (18, 24) and bool((ah > 0).all()) and bool((ag > 0).all())
+          and bool(np.isfinite(ah).all()), "calibrate_int8: bad tables")
+    t0 = time.perf_counter()
+    art = int8_gate.run(finalize_dirs(load_config(yml)), ckpt, print_fn=lines.append)
+    gate_s = time.perf_counter() - t0
+    modes = art["modes"]
+    check(sorted(modes) == sorted(n for n, _ in int8_gate.MODES), f"int8_gate modes {sorted(modes)}")
+    for name, row in modes.items():
+        check(all(math.isfinite(row[k]) for k in ("iou", "cd_m", "fscore")), f"int8_gate {name}: {row}")
+    want = {"int8_ff": ["fused_ln_geglu_residual_int8"],
+            "int8_ff+attn_vout": ["fused_ln_geglu_residual_int8", "fused_self_attention_block_int8_vout"],
+            "int8_ff_static+attn_vout": ["fused_ln_geglu_residual_int8_static",
+                                         "fused_self_attention_block_int8_vout"]}
+    for name, kernels in want.items():
+        for k in kernels:
+            check(modes[name]["launches"].get(k, 0) > 0, f"int8_gate {name}: no {k} launch")
+    check("fused_ln_geglu_residual_int8_static" not in modes["int8_ff"]["launches"],
+          "int8_gate int8_ff: a static launch")
+    line = {"mode": "int8 drivers", "calibrate_s": cal_s, "gate_s": gate_s,
+            "ah_range": [float(ah.min()), float(ah.max())], "ag_range": [float(ag.min()), float(ag.max())],
+            "gate": art, "device": smi_line()}
+    print("[rest] " + json.dumps(line))
+    return line
+
+
+def _rest_resume() -> dict:
+    """(c) ``convert_ckpt`` of phase 6's EDM ``.pth`` into a trainer file, and
+    ``train.resume`` from it: one epoch (3 steps) of ``main_generation``
+    train mode at full width, bf16, batch 8, starting from the converted
+    weights (params = EMA = the file's, fresh optimizer, step 0)."""
+    from rald_torch.cli import convert_ckpt
+    from rald_torch.cli import main_generation as mg
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    _phase6_weights()
+    if not (TRAIN_TREE / "split_train.json").exists():
+        _train_tree()
+    src = SCRATCH / "eval" / "ckpt" / "unfrozen_edm.pth"
+    cfg = _train_cfg(TRAIN_CFG, "rest_resume")
+    out = REST_DIR / "converted"
+    t0 = time.perf_counter()
+    path = convert_ckpt.main(["--config", str(_rest_cfg_file(cfg, "train.yml")), "--kind",
+                              "generation", "--torch-ckpt", str(src), "--out", str(out)])
+    conv_s = time.perf_counter() - t0
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    ref = torch.load(src, map_location="cpu", weights_only=True)["model"]
+    check(raw["step"] == 0 and raw["epoch"] == 0 and raw["optimizer"]["count"] == 0,
+          f"convert_ckpt: step {raw['step']} epoch {raw['epoch']}")
+    check(all(torch.equal(raw["model"][k], v) and torch.equal(raw["model_ema"][k], v)
+              for k, v in ref.items()) and sorted(raw["model"]) == sorted(ref),
+          "convert_ckpt: params / EMA differ from the .pth")
+    del raw, ref
+    rcfg = _train_cfg(TRAIN_CFG, "rest_resume", resume=str(path), eval_freq=0, epochs=2)
+    eng = GenerationEngine(rcfg)
+    captured = {}
+    init = eng.init_state
+
+    def init_state(*a):
+        captured["state"] = init(*a)
+        return captured["state"]
+
+    eng.init_state = init_state
+    lines = []
+    t0 = time.perf_counter()
+    mg.run(rcfg, engine=eng, print_fn=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = _records(rcfg)
+    st = captured["state"]
+    check("resumed from epoch 0" in lines and [r["epoch"] for r in rec] == [1]
+          and math.isfinite(rec[0]["train_loss"]), f"resume from converted: {rec} {lines[-3:]}")
+    check(st.step == 3 and st.count == 3, f"resume from converted: step {st.step}")
+    line = {"mode": "convert_ckpt -> train.resume", "convert_s": conv_s, "train_wall_s": wall,
+            "record": rec[0], "steps": st.step}
+    print("[rest] " + json.dumps(line))
+    for f in list(out.glob("checkpoint-*.pth")) + list(
+            (TRAIN_DIR / "rest_resume" / "result").glob("checkpoint-*.pth")):
+        f.unlink()
+    del eng, st, captured
+    torch.cuda.empty_cache()
+    return line
+
+
+def _rest_radar_ae() -> dict:
+    """(c) the frozen YAML's radar autoencoder (encoder and decoder, random
+    weights, f32, ``matmul_precision: highest``) at the product cube
+    (128, 64, 32, 1): ``encode`` -> ``decode`` on the card against the CPU."""
+    from rald_torch import apply_matmul_precision
+    from rald_torch.config import load_config
+    from rald_torch.models.registry import get_radar_encoder_model
+    from rald_torch.train.gen_engine import init_random_weights
+
+    apply_matmul_precision("highest")
+    cfg = load_config(FROZEN_CFG)
+    r = cfg.dataset.radar
+    ae = get_radar_encoder_model(cfg.radar_enc.name, in_channels=1,
+                                 overrides=cfg.radar_enc.get("overrides")).eval()
+    init_random_weights(ae, torch.Generator().manual_seed(17))
+    x = torch.from_numpy(np.random.default_rng(17).normal(
+        size=(1, int(r.tgt_r_dim), int(r.tgt_a_dim), int(r.tgt_e_dim), 1)).astype(np.float32))
+    with torch.no_grad():
+        want = ae.decode(ae.encode(x))
+        ae.cuda()
+        t0 = time.perf_counter()
+        z = ae.encode(x.cuda())
+        got = ae.decode(z).cpu()
+        card_s = time.perf_counter() - t0
+    err, ref = float((got - want).abs().max()), float(want.abs().max())
+    line = {"mode": "radar autoencoder encode -> decode, card vs CPU, f32 highest",
+            "name": cfg.radar_enc.name, "input": list(x.shape), "latent": list(z.shape),
+            "pred": list(got.shape), "max_abs_diff": err, "max_abs_pred": ref,
+            "bar": RADAR_AE_BAR * ref, "card_s": card_s}
+    print("[rest] " + json.dumps(line))
+    check(tuple(got.shape) == tuple(x.shape) and math.isfinite(err) and err <= RADAR_AE_BAR * ref,
+          f"radar autoencoder card vs CPU: {line}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("highest")
+    del ae
+    torch.cuda.empty_cache()
+    return line
+
+
+def _rest_trace() -> dict:
+    """(c) ``maybe_trace`` around one ``sample_tokens`` call of the product
+    engine at full width and depth 2 (bf16, batch 1, random weights; depth
+    24 writes a 90 MB trace), an ``annotate`` region inside: the Chrome
+    trace names the region and row 1's GEMM kernels."""
+    import shutil
+
+    from rald_torch.ops import launch_counts, reset_launch_counts
+    from rald_torch.train.gen_engine import GenerationEngine
+    from rald_torch.train.profiler import annotate, maybe_trace
+
+    cfg = _product_cfg(depth=2)
+    eng = GenerationEngine(cfg)
+    cube = _inputs(cfg, 1, np.random.default_rng(5))["radar_cube"]
+    eng.sample_tokens(cube, [0])  # warm-up
+    d = REST_DIR / "trace"
+    shutil.rmtree(d, ignore_errors=True)
+    reset_launch_counts()
+    with maybe_trace(profile_dir=str(d)):
+        with annotate("rald_sample_tokens"):
+            eng.sample_tokens(cube, [0])
+        torch.cuda.synchronize()
+    n_row1 = launch_counts()["fused_ln_geglu_residual"]
+    files = list(d.glob("trace_*.json"))
+    check(len(files) == 1, f"maybe_trace: {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    row1 = [k for k in kernels if "gemm_kernel" in k]
+    line = {"mode": "maybe_trace around sample_tokens", "row1_launches": n_row1,
+            "kernel_events": len(kernels), "gemm_kernel_events": len(row1),
+            "gemm_kernel_names": sorted(set(row1))[:4],
+            "annotated": any(e.get("name") == "rald_sample_tokens" for e in events),
+            "trace_mib": files[0].stat().st_size / 2 ** 20}
+    print("[rest] " + json.dumps(line))
+    check(n_row1 == _per_nfe(eng) and line["annotated"] and len(row1) >= n_row1,
+          f"maybe_trace: {line}")
+    del eng
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_rest() -> dict:
+    """Phase 11: churn, the int8 drivers, the converters' round trip, the
+    radar decoder and the profiler hooks (``build/chip_smoke/rest/``)."""
+    out, secs = {}, {}
+    for name, part in (("churn", _rest_churn), ("int8", _rest_int8_drivers),
+                       ("resume", _rest_resume), ("radar_ae", _rest_radar_ae),
+                       ("trace", _rest_trace)):
+        t = time.perf_counter()
+        out[name] = part()
+        secs[name] = round(time.perf_counter() - t, 1)
+    print("[rest] part seconds " + json.dumps(secs))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3740,6 +4063,10 @@ def main() -> int:
     t = time.perf_counter()
     dist = phase_dist()
     print(f"[time] phase 10 (multi-process) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    rest = phase_rest()
+    print(f"[time] phase 11 (churn, int8 drivers, converters, radar decoder, trace) "
+          f"{time.perf_counter() - t:.1f} s")
     # each kernel's launches in the runs of the mode that uses it: the main
     # path's eval step at batch 1 (and 8), or, for the two kernels no
     # inference chain reaches, the module / host API that does
@@ -3802,6 +4129,12 @@ def main() -> int:
                     dist["nccl_world1"]["eval_launches_per_batch"].get(k["name"], 0),
                 "gloo_world2_infer_per_rank": [l.get(k["name"], 0) for l in
                                                dist["gloo_world2"]["infer"]["rank_launches"]]}
+    # phase 11: launches of the churn chain's runs, and per gate mode
+    gate = rest["int8"]["gate"]["modes"]
+    for k in kernels:
+        k["rest"] = {"churn": {f"{mode} B={b}": r["launches"][k["name"]]
+                               for (mode, b), r in rest["churn"]["runs"].items()},
+                     "int8_gate": {m: row["launches"].get(k["name"], 0) for m, row in gate.items()}}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -37,7 +37,7 @@ so its cloud does not depend on how many ranks share the job (JAX's
 
 Where it differs from the JAX tool: ``shard_queries`` has nothing to shard
 over (one card a process); an orbax checkpoint directory raises
-``NotImplementedError`` (reading orbax is not ported).
+``NotImplementedError`` (convert it with ``scripts/orbax_to_pth.py``).
 """
 from __future__ import annotations
 

@@ -142,8 +142,9 @@ def load_eval_checkpoint(cfg: Config, engine: GenerationEngine, print_fn=print) 
 
 def load_frozen_modules(cfg: Config, engine: GenerationEngine, print_fn=print) -> None:
     """Frozen VAE (+ radar encoder) weights (JAX :74-115), from ``.pth``
-    files, strictly. A radar autoencoder checkpoint gives its ``encoder.*``
-    keys; its ``decoder.*`` keys are named and left unused."""
+    files, strictly. A radar autoencoder checkpoint gives its encoder half
+    (:func:`split_radar_autoencoder`): conditioning never decodes, so the
+    engine holds no decoder."""
     path = _checkpoint(cfg, "lidar_ae.ckpt")
     if path is not None:
         engine.load_state_dicts(vae_state_dict=load_torch_checkpoint(path))
@@ -156,12 +157,8 @@ def load_frozen_modules(cfg: Config, engine: GenerationEngine, print_fn=print) -
     if path is None:
         print_fn("WARNING: radar_enc.ckpt missing — using randomly initialized encoder")
         return
-    sd, unused = split_radar_autoencoder(load_torch_checkpoint(path))
-    engine.load_state_dicts(radar_enc_state_dict=sd)
+    engine.load_state_dicts(radar_enc_state_dict=split_radar_autoencoder(load_torch_checkpoint(path))[0])
     print_fn(f"Loaded frozen radar encoder from {path}")
-    if unused:
-        print_fn(f"radar_enc.ckpt: {len(unused)} decoder keys unused (the port has no "
-                 f"RadarDecoder3D): {', '.join(unused[:4])}{', ...' if len(unused) > 4 else ''}")
 
 
 def run(cfg: Config, device=None, engine: GenerationEngine | None = None, print_fn=print,

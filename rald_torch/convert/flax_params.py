@@ -3,8 +3,11 @@
 Each function is the exact inverse of its converter in
 ``rald_tpu/convert/torch_ckpt.py``: :func:`edm_state_dict_from_flax` of
 ``convert_edm_state_dict`` (:222), :func:`vae_state_dict_from_flax` of
-``convert_vae_state_dict`` (:99) and :func:`radar_encoder_state_dict_from_flax`
-of ``convert_radar_encoder_state_dict`` (:165). Layout transforms:
+``convert_vae_state_dict`` (:99), :func:`radar_encoder_state_dict_from_flax`
+of ``convert_radar_encoder_state_dict`` (:165), :func:`radar_decoder_state_dict_from_flax`
+of ``convert_radar_decoder_state_dict`` (:189) and
+:func:`radar_autoencoder_state_dict_from_flax` of
+``convert_radar_autoencoder_state_dict`` (:211). Layout transforms:
 
 - Dense kernel (in, out)          -> Linear weight (out, in)
 - Conv kernel (D, H, W, in, out)  -> Conv3d weight (out, in, D, H, W)
@@ -99,6 +102,36 @@ def radar_encoder_state_dict_from_flax(params, prefix: str = "") -> dict:
             _conv3d(p["conv"], f"{prefix}down.{m[1]}.downsample.conv", out)
         else:
             raise KeyError(f"unexpected radar encoder param {name!r}")
+    return out
+
+
+def radar_decoder_state_dict_from_flax(params, prefix: str = "") -> dict:
+    """``RadarDecoder3D`` flax params -> reference decoder state_dict."""
+    out: dict = {}
+    for name, p in params.items():
+        if name in ("conv_in", "conv_out"):
+            _conv3d(p, prefix + name, out)
+        elif name == "norm_out":
+            _norm(p, prefix + name, out)
+        elif name in ("mid_block_1", "mid_block_2"):
+            _resnet_block(p, f"{prefix}mid.{name[4:]}", out)
+        elif name == "mid_attn_1":
+            _attn_block3d(p, f"{prefix}mid.attn_1", out)
+        elif m := re.fullmatch(r"up_(\d+)_block_(\d+)", name):
+            _resnet_block(p, f"{prefix}up.{m[1]}.block.{m[2]}", out)
+        elif m := re.fullmatch(r"up_(\d+)_upsample", name):
+            _conv3d(p["conv"], f"{prefix}up.{m[1]}.upsample.conv", out)
+        else:
+            raise KeyError(f"unexpected radar decoder param {name!r}")
+    return out
+
+
+def radar_autoencoder_state_dict_from_flax(params) -> dict:
+    """``RadarAutoencoder`` flax params (``encoder`` and, where present,
+    ``decoder``) -> reference ``RadarAutoencoder`` state_dict."""
+    out = radar_encoder_state_dict_from_flax(params["encoder"], prefix="encoder.")
+    if "decoder" in params:
+        out.update(radar_decoder_state_dict_from_flax(params["decoder"], prefix="decoder."))
     return out
 
 

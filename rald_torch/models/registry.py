@@ -92,9 +92,11 @@ def get_generation_model(name: str, configs, overrides=None, use_fused_ff: bool 
     return EDMPrecond(**args)
 
 
-def get_radar_encoder_model(name: str, in_channels: int = 2, overrides=None) -> RadarAutoencoder:
-    """The frozen radar encoder of ``radar_enc.name`` (JAX :100-104);
-    ``overrides`` as JAX's ``radar_enc.copy(**overrides)``."""
-    args = dict(RADAR_ENCODER_VARIANTS[name], in_channels=in_channels)
+def get_radar_encoder_model(name: str, in_channels: int = 2, overrides=None,
+                            decoder: bool = True) -> RadarAutoencoder:
+    """The radar autoencoder of ``radar_enc.name`` (JAX :100-104);
+    ``overrides`` as JAX's ``radar_enc.copy(**overrides)``; ``decoder=False``
+    builds the encoder alone (the frozen conditioning encoder)."""
+    args = dict(RADAR_ENCODER_VARIANTS[name], in_channels=in_channels, decoder=decoder)
     args.update(dict(overrides or {}))
     return RadarAutoencoder(**args)

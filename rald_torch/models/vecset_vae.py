@@ -8,7 +8,8 @@ encode (``_latent_queries`` and ``encode``, :156-202: ``mix``,
 ``learnable`` or FPS ``point`` queries, the KL posterior), the decode:
 ``decode_latents`` (:204), ``decode_queries`` (:213-239) and the folded
 decode ``_decode_queries_folded`` (:251-301), and the whole forward
-(:meth:`VecSetVAE.forward`, JAX's ``__call__`` :307-319).
+(:meth:`VecSetVAE.forward`, JAX's ``__call__`` :307-319);
+:func:`create_autoencoder` is JAX's factory (:322-349).
 
 Training mode (``module.train()``) is JAX's ``deterministic=False``: each
 self-attention block's two sublayers and the mix attention end in a
@@ -306,3 +307,24 @@ class VecSetVAE(nn.Module):
                                 sample_posterior=sample_posterior)
             logits = self.decode(z, queries)
         return {"logits": logits.squeeze(-1).float(), "kl": kl}
+
+
+def create_autoencoder(
+    dim: int = 512,
+    M: int = 512,
+    latent_dim: int = 64,
+    N: int = 2048,
+    deterministic: bool = False,
+    query_type: str = "point",
+    use_fused_ff: bool = False,
+    fold_decode_tail: bool = False,
+    dtype=None,
+) -> VecSetVAE:
+    """The reference's ``create_autoencoder`` (``models_ae.py:434-459``):
+    24 blocks, 8 heads of 64, one output logit, JAX's defaults."""
+    return VecSetVAE(
+        depth=24, dim=dim, queries_dim=dim, output_dim=1, num_inputs=N, num_latents=M,
+        latent_dim=latent_dim, heads=8, dim_head=64, query_type=query_type,
+        deterministic_latent=deterministic, use_fused_ff=use_fused_ff,
+        fold_decode_tail=fold_decode_tail, dtype=dtype,
+    )

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels (``rald_torch/csrc``) and their plain versions.
 
 Each kernel wrapper counts its own launches in ``<wrapper>.launches``; the
-plain version (CPU tensors) never counts.
+plain version (CPU tensors) never counts. ``streaming_single_head_attention``
+is exported beside them, as ``rald_tpu.ops`` exports it: plain PyTorch, no
+kernel, so it is not in :data:`KERNELS`.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from rald_torch.ops.geglu_kernel import (
     geglu_ff,
 )
 from rald_torch.ops.nn_dist_kernel import nn_min_sq_batch, nn_min_sq_both
+from rald_torch.ops.query_attention import streaming_single_head_attention
 
 KERNELS = {
     "fused_ln_geglu_residual": fused_ln_geglu_residual,

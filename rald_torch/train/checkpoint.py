@@ -18,7 +18,9 @@ eval CLI read it as a reference file), ``model_ema``, ``optimizer``
 file has it, as JAX's eval takes a restored state's ``ema_params``.
 
 Orbax checkpoint directories (the JAX package's trainers write them) are
-not read: that needs orbax and tensorstore, which the port does not use.
+not read here: that needs orbax and tensorstore, which the port does not
+use. ``scripts/orbax_to_pth.py``, run where the JAX package runs, turns
+them into these ``.pth`` files.
 """
 from __future__ import annotations
 
@@ -39,14 +41,14 @@ EMA_KEY = "model_ema"
 def load_torch_checkpoint(path, key: str | None = STATE_KEY, ema: bool = False) -> dict:
     """A ``.pth`` file -> its state_dict of CPU tensors (``key`` if the file
     holds it, else the whole dict; with ``ema``, ``model_ema`` where the
-    file holds it). A directory raises ``NotImplementedError``: orbax
-    checkpoints are not read by the port."""
+    file holds it). A directory raises ``NotImplementedError``: convert an
+    orbax checkpoint with ``scripts/orbax_to_pth.py`` first."""
     path = Path(path)
     if path.is_dir():
         raise NotImplementedError(
             f"rald_torch: {path} is a directory (an orbax checkpoint of the JAX package); the "
-            "port reads reference-layout .pth files only — reading orbax is not ported "
-            "(ROADMAP A3)"
+            "port reads .pth files: convert it with scripts/orbax_to_pth.py, where the JAX "
+            "package runs"
         )
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if ema and isinstance(ckpt, dict) and EMA_KEY in ckpt:
@@ -64,13 +66,14 @@ def save_torch_checkpoint(path, state_dict: dict, key: str = STATE_KEY) -> Path:
     return path
 
 
-def split_radar_autoencoder(state_dict: dict) -> tuple[dict, list]:
-    """A reference ``RadarAutoencoder`` state_dict -> (the ``encoder.*``
-    entries, the sorted ``decoder.*`` keys the port does not use: it has no
-    ``RadarDecoder3D``). Any other key stays in the first dict, so a strict
-    load refuses it."""
+def split_radar_autoencoder(state_dict: dict) -> tuple[dict, dict]:
+    """A reference ``RadarAutoencoder`` state_dict -> (its encoder half, its
+    ``decoder.*`` entries). The frozen conditioning encoder
+    (``RadarAutoencoder(decoder=False)``) loads the first strictly; any key
+    outside ``decoder.*`` stays in it, so that load refuses a stray one. A
+    whole ``RadarAutoencoder`` loads the file as it is."""
     keep = {k: v for k, v in state_dict.items() if not k.startswith("decoder.")}
-    return keep, sorted(k for k in state_dict if k.startswith("decoder."))
+    return keep, {k: v for k, v in state_dict.items() if k.startswith("decoder.")}
 
 
 def _to_cpu(tree):

@@ -46,9 +46,10 @@ and so does the port). Its f32 master weights, drawn as JAX's
 dtype, which the state refreshes from the masters after every update (in
 float32 the masters are the model's own parameters). :meth:`evaluate`
 loads the state's params or EMA into the eval DiT. Prior noise comes from
-:attr:`GenerationEngine.draw_prior`, one function that every sampling
-entry point calls (a test may swap in another draw, such as the JAX
-package's per-seed stream); the training draws (posterior noise, sigma,
+:attr:`GenerationEngine.draw_prior`, and with ``eval.inference.s_churn >
+0`` the churn noise from :attr:`GenerationEngine.draw_churn`: the functions
+that every sampling entry point calls (a test may swap in other draws, such
+as the JAX package's per-seed streams); the training draws (posterior noise, sigma,
 noise) come from generators seeded from (``system.seed``, epoch, step), or
 are injected. Under a process group (:mod:`rald_torch.parallel`) every
 rank draws at the global batch and keeps its rows, averages the step's
@@ -76,6 +77,7 @@ from rald_torch.diffusion.edm import (
     edm_loss,
     edm_sampler,
     karras_sigmas,
+    sample_churn_noise,
     sample_prior_latents,
     stack_mod_table,
     unstack_mods,
@@ -172,6 +174,17 @@ def torch_dtype(name):
     return getattr(torch, name) if isinstance(name, str) else name
 
 
+def act_scales_path(ckpt) -> Path:
+    """The default static-int8 scales file of an eval checkpoint: beside a
+    ``.pth`` file, named after it (``checkpoint-479.pth`` ->
+    ``checkpoint-479.int8_act_scales.npz``); inside a checkpoint directory,
+    ``int8_act_scales.npz``, as the JAX package keeps it."""
+    ckpt = Path(ckpt)
+    if ckpt.is_dir():
+        return ckpt / "int8_act_scales.npz"
+    return ckpt.with_name(ckpt.stem + ".int8_act_scales.npz")
+
+
 class GenerationEngine:
     def __init__(self, cfg, device=None, seed: Optional[int] = None, dtype=None):
         self.cfg = cfg
@@ -187,6 +200,7 @@ class GenerationEngine:
             mc.get("unfreeze_radar_enc", False)
         )
         self.draw_prior = sample_prior_latents
+        self.draw_churn = sample_churn_noise
         ev = cfg.get("eval", {})
         inf = ev.get("inference", {})
 
@@ -220,10 +234,12 @@ class GenerationEngine:
             int8_ff, int8_attn = self.model.use_int8_ff, self.model.use_int8_attn
         self.use_int8_ff, self.use_int8_attn = int8_ff, int8_attn
         # the frozen external encoder of the radar cube's intensity channel
+        # (the autoencoder's encoder alone: conditioning never decodes)
         self.radar_enc = None
         if self.frozen_radar_enc:
             self.radar_enc = get_radar_encoder_model(
                 cfg.radar_enc.name, in_channels=1, overrides=cfg.radar_enc.get("overrides"),
+                decoder=False,
             )
 
         gen = torch.Generator().manual_seed(self.seed)
@@ -307,25 +323,26 @@ class GenerationEngine:
         """Calibrated FF activation amax for ``int8_ff: "static"``: an npz
         with ``ah`` / ``ag`` of shape (num_steps, depth) and ``num_steps``,
         at ``eval.inference.int8_act_scales`` or by default
-        ``<eval.ckpt>/int8_act_scales.npz`` (the JAX package's
-        ``scripts/calibrate_int8.py`` writes it; :meth:`calibrate_act_scales`
-        computes the same tables). Returns a (num_steps, depth, 2) f32 table
-        on the device, indexed by schedule step like the mod table."""
+        :func:`act_scales_path` of ``eval.ckpt`` (``python -m
+        rald_torch.cli.calibrate_int8`` writes it there;
+        :meth:`calibrate_act_scales` computes the tables). Returns a
+        (num_steps, depth, 2) f32 table on the device, indexed by schedule
+        step like the mod table."""
         path = str(inf_cfg.get("int8_act_scales", "") or "")
         if not path:
             ckpt = str(self.cfg.get("eval", {}).get("ckpt", "") or "")
             if not ckpt:
                 raise ValueError(
                     "eval.inference.int8_ff: 'static' needs calibrated activation scales — set "
-                    "eval.inference.int8_act_scales or eval.ckpt (default "
-                    "<ckpt>/int8_act_scales.npz); GenerationEngine.calibrate_act_scales "
-                    "produces them"
+                    "eval.inference.int8_act_scales or eval.ckpt (default: beside the "
+                    "checkpoint, <ckpt stem>.int8_act_scales.npz); python -m "
+                    "rald_torch.cli.calibrate_int8 produces them"
                 )
-            path = str(Path(ckpt) / "int8_act_scales.npz")
+            path = str(act_scales_path(ckpt))
         if not Path(path).exists():
             raise FileNotFoundError(
                 f"int8_ff: 'static' — no activation scales at {path}; calibrate them on the "
-                "eval checkpoint first (GenerationEngine.calibrate_act_scales)"
+                "eval checkpoint first (python -m rald_torch.cli.calibrate_int8)"
             )
         with np.load(path) as z:
             ah, ag = np.asarray(z["ah"], np.float32), np.asarray(z["ag"], np.float32)
@@ -566,12 +583,25 @@ class GenerationEngine:
 
     @torch.no_grad()
     def sample_from_cond(self, cond, seeds_or_prior, capture_states: bool = False):
-        """35-NFE Heun sampling with the AdaLN mod table built once; in
-        ``int8_ff: "static"`` mode each NFE takes its schedule step's row of
-        the activation-scale table. ``capture_states`` as in
-        :func:`edm_sampler`."""
+        """35-NFE Heun sampling; ``capture_states`` as in :func:`edm_sampler`.
+
+        Without churn the AdaLN mod table is built once, and in ``int8_ff:
+        "static"`` mode each NFE takes its schedule step's row of the
+        activation-scale table. With ``s_churn > 0`` (JAX :420-434) the
+        sigmas leave the schedule: each NFE calls ``denoise``, which projects
+        the AdaLN rows from its own sigma, one row per frame, and takes no
+        activation-scale rows, so a static int8 FF runs the dynamic kernel
+        (``fused_ln_geglu_residual_int8``). Step ``i``'s churn draws come from
+        :attr:`draw_churn` (per-sample streams keyed by (seed, step))."""
         m = self.model
         latents = self.draw_prior(seeds_or_prior, m.n_latents, m.channels, self.device)
+        kw = self.sampler_kwargs
+        if kw["s_churn"] > 0:
+            def noise(step):
+                return self.draw_churn(seeds_or_prior, step, m.n_latents, m.channels, self.device)
+
+            return edm_sampler(lambda x, sigma, idx: m.denoise(x, sigma, cond), latents,
+                               churn_noise=noise, capture_states=capture_states, **kw)
         _, table = self._schedule()
         acts = self._act_scales if self.use_int8_ff == "static" else None
 
@@ -582,8 +612,7 @@ class GenerationEngine:
                 sc = tuple((row[i, 0], row[i, 1]) for i in range(row.shape[0]))
             return m.denoise_with_mods(x, sigma, unstack_mods(table[idx]), cond, act_scales=sc)
 
-        return edm_sampler(denoise_indexed, latents, capture_states=capture_states,
-                           **self.sampler_kwargs)
+        return edm_sampler(denoise_indexed, latents, capture_states=capture_states, **kw)
 
     @torch.no_grad()
     def sample_tokens(self, radar_cube, seeds_or_prior):
@@ -608,7 +637,12 @@ class GenerationEngine:
         batch b of size B draws from seeds b*B .. b*B+B-1, as JAX does.
         Returns ``(ah, ag)`` f32 numpy arrays (num_steps, depth) times
         ``margin``; save them as ``np.savez(path, ah=ah, ag=ag,
-        num_steps=num_steps)`` for ``eval.inference.int8_act_scales``.
+        num_steps=num_steps)`` for ``eval.inference.int8_act_scales``, or at
+        :func:`act_scales_path` of ``eval.ckpt``. The defaults (2 batches,
+        margin 1.0) are JAX's; its gate failed with them, and
+        ``python -m rald_torch.cli.calibrate_int8`` passes 8 and 1.10.
+        Churn is refused: it moves the sigmas off the schedule the tables
+        are indexed by.
         """
         if self.sampler_kwargs["s_churn"] > 0:
             raise ValueError(

@@ -1,16 +1,61 @@
-"""Stage timing for host-driven loops: the port's ``StageTimer``
-(``rald_tpu/train/profiler.py:49-89``).
+"""Profiling hooks and stage timing (``rald_tpu/train/profiler.py``).
 
-The per-iteration iter/data timers live in
-:class:`rald_torch.train.metrics.MetricLogger.log_every`; :func:`synced_ms`
-is the engines' synchronised stage split of a step.
+- :func:`maybe_trace` (:33-42): a ``torch.profiler`` trace of the enclosed
+  region when a profile dir is configured (``RALD_PROFILE_DIR``, else
+  ``system.profile_dir``; :func:`profile_dir_from`, :23-30), written as a
+  Chrome trace (``chrome://tracing``, Perfetto); CPU activity, and CUDA
+  activity when a card is in use;
+- :func:`annotate` (:45-47): a named region inside such a trace;
+- :class:`StageTimer` (:49-89): accumulated wall time per stage of a
+  host-driven loop; :func:`synced_ms` is the engines' synchronised stage
+  split of a step. The per-iteration iter/data timers live in
+  :class:`rald_torch.train.metrics.MetricLogger.log_every`.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+from pathlib import Path
+from typing import Optional
 
 import torch
+
+
+def profile_dir_from(cfg=None) -> Optional[str]:
+    """``RALD_PROFILE_DIR`` if set, else ``system.profile_dir`` of ``cfg``."""
+    env = os.environ.get("RALD_PROFILE_DIR")
+    if env:
+        return env
+    if cfg is not None:
+        return cfg.get("system", {}).get("profile_dir")
+    return None
+
+
+@contextlib.contextmanager
+def maybe_trace(cfg=None, profile_dir: Optional[str] = None):
+    """Trace the enclosed region iff a profile dir is configured
+    (``profile_dir``, else :func:`profile_dir_from` of ``cfg``): a
+    ``torch.profiler.profile`` of the CPU, plus CUDA when a card is
+    available, written on exit as ``trace_<pid>_<n>.json`` in the dir. The
+    profiler yields itself (None when not tracing)."""
+    d = profile_dir or profile_dir_from(cfg)
+    if not d:
+        yield None
+        return
+    os.makedirs(d, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    n = len(list(Path(d).glob(f"trace_{os.getpid()}_*.json")))
+    prof.export_chrome_trace(str(Path(d) / f"trace_{os.getpid()}_{n}.json"))
+
+
+def annotate(name: str):
+    """A named sub-region inside a trace (``torch.profiler.record_function``)."""
+    return torch.profiler.record_function(name)
 
 
 class StageTimer:

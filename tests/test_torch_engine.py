@@ -164,10 +164,12 @@ def test_engine_refuses_unported_options():
                          device="cpu")
     with pytest.raises(ValueError, match="int8_attn must be bool, 'full' or 'vout'"):
         GenerationEngine(tiny_cfg(Config, eval={"inference": {"int8_attn": "qk"}}), device="cpu")
-    with pytest.raises(NotImplementedError, match="churn"):
-        eng = GenerationEngine(tiny_cfg(Config, eval={"inference": {"s_churn": 1.0}}),
-                               device="cpu")
-        eng.sample_tokens(None, [0])
+    # churn is ported; with an injected prior it has no seeds to key its draws from
+    eng = GenerationEngine(tiny_cfg(Config, eval={"inference": {"s_churn": 1.0, "num_steps": 3}}),
+                           device="cpu")
+    assert torch.isfinite(eng.sample_tokens(None, [0])).all()
+    with pytest.raises(ValueError, match="churn"):
+        eng.sample_tokens(None, np.zeros((1, eng.model.n_latents, eng.model.channels), np.float32))
 
 
 # ------------------------------------------------------------ densify_queries

@@ -146,7 +146,7 @@ def test_cli_refuses_checkpoints_it_cannot_read(tmp_path):
     assert lines[:2] == ["WARNING: eval.ckpt missing — sampling with random weights",
                          "WARNING: lidar_ae.ckpt missing — using randomly initialized frozen VAE"]
     (tmp_path / "ckpt").mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(NotImplementedError, match="scripts/orbax_to_pth.py"):
         infer.run(_cli_cfg(tmp_path, ckpt=str(tmp_path / "ckpt")), str(tmp_path / "in"),
                   str(tmp_path / "o"), device="cpu", print_fn=lines.append)
 
@@ -182,7 +182,7 @@ def test_cli_reads_pth_checkpoints_and_the_frozen_encoder(tmp_path):
     assert lines[:3] == [f"Loaded generation checkpoint from {cfg.eval.ckpt}",
                          f"Loaded frozen VAE from {cfg.lidar_ae.ckpt}",
                          f"Loaded frozen radar encoder from {cfg.radar_enc.ckpt}"]
-    assert "decoder.conv_out.weight" in lines[3]
+    assert not any("decoder" in line for line in lines)  # the encoder half is loaded, no note
     files = infer.collect_inputs(str(tmp_path / "in"))
     cubes = np.stack([infer.preprocess(infer.load_cube(f), cfg.dataset.radar) for f in files])
     grid = infer.query_grid(cfg)
@@ -253,3 +253,30 @@ def test_cli_refuses_world_size_above_one(tmp_path, monkeypatch):
         infer.run(_cli_cfg(tmp_path), str(tmp_path / "in"), str(tmp_path / "o"), device="cpu",
                   print_fn=lambda *_: None)
     assert not (tmp_path / "o").exists()
+
+
+def test_cli_samples_with_churn(tmp_path, monkeypatch):
+    """``eval.inference.s_churn > 0`` reaches the CLI's sampling: one churn
+    draw per Heun step of each batch, keyed by the frames' seeds, and
+    clouds that differ from the churn-free run."""
+    import rald_torch.train.gen_engine as ge
+    from rald_torch.cli import infer
+    from rald_torch.diffusion.edm import sample_churn_noise
+
+    calls = []
+
+    def spy(seeds, step, *a):
+        calls.append((list(seeds), step))
+        return sample_churn_noise(seeds, step, *a)
+
+    monkeypatch.setattr(ge, "sample_churn_noise", spy)
+    _raw_cubes(tmp_path / "in", {"s": 3})
+    churn = {"s_churn": 40.0, "s_min": 0.05, "s_max": 50.0, "s_noise": 1.003, "num_steps": 4}
+    got = {}
+    for label, inf in (("churn", churn), ("plain", dict(churn, s_churn=0.0))):
+        cfg = _cli_cfg(tmp_path)
+        cfg.eval.inference.update(inf)
+        got[label] = infer.run(cfg, str(tmp_path / "in"), str(tmp_path / label), batch=2,
+                               device="cpu", threshold=0.0, print_fn=lambda *_: None)["points"]
+    assert calls == [([0, 1], s) for s in range(4)] + [([2, 3], s) for s in range(4)]
+    assert got["churn"] != got["plain"] or not any(got["plain"])

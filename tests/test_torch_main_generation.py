@@ -12,7 +12,8 @@ its ``.pth`` checkpoints, on the CPU with the JAX test harness's tiny config:
   ``convert_{edm,vae,radar_autoencoder}_state_dict`` read the same files
   into JAX's parameter trees (so the files are the reference layout);
 - the frozen radar encoder's config with ``eval.ckpt`` / ``lidar_ae.ckpt``
-  / ``radar_enc.ckpt`` files: loaded, the autoencoder's decoder keys named."""
+  / ``radar_enc.ckpt`` files: loaded, the engine taking the autoencoder's
+  encoder half and a whole ``RadarAutoencoder`` the file as it is."""
 import json
 
 import jax
@@ -101,8 +102,8 @@ def test_main_generation_refuses_train_mode_and_orbax(tree, tmp_path, monkeypatc
 
 def _decoder_state_dict(ch, ch_mult, num_res_blocks, z_ch, out_ch, gen) -> dict:
     """Reference-layout ``decoder.*`` keys of a radar autoencoder (its
-    ``RadarDecoder3D``, which the port does not build), from the port's
-    own blocks: conv_in, mid, ``up.<level>.block.<j>`` (num_res_blocks + 1
+    ``RadarDecoder3D``), built here from the port's own blocks, apart from
+    the port's decoder: conv_in, mid, ``up.<level>.block.<j>`` (num_res_blocks + 1
     each), ``up.<level>.upsample.conv`` above level 0, norm_out, conv_out."""
     from rald_torch.models.radar_encoder3d import AttnBlock3D, ResnetBlock3D, _group_norm
     from rald_torch.train.gen_engine import init_random_weights
@@ -156,6 +157,8 @@ def _write_checkpoints(eng, out) -> dict:
 @pytest.mark.parametrize("frozen", [False, True])
 def test_checkpoint_round_trip(tree, tmp_path, frozen):
     from rald_torch.cli.main_generation import load_eval_checkpoint, load_frozen_modules
+    from rald_torch.models.registry import get_radar_encoder_model
+    from rald_torch.train.checkpoint import load_torch_checkpoint
     from rald_torch.convert.flax_params import (
         edm_state_dict_from_flax,
         radar_encoder_state_dict_from_flax,
@@ -188,8 +191,11 @@ def test_checkpoint_round_trip(tree, tmp_path, frozen):
         from rald_tpu.config import Config as JConfig
         from rald_tpu.train.gen_engine import GenerationEngine as JEngine
 
-        assert lines[2:] == [f"Loaded frozen radar encoder from {paths['radar_enc.ckpt']}",
-                             lines[3]] and "decoder keys unused" in lines[3]
+        assert lines[2:] == [f"Loaded frozen radar encoder from {paths['radar_enc.ckpt']}"]
+        assert not any(n.startswith("decoder.") for n in dst.radar_enc.state_dict())
+        whole = get_radar_encoder_model(dst.cfg.radar_enc.name, in_channels=1,
+                                        overrides=dst.cfg.radar_enc.overrides)
+        whole.load_state_dict(load_torch_checkpoint(paths["radar_enc.ckpt"]))  # strictly
         ae = jc.convert_radar_autoencoder_state_dict(
             jc.load_torch_checkpoint(paths["radar_enc.ckpt"]))
         jeng = JEngine(JConfig(json.loads(json.dumps(dst.cfg.to_dict()))))
@@ -207,8 +213,8 @@ def test_checkpoint_round_trip(tree, tmp_path, frozen):
 
 def test_frozen_config_eval_reads_pth_checkpoints(tree, tmp_path):
     """The frozen-encoder config in eval mode with all three ``.pth`` files:
-    ``run`` loads them (the autoencoder's decoder keys named, unused) and
-    gives the stats of an engine loaded by hand from the same files."""
+    ``run`` loads them (the autoencoder's encoder half) and gives the stats
+    of an engine loaded by hand from the same files."""
     from rald_torch.cli import main_generation as mg
     from rald_torch.train.checkpoint import load_torch_checkpoint, split_radar_autoencoder
     from rald_torch.train.gen_engine import GenerationEngine
@@ -219,12 +225,35 @@ def test_frozen_config_eval_reads_pth_checkpoints(tree, tmp_path):
     lines = []
     got = mg.run(cfg, device="cpu", print_fn=lines.append)
     assert sum(l.startswith("Loaded ") for l in lines) == 3
-    assert any("decoder keys unused" in l and "decoder.conv_in.weight" in l for l in lines)
+    assert not any("decoder" in l for l in lines)
     eng = GenerationEngine(cfg, device="cpu")
-    sd, unused = split_radar_autoencoder(load_torch_checkpoint(paths["radar_enc.ckpt"]))
-    assert unused and all(k.startswith("decoder.") for k in unused)
+    sd, dec = split_radar_autoencoder(load_torch_checkpoint(paths["radar_enc.ckpt"]))
+    assert "decoder.conv_in.weight" in dec and all(k.startswith("decoder.") for k in dec)
     eng.load_state_dicts(load_torch_checkpoint(paths["eval.ckpt"]),
                          load_torch_checkpoint(paths["lidar_ae.ckpt"]), sd)
     loader = mg.build_eval_loader(cfg, "eval")
     assert got == eng.evaluate(loader, print_fn=lambda *_: None)
     assert np.isfinite(got["loss"])
+
+
+@pytest.mark.parametrize("store_pc", [True, False])
+def test_eval_mode_samples_with_churn(tree, tmp_path, monkeypatch, store_pc):
+    """``eval.inference.s_churn > 0`` reaches ``evaluate`` on both of its
+    paths (the modular one with PLY dumps, the fused step): one churn draw
+    per Heun step of each batch, keyed by the batch's prior seeds."""
+    import rald_torch.train.gen_engine as ge
+    from rald_torch.cli import main_generation as mg
+    from rald_torch.diffusion.edm import sample_churn_noise
+
+    calls = []
+
+    def spy(seeds, step, *a):
+        calls.append((list(seeds), step))
+        return sample_churn_noise(seeds, step, *a)
+
+    monkeypatch.setattr(ge, "sample_churn_noise", spy)
+    cfg = _cfg(tree, tmp_path, **{"eval.store_pc": store_pc})
+    cfg.eval.inference.update(s_churn=40.0, s_min=0.05, s_max=50.0, s_noise=1.003, num_steps=4)
+    stats = mg.run(cfg, device="cpu", print_fn=lambda *_: None)
+    assert calls == [([it], s) for it in range(2) for s in range(4)]
+    assert np.isfinite(stats["loss"]) and 0 <= stats["iou"] <= 1
