@@ -192,6 +192,23 @@ Phases, each printed before the last line:
    cube (128, 64, 32) on the card against the CPU in f32 (``RADAR_AE_BAR``);
    ``maybe_trace`` around one ``sample_tokens`` call, its Chrome trace
    naming the ``annotate`` region and row 1's GEMM kernels.
+12. the convergence recipe cut to fit (``phase_curves()``, under
+   ``build/chip_smoke/curves/``), at full width. (a) ``python -m
+   rald_torch.cli.curves_configs``'s tree (300 frames of 16000 points,
+   radar (128, 8, 2)) and YAMLs (60 + 120 epochs). (b) Stage 1: the first
+   ``CURVES_AE_EPOCHS`` epochs of the 60-epoch schedule, the ``AEEngine``
+   epoch loop driven from here (so the LR horizon stays the recipe's), the
+   evals after epochs 3 and 7 beside JAX's log (``JAX_STAGE1_VAL_IOU``),
+   then the checkpoint: finite values, a falling loss, val IoU at epoch 7
+   at least ``CURVES_MIN_IOU_EPOCH7``, 48 launches of row 1 and 1 of row 2
+   per evaluated batch. (c) ``main_cache`` from that file ("Loaded frozen
+   VAE from …pth", 200 latents). (d) Stage 2: the first
+   ``CURVES_GEN_EPOCHS`` epochs of the 120-epoch schedule from the cache,
+   the EMA eval after epoch 3 with 864 / 1 launches of rows 1 / 2 per
+   evaluated batch, then the checkpoint. (e) ``python -m
+   rald_torch.cli.precision_gate`` on that checkpoint with 1 mask batch,
+   from torch's process defaults. One ``[curves]`` line: stage seconds,
+   curve points, the gate's result and launches, peak GiB.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -4028,6 +4045,190 @@ def phase_rest() -> dict:
     return out
 
 
+CURVES_DIR = SCRATCH / "curves"  # the recipe's tree, YAMLs, outputs and gate artifact (phase 12)
+CURVES_AE_EPOCHS = 8  # of the recipe's 60 (evals after epochs 3 and 7)
+CURVES_GEN_EPOCHS = 4  # of the recipe's 120 (the eval after epoch 3)
+JAX_STAGE1_VAL_IOU = {3: 0.5806, 7: 0.7548}  # docs/artifacts/curves_stage1_log.jsonl
+CURVES_MIN_IOU_EPOCH7 = 0.5
+# finite in every record (a val CD is inf while a frame predicts no point)
+CURVES_FINITE = ("train_loss", "lr", "val_iou", "val_loss")
+
+
+def _launches_per_batch(counts: dict, cfg, loader) -> dict:
+    """Launches per evaluated batch (``evaluate`` takes every
+    ``eval.freq``-th batch of ``loader``)."""
+    batches = len(range(0, len(loader), int(cfg.eval.get("freq", 1) or 1)))
+    return {k: v / batches for k, v in counts.items() if v}
+
+
+def _curves_stage1(ae_cfg) -> dict:
+    """(b) The first CURVES_AE_EPOCHS epochs of the recipe's stage 1, the
+    ``AEEngine`` epoch loop driven here, so the LR horizon stays the
+    recipe's 60 epochs; evals every ``eval_freq``; then the checkpoint."""
+    from rald_torch.cli.main_ae import build_loaders
+    from rald_torch.ops import launch_counts, reset_launch_counts
+    from rald_torch.train.ae_engine import AEEngine
+    from rald_torch.train.checkpoint import CheckpointManager
+
+    eng = AEEngine(ae_cfg)
+    train_loader, val_loader, batch = build_loaders(ae_cfg)
+    state = eng.init_state(len(train_loader), batch)
+    eval_freq = int(ae_cfg.train.eval_freq)
+    lines, epochs, eval_counts = [], [], []
+    for epoch in range(CURVES_AE_EPOCHS):
+        train_loader.set_epoch(epoch)
+        state, stats = eng.train_one_epoch(state, train_loader, epoch, print_fn=lines.append)
+        rec = {"epoch": epoch, "train_loss": stats["loss"], "lr": stats["lr"]}
+        if (epoch + 1) % eval_freq == 0:
+            reset_launch_counts()
+            val = eng.evaluate(state, val_loader, print_fn=lines.append)
+            torch.cuda.synchronize()
+            eval_counts.append(launch_counts())
+            rec.update(val_iou=val["iou"], val_loss=val["loss"], val_cd=val["cd"],
+                       jax_val_iou=JAX_STAGE1_VAL_IOU.get(epoch))
+        epochs.append(rec)
+    ckpt = CheckpointManager(ae_cfg.system.output_dir).save(state, CURVES_AE_EPOCHS - 1)
+    losses = [r["train_loss"] for r in epochs]
+    evals = [r for r in epochs if "val_iou" in r]
+    check(all(math.isfinite(r[k]) for r in epochs for k in CURVES_FINITE if k in r),
+          f"curves stage 1: {epochs}")
+    check(losses[-1] < losses[0], f"curves stage 1: the loss did not fall: {losses}")
+    check(evals[-1]["epoch"] == 7 and evals[-1]["val_iou"] >= CURVES_MIN_IOU_EPOCH7,
+          f"curves stage 1: val IoU at epoch 7 {evals[-1]}")
+    per_batch = _launches_per_batch(eval_counts[-1], ae_cfg, val_loader)
+    check(per_batch.get("fused_ln_geglu_residual") == 2 * AE_FF_PER_FORWARD
+          and per_batch.get("nn_min_sq_both") == 1, f"curves stage 1 eval launches {per_batch}")
+    del eng, state
+    return {"epochs": epochs, "ckpt": ckpt, "eval_launches_per_batch": per_batch}
+
+
+def _curves_stage2(gen_cfg) -> dict:
+    """(d) The first CURVES_GEN_EPOCHS epochs of the recipe's stage 2 (its
+    120-epoch horizon), from the cache, the ``GenerationEngine`` epoch loop
+    driven here, the EMA eval after epoch 3; then the checkpoint."""
+    from rald_torch.cli.main_generation import (
+        build_eval_loader,
+        build_train_loader,
+        load_frozen_modules,
+    )
+    from rald_torch.ops import launch_counts, reset_launch_counts
+    from rald_torch.train.checkpoint import CheckpointManager
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    lines = []
+    eng = GenerationEngine(gen_cfg)
+    train_loader = build_train_loader(gen_cfg, lines.append)
+    eval_loader = build_eval_loader(gen_cfg, "train", lines.append)
+    state = eng.init_state(len(train_loader), int(gen_cfg.dataset.batch_size))
+    load_frozen_modules(gen_cfg, eng, lines.append)
+    check(f"Loaded frozen VAE from {gen_cfg.lidar_ae.ckpt}" in lines, f"curves stage 2: {lines}")
+    eval_freq = int(gen_cfg.train.eval_freq)
+    epochs, counts = [], None
+    for epoch in range(CURVES_GEN_EPOCHS):
+        train_loader.set_epoch(epoch)
+        state, stats = eng.train_one_epoch(state, train_loader, epoch, print_fn=lines.append)
+        rec = {"epoch": epoch, "train_loss": stats["loss"], "lr": stats["lr"]}
+        if (epoch + 1) % eval_freq == 0:
+            reset_launch_counts()
+            val = eng.evaluate(eval_loader, use_ema=True, state_or_params=state,
+                               print_fn=lines.append)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            rec.update(val_iou=val["iou"], val_cd=val["cd"], val_loss=val["loss"])
+        epochs.append(rec)
+    ckpt = CheckpointManager(gen_cfg.system.output_dir).save(state, CURVES_GEN_EPOCHS - 1)
+    check(all(math.isfinite(r[k]) for r in epochs for k in CURVES_FINITE if k in r),
+          f"curves stage 2: {epochs}")
+    check(counts is not None and epochs[-1].get("val_iou") is not None, "curves stage 2: no eval")
+    per_batch = _launches_per_batch(counts, gen_cfg, eval_loader)
+    check(per_batch.get("fused_ln_geglu_residual") == _per_nfe_cfg(gen_cfg) + 24
+          and per_batch.get("nn_min_sq_both") == 1, f"curves stage 2 eval launches {per_batch}")
+    del eng, state
+    torch.cuda.empty_cache()
+    return {"epochs": epochs, "ckpt": ckpt, "eval_launches_per_batch": per_batch}
+
+
+def phase_curves() -> dict:
+    """Phase 12: the convergence recipe (``rald_torch.cli.curves_configs``) cut
+    to fit, at full width, under ``build/chip_smoke/curves/``: (a) the tree
+    and YAMLs; (b) stage 1's first epochs of 60; (c) ``main_cache`` from
+    that checkpoint; (d) stage 2's first epochs of 120 from the cache, with
+    one EMA eval; (e) ``precision_gate`` on that checkpoint, 1 mask batch."""
+    import shutil
+
+    import yaml
+
+    from rald_torch.cli import curves_configs, main_cache, precision_gate
+    from rald_torch.config import finalize_dirs, load_config
+    from rald_torch.ops import launch_counts, reset_launch_counts
+
+    shutil.rmtree(CURVES_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    secs = {}
+    t = time.perf_counter()
+    ae_yml, gen_yml = curves_configs.main(CURVES_DIR, print_fn=lambda *a: None)
+    secs["tree"] = time.perf_counter() - t
+    ae_cfg = finalize_dirs(load_config(ae_yml))
+    gen_cfg = finalize_dirs(load_config(gen_yml))
+    check(int(ae_cfg.train.epochs) == 60 and int(gen_cfg.train.epochs) == 120
+          and gen_cfg.lidar_ae.ckpt.endswith("out_ae/checkpoint-59.pth"), "curves: the recipe")
+
+    t = time.perf_counter()
+    s1 = _curves_stage1(ae_cfg)
+    secs["stage1"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    gen_cfg.lidar_ae.ckpt = str(s1["ckpt"])  # the cut stage 1's file
+
+    t = time.perf_counter()
+    lines = []
+    main_cache.run(gen_cfg, print_fn=lines.append)
+    secs["cache"] = time.perf_counter() - t
+    check(f"Loaded frozen VAE from {s1['ckpt']}" in lines, f"curves main_cache: {lines[:3]}")
+    n_cached = len(list((Path(gen_cfg.lidar_ae.cache_path)).rglob("*.npz")))
+    check(n_cached == 200, f"curves main_cache wrote {n_cached} files")
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    s2 = _curves_stage2(gen_cfg)
+    secs["stage2"] = time.perf_counter() - t
+
+    # the gate's "default" is torch as a process starts (earlier phases set
+    # other values); "highest" leaves cuDNN TF32 off, restored after
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = True
+    gen_yml.write_text(yaml.safe_dump(gen_cfg.to_dict()))  # the gate reads ROOT/gen.yml
+    t = time.perf_counter()
+    reset_launch_counts()
+    gate = precision_gate.run(CURVES_DIR, s2["ckpt"], 1, print_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    gate_counts = {k: v for k, v in launch_counts().items() if v}
+    secs["gate"] = time.perf_counter() - t
+    torch.backends.cudnn.allow_tf32 = True
+    for p in gate["precisions"].values():
+        # a CD is inf while a frame predicts no point (early in stage 2)
+        check(all(math.isfinite(p[k]) for k in ("iou", "fscore")) and p["cd_m"] > 0,
+              f"curves gate {gate}")
+    rc = precision_gate.recipe_cfg(CURVES_DIR, s2["ckpt"])
+    want_q = int(rc.dataset.eval_batch_size) * (int(rc.eval.inference.num_query_points)
+                                                 + int(rc.dataset.query_aug_num))
+    check(gate["mask"]["queries_compared"] == want_q, f"curves gate mask {gate['mask']}")
+    check(gate_counts.get("fused_ln_geglu_residual", 0) > 0 and gate_counts.get("nn_min_sq_both", 0) > 0,
+          f"curves gate launches {gate_counts}")
+    for f in list(CURVES_DIR.rglob("checkpoint-*.pth")):
+        f.unlink()
+    line = {"stage_s": {k: round(v, 1) for k, v in secs.items()},
+            "stage1": [{k: v for k, v in r.items() if v is not None} for r in s1["epochs"]],
+            "stage1_eval_launches_per_batch": s1["eval_launches_per_batch"],
+            "stage2": s2["epochs"], "stage2_eval_launches_per_batch": s2["eval_launches_per_batch"],
+            "gate": {"precisions": {k: {m: v[m] for m in ("iou", "cd_m", "fscore", "eval_wall_s")}
+                                    for k, v in gate["precisions"].items()},
+                     "mask": gate["mask"], "deltas": gate["deltas_default_minus_highest"],
+                     "same_settings": gate["same_settings"], "launches": gate_counts},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "device": smi_line()}
+    print("[curves] " + json.dumps(line))
+    return {"stage1": s1, "stage2": s2, "gate_launches": gate_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4067,6 +4268,9 @@ def main() -> int:
     rest = phase_rest()
     print(f"[time] phase 11 (churn, int8 drivers, converters, radar decoder, trace) "
           f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    curves = phase_curves()
+    print(f"[time] phase 12 (convergence recipe, cut) {time.perf_counter() - t:.1f} s")
     # each kernel's launches in the runs of the mode that uses it: the main
     # path's eval step at batch 1 (and 8), or, for the two kernels no
     # inference chain reaches, the module / host API that does
@@ -4135,6 +4339,13 @@ def main() -> int:
         k["rest"] = {"churn": {f"{mode} B={b}": r["launches"][k["name"]]
                                for (mode, b), r in rest["churn"]["runs"].items()},
                      "int8_gate": {m: row["launches"].get(k["name"], 0) for m, row in gate.items()}}
+    # phase 12: launches per evaluated batch of the cut recipe's stage-1 and
+    # stage-2 evals, and over the precision gate
+    for k in kernels:
+        k["curves"] = {
+            "stage1_eval_per_batch": curves["stage1"]["eval_launches_per_batch"].get(k["name"], 0),
+            "stage2_eval_per_batch": curves["stage2"]["eval_launches_per_batch"].get(k["name"], 0),
+            "precision_gate": curves["gate_launches"].get(k["name"], 0)}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
