@@ -170,9 +170,15 @@ Phases, each printed before the last line:
    nine cubes at batch 8, rank ``r`` taking files ``r::2``: the union of the
    two ranks' PLY files byte for byte the one-process run's, and 864
    launches of row 1 per rank. (c) NCCL at world size 2 on cuda:0 and
-   cuda:1, the steps of (b), where the machine has two cards. The ``[dist]``
-   lines: timings and peak memory per rank beside the card's name and power
-   limit.
+   cuda:1, the steps of (b), where the machine has two cards. (d)
+   ``eval.inference.shard_queries`` over two gloo ranks on cuda:0, the
+   product eval YAML with phase 6's weights, batch 2, a grid of 500001
+   queries: ``sample_tokens`` + ``decode_queries``, then one
+   ``fused_eval_step`` (the grid drawn on the card, 7e5 densified helpers,
+   5e5 refine queries); both ranks' logits and step outputs bitwise the
+   one-process run's, rank 0 launching row 1 for the sampler and both ranks
+   for the VAE's decoder blocks. The ``[dist]`` lines: timings and peak
+   memory per rank beside the card's name and power limit.
 11. the rest of the port (``phase_rest()``, under ``build/chip_smoke/rest/``).
    (a) Stochastic churn (``s_churn 40, s_min 0.05, s_max 50, s_noise
    1.003``) on the product eval chain at full width, bf16 with
@@ -207,8 +213,20 @@ Phases, each printed before the last line:
    the EMA eval after epoch 3 with 864 / 1 launches of rows 1 / 2 per
    evaluated batch, then the checkpoint. (e) ``python -m
    rald_torch.cli.precision_gate`` on that checkpoint with 1 mask batch,
-   from torch's process defaults. One ``[curves]`` line: stage seconds,
-   curve points, the gate's result and launches, peak GiB.
+   from torch's process defaults, its three runs (``default``, ``highest``,
+   ``medium``). One ``[curves]`` line: stage seconds, curve points, the
+   gate's result and launches, peak GiB. The checkpoints stay for phase 13.
+13. the product eval bench (``phase_product_bench()``): ``python -m
+   rald_torch.cli.product_eval_bench``'s ``run`` (JAX's product recipe: 5e5
+   grid, 7e5 helpers densified on the card, 5e5 refine queries, Chamfer / F,
+   batch 8) on phase 12's stage-2 checkpoint and YAML (its params: after
+   100 steps the EMA is still mostly its initial weights and predicts no
+   point in most frames), over the recipe's 50 test frames: bf16, one
+   warm-up and 3 timed passes, then int8 dynamic + ``vout``, one and one. Checks: identical metrics across the timed passes,
+   ``n_pred`` > 0 in every frame, finite CD / F, 50 frames, exact launches
+   per batch (phase 4's ``_want_launches``). One ``[product_bench]`` line:
+   passes, median / min / max pc/s, launches, peak GiB, the card's name and
+   power limit. The checkpoints are deleted after it.
 
 Then one ``kernels`` JSON line, the ``nvidia-smi`` line again, and the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -3467,6 +3485,9 @@ def _dist_child(job_path: str) -> int:
     t_start = time.perf_counter()
     if job["kind"] == "train_cli":
         out = _dist_train_child(job)
+    elif job["kind"] == "shard":
+        info = init_distributed(job["device"], backend=job["backend"])
+        out = {"info": info, "backend": backend(), "shard": _dist_shard_run()}
     else:
         info = init_distributed(job["device"], backend=job["backend"])
         rank = info["rank"]
@@ -3518,6 +3539,120 @@ def _dist_train_child(job: dict) -> dict:
             "dist_lines": [l for l in lines if l.startswith("distributed:")],
             "train_launches": train_d, "eval_launches": eval_d, "records": _records(cfg),
             "split_ms": {k: float(np.median([t[k] for t in splits[1:]])) for k in splits[0]}}
+
+
+# (d) shard_queries: a grid that is no multiple of 2 (and of no block count)
+SHARD_GRID = 500_001
+SHARD_BATCH = 2
+
+
+def _dist_shard_cfg():
+    """(d) the product eval YAML with phase 6's ``.pth`` weights and
+    ``eval.inference.shard_queries``, a SHARD_GRID-query grid."""
+    cfg = _dist_infer_cfg()
+    cfg.eval.inference.shard_queries = True
+    cfg.eval.inference.num_query_points = SHARD_GRID
+    return cfg
+
+
+def _dist_shard_run() -> dict:
+    """(d) in one process or one rank: ``sample_tokens`` + ``decode_queries``
+    on a SHARD_GRID grid, then one ``fused_eval_step`` (that grid drawn on
+    the card, 7e5 densified helpers, 5e5 refine queries: 1200001 and 5e5
+    queries split over the ranks), on phase 10's saved batch; the digests of
+    the logits and of the step's outputs, the launches and the ms."""
+    from rald_torch.cli.main_generation import load_eval_checkpoint, load_frozen_modules
+    from rald_torch.ops import launch_counts, reset_launch_counts
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    cfg = _dist_shard_cfg()
+    eng = GenerationEngine(cfg)
+    load_eval_checkpoint(cfg, eng, print_fn=lambda *_: None)
+    load_frozen_modules(cfg, eng, print_fn=lambda *_: None)
+    batch = torch.load(DIST_DIR / "shard_batch.pt", weights_only=False)
+    inputs, grid = batch["inputs"], batch["grid"].cuda()
+    # a cloud in every frame (the weights were sharpened when phase 6 saved them)
+    shift = _center_occupancy(eng, [inputs], sharpen=False)
+    kw = dict(compute_cd=True, refine=True, helper_aug=True, use_device_grid=True)
+    _run_step(eng, inputs, seed=3, **kw)  # warm-up: cuBLAS / cuDNN plans
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = eng.decode_queries(eng.sample_tokens(inputs["radar_cube"], inputs["seeds_or_prior"]),
+                                grid)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    step = _run_step(eng, inputs, seed=3, **kw)
+    t2 = time.perf_counter()
+    out = {"query_shards": eng.query_shards(), "bias_shift": shift,
+           "logits_shape": list(logits.shape),
+           "logits_sha": _digest({"logits": logits}),
+           "step_sha": _digest({str(i): t.reshape(-1) for i, t in enumerate(step)}),
+           "step": [t.float().cpu().tolist() for t in step], "launches": launch_counts(),
+           "decode_ms": (t1 - t0) * 1e3, "step_ms": (t2 - t1) * 1e3}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_shard() -> dict:
+    """(d) ``eval.inference.shard_queries`` over two gloo ranks sharing
+    cuda:0: rank 0 samples and broadcasts the tokens, each rank decodes its
+    run of whole query blocks, the runs are gathered and trimmed. The
+    logits of ``decode_queries`` and the outputs of ``fused_eval_step``
+    bitwise the one-process run's (the flag is a no-op there); rank 0
+    launches row 1 for the sampler and its share of nothing else, rank 1
+    row 1 only in the VAE's decoder blocks, both row 2 once."""
+    cfg = _dist_shard_cfg()
+    rng = np.random.default_rng(16)
+    inputs = _inputs(cfg, SHARD_BATCH, rng)
+    grid = np.broadcast_to(rng.uniform(-1, 1, (1, SHARD_GRID, 3)).astype(np.float32),
+                           (SHARD_BATCH, SHARD_GRID, 3)).copy()
+    torch.save({"inputs": inputs, "grid": torch.from_numpy(grid)}, DIST_DIR / "shard_batch.pt")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as in the children
+    t0 = time.perf_counter()
+    one = _dist_shard_run()
+    one_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = det
+    check(one["query_shards"] == (1, 0), f"dist (d): one process shards {one['query_shards']}")
+    port = _free_port()
+    jobs = [{"kind": "shard", "label": f"shard_rank{r}", "device": "cuda:0", "backend": "gloo",
+             "result": str(DIST_DIR / f"shard_rank{r}.out")} for r in range(2)]
+    t0 = time.perf_counter()
+    outs = _dist_wait(_dist_launch(jobs, lambda i: {
+        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": "2", "RANK": str(i),
+        "LOCAL_RANK": "0"}))
+    wall = time.perf_counter() - t0
+    per_nfe, vdepth = _per_nfe_cfg(cfg), 24
+    for r, o in enumerate(outs):
+        sh = o["shard"]
+        check(o["backend"] == "gloo" and sh["query_shards"] == (2, r),
+              f"dist (d): rank {r} on {o['backend']} shards {sh['query_shards']}")
+        check(sh["logits_shape"] == [SHARD_BATCH, SHARD_GRID]
+              and sh["logits_sha"] == one["logits_sha"],
+              f"dist (d): rank {r} decode_queries logits differ from one process")
+        check(sh["step_sha"] == one["step_sha"],
+              f"dist (d): rank {r} fused_eval_step {sh['step']} != one process {one['step']}")
+        want = {n: 0 for n in KERNEL_NAMES}
+        want.update(fused_ln_geglu_residual=(2 * per_nfe if r == 0 else 0) + 2 * vdepth,
+                    nn_min_sq_both=1)
+        _check_counts(sh["launches"], want, f"dist (d) rank {r}")
+    want = {n: 0 for n in KERNEL_NAMES}
+    want.update(fused_ln_geglu_residual=2 * per_nfe + 2 * vdepth, nn_min_sq_both=1)
+    _check_counts(one["launches"], want, "dist (d) one process")
+    check(min(one["step"][5]) > 0, f"dist (d): empty prediction n_pred={one['step'][5]}")
+    line = {"mode": "(d) shard_queries, gloo world 2 on cuda:0", "grid": SHARD_GRID,
+            "batch": SHARD_BATCH, "bitwise_one_process": True, "wall_s": wall,
+            "world1_s": one_s, "rank_decode_ms": [o["shard"]["decode_ms"] for o in outs],
+            "rank_step_ms": [o["shard"]["step_ms"] for o in outs],
+            "world1_decode_ms": one["decode_ms"], "world1_step_ms": one["step_ms"],
+            "rank_launches": [{k: v for k, v in o["shard"]["launches"].items() if v}
+                              for o in outs],
+            "rank_peak_gib": [o["peak_gib"] for o in outs], "n_pred": one["step"][5],
+            "device": smi_line()}
+    print("[dist] " + json.dumps(line))
+    return line
 
 
 def _dist_nccl_world1() -> dict:
@@ -3671,7 +3806,8 @@ def phase_dist() -> dict:
     """Multi-process runs (phase 10): (a) NCCL at world size 1 through
     ``main_generation``; (b) two ranks sharing cuda:0 over gloo (NCCL
     refuses two ranks on one device): stage-2 steps and ``infer``; (c) NCCL
-    at world size 2 where the machine has two cards."""
+    at world size 2 where the machine has two cards; (d) ``shard_queries``
+    over two gloo ranks on cuda:0, bitwise one process."""
     import shutil
 
     from rald_torch.cli import main_generation as mg
@@ -3715,8 +3851,11 @@ def phase_dist() -> dict:
     else:
         print(f"[dist] (c) skipped: {n} card, NCCL at world size 2 needs two")
         c = None
-    print(f"[dist] phase 10 split: (a) {a_s:.1f} s, (b) {b_s:.1f} s")
-    return {"nccl_world1": a, "gloo_world2": b, "nccl_world2": c}
+    t0 = time.perf_counter()
+    d = _dist_shard()
+    d_s = time.perf_counter() - t0
+    print(f"[dist] phase 10 split: (a) {a_s:.1f} s, (b) {b_s:.1f} s, (d) {d_s:.1f} s")
+    return {"nccl_world1": a, "gloo_world2": b, "nccl_world2": c, "shard_queries": d}
 
 
 def _dist_threshold() -> float:
@@ -4153,7 +4292,8 @@ def phase_curves() -> dict:
     to fit, at full width, under ``build/chip_smoke/curves/``: (a) the tree
     and YAMLs; (b) stage 1's first epochs of 60; (c) ``main_cache`` from
     that checkpoint; (d) stage 2's first epochs of 120 from the cache, with
-    one EMA eval; (e) ``precision_gate`` on that checkpoint, 1 mask batch."""
+    one EMA eval; (e) ``precision_gate`` on that checkpoint, 1 mask batch,
+    its three runs. The checkpoints stay for phase 13."""
     import shutil
 
     import yaml
@@ -4212,10 +4352,14 @@ def phase_curves() -> dict:
     want_q = int(rc.dataset.eval_batch_size) * (int(rc.eval.inference.num_query_points)
                                                  + int(rc.dataset.query_aug_num))
     check(gate["mask"]["queries_compared"] == want_q, f"curves gate mask {gate['mask']}")
+    # the third run: apply_matmul_precision("default"), torch's "medium"
+    medium = gate["precisions"]["medium"]["settings"]
+    check(medium["float32_matmul_precision"] == "medium" and medium["cudnn_allow_tf32"]
+          and gate["mask_medium_vs_highest"]["queries_compared"] == want_q,
+          f"curves gate medium run {medium} {gate['mask_medium_vs_highest']}")
     check(gate_counts.get("fused_ln_geglu_residual", 0) > 0 and gate_counts.get("nn_min_sq_both", 0) > 0,
           f"curves gate launches {gate_counts}")
-    for f in list(CURVES_DIR.rglob("checkpoint-*.pth")):
-        f.unlink()
+    # the two checkpoints stay: phase 13 benches them, then deletes them
     line = {"stage_s": {k: round(v, 1) for k, v in secs.items()},
             "stage1": [{k: v for k, v in r.items() if v is not None} for r in s1["epochs"]],
             "stage1_eval_launches_per_batch": s1["eval_launches_per_batch"],
@@ -4223,10 +4367,111 @@ def phase_curves() -> dict:
             "gate": {"precisions": {k: {m: v[m] for m in ("iou", "cd_m", "fscore", "eval_wall_s")}
                                     for k, v in gate["precisions"].items()},
                      "mask": gate["mask"], "deltas": gate["deltas_default_minus_highest"],
-                     "same_settings": gate["same_settings"], "launches": gate_counts},
+                     "same_settings": gate["same_settings"],
+                     "mask_medium_vs_highest": gate["mask_medium_vs_highest"],
+                     "deltas_medium_minus_highest": gate["deltas_medium_minus_highest"],
+                     "launches": gate_counts},
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "device": smi_line()}
     print("[curves] " + json.dumps(line))
     return {"stage1": s1, "stage2": s2, "gate_launches": gate_counts}
+
+
+# phase 13: the product bench on phase 12's stage-2 checkpoint: bf16 with
+# 1 warm-up + PB_REPEATS timed passes, then int8 dynamic + "vout" with 1 + 1
+PB_REPEATS = 3
+PB_INT8_REPEATS = 1
+
+
+def _bench_mode(ckpt: Path, int8: str, repeats: int) -> tuple:
+    """``product_eval_bench.run`` in one mode on the checkpoint's params (the
+    recipe with ``train.use_ema: false``: after phase 12's 100 stage-2 steps
+    the EMA, at rate 0.999, is still about 90 % its initial weights, and
+    predicts no point in most frames); the engine it built and each
+    ``fused_eval_step``'s ``n_pred``, caught on the way."""
+    from rald_torch.cli import product_eval_bench
+    from rald_torch.cli.precision_gate import recipe_cfg
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    seen, step = {"n_pred": [], "lines": []}, GenerationEngine.fused_eval_step
+
+    def caught(self, *a, **k):
+        seen["engine"] = self
+        out = step(self, *a, **k)
+        seen["n_pred"] += out[5].tolist()
+        return out
+
+    GenerationEngine.fused_eval_step = caught
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cfg = recipe_cfg(CURVES_DIR, ckpt, helper_aug_on_device=True)
+        cfg.train.use_ema = False
+        out = CURVES_DIR / f"product_eval_bench{'_' + int8 if int8 else ''}.json"
+        art = product_eval_bench.run(CURVES_DIR, ckpt, repeats=repeats, int8=int8, profile=False,
+                                     max_batches=0, host_helper=False, cfg=cfg, out=out,
+                                     print_fn=seen["lines"].append)
+        art["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        GenerationEngine.fused_eval_step = step
+    return art, seen
+
+
+def phase_product_bench() -> dict:
+    """Phase 13: ``python -m rald_torch.cli.product_eval_bench`` (JAX's
+    product recipe: 5e5 grid + 7e5 helpers densified on the card + 5e5
+    refine, Chamfer / F) on phase 12's stage-2 checkpoint (its params, see
+    ``_bench_mode``) and YAML, over
+    the recipe's 50 test frames at batch 8: bf16, one warm-up and
+    PB_REPEATS timed passes, then int8 dynamic + "vout", one and
+    PB_INT8_REPEATS. Checks: identical metrics across the timed passes,
+    every frame's ``n_pred`` > 0, finite CD / F, the real frame count, and
+    exact launches per batch (phase 4's ``_want_launches``). Runs phase 12
+    first when its checkpoint is missing; deletes it at the end."""
+    from rald_torch.cli.main_generation import build_eval_loader
+    from rald_torch.cli.precision_gate import recipe_cfg
+
+    ckpts = sorted((CURVES_DIR / "out_gen").glob("checkpoint-*.pth"))
+    if not ckpts:
+        phase_curves()
+        ckpts = sorted((CURVES_DIR / "out_gen").glob("checkpoint-*.pth"))
+    ckpt = ckpts[-1]
+    frames = len(build_eval_loader(recipe_cfg(CURVES_DIR, ckpt), "eval",
+                                   print_fn=lambda *_: None).dataset)
+    torch.cuda.empty_cache()
+    line, out, failed = {}, {}, []
+    for label, int8, repeats in (("bf16", "", PB_REPEATS), ("int8_dynamic", "dynamic",
+                                                             PB_INT8_REPEATS)):
+        t = time.perf_counter()
+        art, seen = _bench_mode(ckpt, int8, repeats)
+        wall = time.perf_counter() - t
+        s, timed, got = art["summary"], art["passes"]["timed"], art["kernel_launches"]["per_batch"]
+        n_pred = np.array(seen["n_pred"])
+        out[label] = art
+        line[label] = {"passes": [{k: r[k] for k in ("wall_s", "pc_per_sec", "iou", "cd_m",
+                                                     "fscore")} for r in timed],
+                       "pc_per_sec": s["pc_per_sec"], "wall_s": s["wall_s"],
+                       "warmup_s": art["passes"]["warmup"]["wall_s"], "mode_s": wall,
+                       "launches_per_batch": got, "peak_gib": art["peak_gib"],
+                       "n_pred_min": int(n_pred.min()), "n_pred_median": float(np.median(n_pred))}
+        vae = [l for l in seen["lines"] if isinstance(l, str) and "frozen VAE" in l]
+        want = {k: v for k, v in _want_launches(seen["engine"]).items() if v}
+        failed += [f"product bench {label}: {msg}" for ok, msg in (
+            (vae and vae[0].startswith("Loaded frozen VAE from"), f"VAE {vae}"),
+            (s["metrics_identical"] and len(timed) == repeats,
+             f"metrics differ across the timed passes {timed}"),
+            (s["frames"] == frames == 50, f"{s['frames']} frames of {frames}"),
+            (all(math.isfinite(r[k]) for r in timed for k in ("iou", "cd_m", "fscore")),
+             f"non-finite metrics {timed}"),
+            (len(n_pred) == (1 + repeats) * 56 and n_pred.min() > 0,
+             f"empty prediction n_pred={n_pred.tolist()}"),
+            (got == want, f"launches per batch {got}, want {want}")) if not ok]
+        del seen
+        torch.cuda.empty_cache()
+    line.update(ckpt=str(ckpt.relative_to(REPO)), frames=frames, batch=8, device=smi_line())
+    print("[product_bench] " + json.dumps(line))
+    check(not failed, "; ".join(failed))
+    for f in list(CURVES_DIR.rglob("checkpoint-*.pth")):
+        f.unlink()
+    return out
 
 
 def main() -> int:
@@ -4271,6 +4516,9 @@ def main() -> int:
     t = time.perf_counter()
     curves = phase_curves()
     print(f"[time] phase 12 (convergence recipe, cut) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    bench = phase_product_bench()
+    print(f"[time] phase 13 (product eval bench) {time.perf_counter() - t:.1f} s")
     # each kernel's launches in the runs of the mode that uses it: the main
     # path's eval step at batch 1 (and 8), or, for the two kernels no
     # inference chain reaches, the module / host API that does
@@ -4346,6 +4594,11 @@ def main() -> int:
             "stage1_eval_per_batch": curves["stage1"]["eval_launches_per_batch"].get(k["name"], 0),
             "stage2_eval_per_batch": curves["stage2"]["eval_launches_per_batch"].get(k["name"], 0),
             "precision_gate": curves["gate_launches"].get(k["name"], 0)}
+    # phase 13: launches per batch of the product bench's timed passes
+    for k in kernels:
+        k["product_bench_per_batch"] = {
+            mode: art["kernel_launches"]["per_batch"].get(k["name"], 0)
+            for mode, art in bench.items()}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -56,3 +56,12 @@ def apply_matmul_precision(value) -> str:
     torch.set_float32_matmul_precision(torch_value)
     torch.backends.cudnn.allow_tf32 = torch_value != "highest"
     return torch_value
+
+
+def precision_in_force() -> dict:
+    """The torch switches that decide f32 matmul and convolution precision,
+    as they stand in this process (what :func:`apply_matmul_precision`
+    sets, or torch's defaults)."""
+    return {"float32_matmul_precision": torch.get_float32_matmul_precision(),
+            "cuda_matmul_allow_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+            "cudnn_allow_tf32": bool(torch.backends.cudnn.allow_tf32)}

@@ -33,10 +33,15 @@ the same ``MASTER_ADDR`` / ``WORLD_SIZE`` / ``RANK`` environment) split the
 file list: rank ``r`` takes files ``r, r + N, ...`` and writes their PLY
 files, and each frame keeps the prior seed of its index in the whole list,
 so its cloud does not depend on how many ranks share the job (JAX's
-``rald_tpu/cli/infer.py:125-131``, ``:173``).
+``rald_tpu/cli/infer.py:125-131``, ``:173``). With
+``eval.inference.shard_queries`` the ranks split each frame's grid instead
+(JAX :154-158 shards it over the devices of one process): every rank takes
+every file, rank 0 samples, each rank decodes its part of the grid
+(``GenerationEngine.decode_logits``, which takes any grid size, so the
+grid is not padded) and rank 0 alone writes the PLY files, the
+one-process files byte for byte.
 
-Where it differs from the JAX tool: ``shard_queries`` has nothing to shard
-over (one card a process); an orbax checkpoint directory raises
+Where it differs from the JAX tool: an orbax checkpoint directory raises
 ``NotImplementedError`` (convert it with ``scripts/orbax_to_pth.py``).
 """
 from __future__ import annotations
@@ -121,7 +126,7 @@ def run(cfg: Config, inputs: str, out_dir: str, batch: int = 0, threshold: float
     process first (:func:`rald_torch.apply_matmul_precision`), as JAX's CLI
     applies it; the engine itself changes no global state. Under a process
     group (joined first) the counts and times are this rank's, over its
-    files ``rank::world``."""
+    files ``rank::world``, or over every file with ``shard_queries``."""
     info = join(device, print_fn)
     world, rank = info["world_size"], info["rank"]
     if cfg.system.get("matmul_precision"):
@@ -134,6 +139,10 @@ def run(cfg: Config, inputs: str, out_dir: str, batch: int = 0, threshold: float
     aniso, iso = lidar.norm_anisotropy, lidar.norm_isotropy
     grid = query_grid(cfg)
     all_files = collect_inputs(inputs)
+    writes = True
+    if engine.shard_queries:  # every rank every file; the ranks split the grid
+        writes = rank == 0
+        world, rank = 1, 0
     # rank r: files r, r + world, ... (as ShardedSampler without shuffling)
     files = all_files[rank::world]
     outs = output_paths(all_files, Path(out_dir))[rank::world]
@@ -163,7 +172,8 @@ def run(cfg: Config, inputs: str, out_dir: str, batch: int = 0, threshold: float
             pred = geo.inverse_norm_points(grid[hits[i]], lidar.pc_range, aniso, iso)
             if lidar.get("view_cone_mode", False):
                 pred = geo.polar2cartesian(pred) if len(pred) else pred.reshape(0, 3)
-            write_ply(out_path, pred)
+            if writes:
+                write_ply(out_path, pred)
             n_points.append(len(pred))
     dt = time.perf_counter() - t0
     stats = {

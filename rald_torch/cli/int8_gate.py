@@ -19,8 +19,11 @@ and its kernel launches. Each mode's outputs go under
 ``<system.output_dir>/int8_gate/<mode>``. ``--modes`` (comma-separated)
 reruns some modes and keeps the other rows of an artifact written for the
 same checkpoint. The artifact (default ``<system.output_dir>/int8_gate_<ckpt
-stem>.json``) also records ``matmul_precision`` and the torch device. Runs
-on the card unless ``--device cpu`` is given.
+stem>.json``) also records ``matmul_precision``, the torch settings in
+force during the runs (:func:`rald_torch.precision_in_force`:
+``system.matmul_precision``, applied by ``main_generation.run``, or
+torch's defaults), ``system_matmul_precision`` (the YAML's key, or None)
+and the torch device. Runs on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from pathlib import Path
 
 import torch
 
+from rald_torch import precision_in_force
 from rald_torch.cli import main_generation
 from rald_torch.config import finalize_dirs, load_config
 from rald_torch.ops import launch_counts, reset_launch_counts
@@ -61,6 +65,7 @@ def run(cfg, ckpt, modes=None, out=None, device=None, print_fn=print) -> dict:
         if prior.get("ckpt") == str(ckpt):
             results = {k: v for k, v in prior["modes"].items() if k not in only}
     scales = cfg.eval.inference.get("int8_act_scales") or act_scales_path(ckpt)
+    in_force = None
     for name, flags in MODES:
         if only and name not in only:
             continue
@@ -79,6 +84,7 @@ def run(cfg, ckpt, modes=None, out=None, device=None, print_fn=print) -> dict:
         print_fn(f"=== mode {name} ===")
         reset_launch_counts()
         stats = main_generation.run(sub, device=device, print_fn=print_fn)
+        in_force = precision_in_force()  # as run applied it
         results[name] = {"iou": round(float(stats.get("iou", -1)), 4),
                          "cd_m": round(float(stats.get("cd", -1)), 4),
                          "fscore": round(float(stats.get("fscore", -1)), 4),
@@ -96,7 +102,8 @@ def run(cfg, ckpt, modes=None, out=None, device=None, print_fn=print) -> dict:
     artifact = {
         "ckpt": str(ckpt),
         "protocol": "rald_torch main_generation eval mode, test split",
-        "matmul_precision": str(cfg.system.get("matmul_precision") or "default"),
+        "matmul_precision": in_force or precision_in_force(),
+        "system_matmul_precision": cfg.system.get("matmul_precision"),
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
         "modes": results,
     }

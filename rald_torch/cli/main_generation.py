@@ -42,7 +42,11 @@ Each rank reads its shard of the split (``ShardedSampler``), the
 gradients are averaged over the ranks every step, ``blr`` is scaled by the
 batch of all ranks, and rank 0 alone writes ``config.yml``, ``log.txt``,
 TensorBoard and the checkpoints; in eval mode each rank evaluates its shard
-and the metrics are averaged over all of them.
+and the metrics are averaged over all of them. With
+``eval.inference.shard_queries`` the ranks evaluate every batch together
+instead: each reads the whole split, rank 0 samples, each rank decodes its
+part of the queries (``GenerationEngine.decode_logits``), every rank holds
+the one-process metrics and rank 0 alone writes.
 """
 from __future__ import annotations
 
@@ -104,7 +108,8 @@ def build_eval_loader(cfg: Config, mode: str, print_fn=print) -> DataLoader:
     """The eval side of JAX's ``build_loaders``: this rank's shard of the
     test split in eval mode (or with ``eval.use_test_set``), else of the val
     split, ``eval_batch_size`` frames a batch, ``pad_last``; cached latents
-    are never read on this side."""
+    are never read on this side. With ``eval.inference.shard_queries`` every
+    rank reads the whole split: the ranks evaluate each batch together."""
     _wire_cache(cfg, print_fn)
     ds_cfg = cfg.dataset
     eval_cfg = copy.deepcopy(ds_cfg)
@@ -112,10 +117,12 @@ def build_eval_loader(cfg: Config, mode: str, print_fn=print) -> DataLoader:
     use_test = mode == "eval" or bool(cfg.get("eval", {}).get("use_test_set", False))
     test_set = get_dataset(eval_cfg, "test" if use_test else "val",
                            seed=int(cfg.system.get("seed", 0)))
+    shard_queries = bool(cfg.get("eval", {}).get("inference", {}).get("shard_queries", False))
     return DataLoader(
         test_set,
         batch_size=int(ds_cfg.get("eval_batch_size", 1)),
-        sampler=ShardedSampler(len(test_set), *world_rank(), shuffle=False),
+        sampler=ShardedSampler(len(test_set), *((1, 0) if shard_queries else world_rank()),
+                               shuffle=False),
         num_workers=int(ds_cfg.get("eval_num_workers", 1)),
         drop_last=False,
         pad_last=True,

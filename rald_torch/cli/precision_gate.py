@@ -6,9 +6,9 @@
 ``ROOT`` is the recipe's root (``build/curves``: its ``gen.yml``), ``CKPT``
 a stage-2 ``.pth`` (default ``ROOT/out_gen/checkpoint-119.pth``; its EMA
 weights with ``train.use_ema``, as ``gen.yml`` sets), ``MASK_BATCHES`` 2.
-Two runs, ``default`` first and ``highest`` second (JAX's order, so that
-no setting leaks backwards), each with a fresh engine, on the test split
-in batches of ``eval_batch_size``:
+Three runs, ``default`` first and ``highest`` second (JAX's two, in JAX's
+order, so that no setting leaks backwards), then ``medium``, each with a
+fresh engine, on the test split in batches of ``eval_batch_size``:
 
 1. the mask phase: :meth:`GenerationEngine._sample_and_decode` (the 35-NFE
    sampler, then the thresholded decode of a ``build_query_grid`` of 5e5
@@ -23,8 +23,10 @@ The artifact (default ``ROOT/precision_gate_<ckpt stem>.json``) has JAX's
 keys: ``precisions`` (each run's IoU / CD / F and eval wall time),
 ``mask`` (the share of grid hits that agree, the positives' IoU) and
 ``deltas_default_minus_highest``; each run also records its torch settings
-and the device, and ``same_settings`` says whether the two runs had the
-same ones.
+and the device, and ``same_settings`` says whether ``default`` and
+``highest`` had the same ones. The third run adds ``mask_medium_vs_highest``
+and ``deltas_medium_minus_highest``, held to the same bar as JAX's pair
+(|ΔIoU| <= 0.005). The process's settings are restored at the end.
 
 What ``default`` and ``highest`` mean here. JAX's ``default`` is the
 platform default (``jax_default_matmul_precision`` None: on a TPU, f32
@@ -42,6 +44,20 @@ f32 products exactly under either setting. On the card both runs then
 compute the same thing, up to any nondeterminism of the library kernels;
 the artifact says so (``same_settings`` false, yet a mask agreement of 1.0
 and zero deltas), and that agreement is the finding, not a vacuous pass.
+
+``medium`` is ``apply_matmul_precision("default")``, the port's stand-in
+for JAX's platform default: ``torch.set_float32_matmul_precision("medium")``
+with cuDNN TF32 on, which lets PyTorch compute f32 matmuls with bf16
+products where it can. That is the lowest f32 setting the port has, and
+the one a YAML's ``system.matmul_precision: default`` selects.
+
+The recipe (:func:`recipe_cfg`) is shared with
+``rald_torch.cli.product_eval_bench``. This gate, as JAX's, leaves
+``dataset.helper_aug_on_device`` as ``gen.yml`` has it (unset: the dataset
+densifies the CFAR helpers to 7e5 on the host from its own stream); the
+bench sets it true (the engine densifies them on the card) unless
+``RALD_PE_HOST_HELPER=1``. The IoU reads only the eval queries, which no
+helper draw touches; CD and F see the helpers.
 """
 from __future__ import annotations
 
@@ -54,7 +70,7 @@ import numpy as np
 import torch
 import yaml
 
-from rald_torch import apply_matmul_precision
+from rald_torch import apply_matmul_precision, precision_in_force
 from rald_torch.cli import curves_configs
 from rald_torch.cli.main_generation import build_eval_loader, join, load_frozen_modules
 from rald_torch.config import Config
@@ -62,12 +78,17 @@ from rald_torch.eval.queries import build_query_grid
 from rald_torch.train.checkpoint import load_torch_checkpoint
 from rald_torch.train.gen_engine import GenerationEngine
 
-PRECISIONS = ("default", "highest")
+# run name -> the apply_matmul_precision value (None: torch as the process starts)
+PRECISIONS = {"default": None, "highest": "highest", "medium": "default"}
 
 
-def recipe_cfg(root, ckpt) -> Config:
-    """JAX's ``_recipe_cfg``: ``ROOT/gen.yml`` in eval mode on ``ckpt`` with
-    the reference's full inference recipe."""
+def recipe_cfg(root, ckpt, helper_aug_on_device=None) -> Config:
+    """The reference's full inference recipe on ``ROOT/gen.yml`` in eval
+    mode on ``ckpt``: JAX's ``_recipe_cfg`` (``scripts/precision_gate.py``)
+    with ``helper_aug_on_device`` None, else JAX's product bench
+    (``scripts/product_eval_bench.py:61-84``), which also sets
+    ``dataset.helper_aug_on_device`` and two keys of its inference block
+    that no engine reads (``query_helper_aug``, ``query_aug_num``)."""
     cfg = Config(yaml.safe_load((Path(root) / "gen.yml").read_text()))
     cfg.system.mode = "eval"
     cfg.eval.ckpt = str(ckpt)
@@ -75,13 +96,12 @@ def recipe_cfg(root, ckpt) -> Config:
     cfg.dataset.query_helper_aug = True
     cfg.dataset.query_aug_num = 7e5
     cfg.dataset.query_aug_scale = 2
-    cfg.eval.inference = Config({
-        "num_query_points": 500000,
-        "query_helper": True,
-        "refine_query": True,
-        "refine_query_aug_num": 500000,
-        "refine_query_scale": 10,
-    })
+    inference = {"num_query_points": 500000, "query_helper": True}
+    if helper_aug_on_device is not None:
+        cfg.dataset.helper_aug_on_device = bool(helper_aug_on_device)
+        inference.update(query_helper_aug=True, query_aug_num=7e5)
+    inference.update(refine_query=True, refine_query_aug_num=500000, refine_query_scale=10)
+    cfg.eval.inference = Config(inference)
     cfg.eval.use_test_set = True
     cfg.eval.store_pc = False
     cfg.eval.freq = 1
@@ -118,16 +138,14 @@ def settings(device) -> dict:
     """The torch switches that decide f32 matmul and convolution precision,
     and the device."""
     dev = torch.device(device) if device else torch.device("cuda")
-    return {"float32_matmul_precision": torch.get_float32_matmul_precision(),
-            "cuda_matmul_allow_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
-            "cudnn_allow_tf32": bool(torch.backends.cudnn.allow_tf32),
+    return {**precision_in_force(),
             "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)}
 
 
 def run(root=curves_configs.DEFAULT_ROOT, ckpt=None, mask_batches: int = 2, out=None,
         device=None, cfg=None, print_fn=print) -> dict:
-    """Both runs and the artifact (returned and written). ``cfg`` replaces
-    :func:`recipe_cfg` (a test's shrunk recipe)."""
+    """The three runs and the artifact (returned and written). ``cfg``
+    replaces :func:`recipe_cfg` (a test's shrunk recipe)."""
     root = Path(root)
     ckpt = Path(ckpt) if ckpt else root / "out_gen" / "checkpoint-119.pth"
     if not ckpt.is_file():
@@ -141,9 +159,10 @@ def run(root=curves_configs.DEFAULT_ROOT, ckpt=None, mask_batches: int = 2, out=
                "inference_mode": f"{cfg.system.get('compute_dtype', 'float32')} (product default)",
                "world_size": info["world_size"], "precisions": {}}
     hits_by_precision = {}
-    for precision in PRECISIONS:
-        if precision == "highest":
-            apply_matmul_precision("highest")
+    before = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    for precision, value in PRECISIONS.items():
+        if value is not None:
+            apply_matmul_precision(value)
         engine = GenerationEngine(cfg, device=device)
         engine.load_state_dicts(edm_state_dict=load_torch_checkpoint(ckpt, ema=use_ema))
         load_frozen_modules(cfg, engine, print_fn)
@@ -159,24 +178,24 @@ def run(root=curves_configs.DEFAULT_ROOT, ckpt=None, mask_batches: int = 2, out=
         }
         print_fn(f"{precision} {out_art['precisions'][precision]}")
         del engine
+    torch.set_float32_matmul_precision(before[0])
+    torch.backends.cudnn.allow_tf32 = before[1]
 
-    a, b = hits_by_precision["default"], hits_by_precision["highest"]
-    pos = np.logical_or(a, b).sum()
-    out_art["mask"] = {
-        "batches": mask_batches,
-        "queries_compared": int(a.size),
-        "agreement": round(float(np.mean(a == b)), 6),
-        "positive_iou": round(float(np.logical_and(a, b).sum() / max(pos, 1)), 6),
-        "positives_default": int(a.sum()),
-        "positives_highest": int(b.sum()),
-    }
-    d, h = out_art["precisions"]["default"], out_art["precisions"]["highest"]
-    out_art["deltas_default_minus_highest"] = {
-        "iou": round(d["iou"] - h["iou"], 5),
-        "cd_m": round(d["cd_m"] - h["cd_m"], 5),
-        "fscore": round(d["fscore"] - h["fscore"], 5),
-    }
-    out_art["same_settings"] = d["settings"] == h["settings"]
+    runs = out_art["precisions"]
+    for name, mask_key in (("default", "mask"), ("medium", "mask_medium_vs_highest")):
+        a, b = hits_by_precision[name], hits_by_precision["highest"]
+        pos = np.logical_or(a, b).sum()
+        out_art[mask_key] = {
+            "batches": mask_batches,
+            "queries_compared": int(a.size),
+            "agreement": round(float(np.mean(a == b)), 6),
+            "positive_iou": round(float(np.logical_and(a, b).sum() / max(pos, 1)), 6),
+            f"positives_{name}": int(a.sum()),
+            "positives_highest": int(b.sum()),
+        }
+        out_art[f"deltas_{name}_minus_highest"] = {
+            k: round(runs[name][k] - runs["highest"][k], 5) for k in ("iou", "cd_m", "fscore")}
+    out_art["same_settings"] = runs["default"]["settings"] == runs["highest"]["settings"]
     path = Path(out) if out else root / f"precision_gate_{ckpt.stem}.json"
     if info["is_main_process"]:
         path.parent.mkdir(parents=True, exist_ok=True)

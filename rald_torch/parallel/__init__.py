@@ -1,9 +1,11 @@
 """Multi-process runtime (``torch.distributed``): :mod:`rald_torch.parallel.dist`."""
 from rald_torch.parallel.dist import (
+    all_gather_rows,
     all_reduce_mean_,
     all_reduce_sum,
     backend,
     barrier,
+    broadcast_,
     destroy,
     draw_rows,
     init_distributed,
@@ -15,10 +17,12 @@ from rald_torch.parallel.dist import (
 )
 
 __all__ = [
+    "all_gather_rows",
     "all_reduce_mean_",
     "all_reduce_sum",
     "backend",
     "barrier",
+    "broadcast_",
     "destroy",
     "draw_rows",
     "init_distributed",

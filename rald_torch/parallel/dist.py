@@ -16,6 +16,10 @@ One process per card, as the reference ran DDP (``utils/misc.py:214-246``):
   metrics) across ranks in one collective a step.
 - :func:`draw_rows` gives a rank its rows of a draw made at the global
   batch, as a jitted JAX step draws at the global shape and shards it.
+- :func:`all_gather_rows` and :func:`broadcast_` carry
+  ``eval.inference.shard_queries`` (JAX's ``shard_map`` of the decode over
+  its query axis, ``gen_engine.py:637-650``): rank 0's tokens go to every
+  rank, each rank decodes its part of the queries, the parts are gathered.
 
 ``make_mesh``, ``shard_batch``, ``replicated`` and
 ``enable_compilation_cache`` have no counterpart: each process holds its
@@ -176,6 +180,46 @@ def all_reduce_sum(values: Sequence[float]) -> list:
     buf = t.to(_comm_device(t))
     dist.all_reduce(buf, op=dist.ReduceOp.SUM)
     return buf.cpu().tolist()
+
+
+@torch.no_grad()
+def broadcast_(t: torch.Tensor) -> torch.Tensor:
+    """``t`` overwritten in place with rank 0's tensor of the same shape and
+    dtype, and returned; the bytes are rank 0's on every rank. A no-op
+    without a process group."""
+    if backend() is None:
+        return t
+    buf = t.to(_comm_device(t))
+    dist.broadcast(buf, src=0)
+    if buf is not t:
+        t.copy_(buf)
+    return t
+
+
+@torch.no_grad()
+def all_gather_rows(t: torch.Tensor, length: int, dim: int = 1) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order, each
+    rank's part zero-padded at its end to ``length`` first (``t`` is at
+    most ``length`` long on ``dim``; its other dims are the same on every
+    rank): ``world * length`` long on ``dim``, the same on every rank, each
+    part's bytes unchanged (the parts travel as bytes, whatever their
+    dtype). The caller trims the padding. Without a process group: ``t``
+    padded to ``length``."""
+    pad = length - t.shape[dim]
+    if pad < 0:
+        raise ValueError(f"all_gather_rows: {t.shape[dim]} rows on dim {dim} > length {length}")
+    if pad:
+        shape = list(t.shape)
+        shape[dim] = pad
+        t = torch.cat([t, t.new_zeros(shape)], dim)
+    if backend() is None:
+        return t
+    part = t.movedim(dim, 0).contiguous()
+    buf = part.reshape(-1).view(torch.uint8).to(_comm_device(part))
+    parts = [torch.empty_like(buf) for _ in range(world_rank()[0])]
+    dist.all_gather(parts, buf)
+    out = torch.cat(parts).to(t.device).view(t.dtype)
+    return out.reshape((-1,) + part.shape[1:]).movedim(0, dim)
 
 
 def draw_rows(draw, shape, **kw) -> torch.Tensor:

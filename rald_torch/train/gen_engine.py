@@ -55,7 +55,11 @@ are injected. Under a process group (:mod:`rald_torch.parallel`) every
 rank draws at the global batch and keeps its rows, averages the step's
 loss and gradients over the ranks, and so holds the same state as every
 other rank; :meth:`evaluate` and :meth:`cache_latents` average their
-meters over the ranks.
+meters over the ranks. With ``eval.inference.shard_queries`` (JAX
+:165, :524-531, :637-664) the ranks of a group evaluate one batch together
+instead: rank 0 samples the tokens and broadcasts them, and every decode of
+the grid, helper and refine queries is split over the ranks by query
+(:meth:`GenerationEngine.decode_logits`), bitwise the one-process result.
 """
 from __future__ import annotations
 
@@ -92,7 +96,13 @@ from rald_torch.models.registry import get_ae_model, get_generation_model, get_r
 from rald_torch.ops.attn_kernel import merge_int8_trees, quantize_attn_tree
 from rald_torch.ops.geglu_kernel import quantize_ff_tree
 from rald_torch.models.latent_dit import LatentArrayTransformer
-from rald_torch.parallel.dist import all_reduce_mean_, world_rank
+from rald_torch.parallel.dist import (
+    all_gather_rows,
+    all_reduce_mean_,
+    broadcast_,
+    is_main_process,
+    world_rank,
+)
 from rald_torch.train.metrics import MetricLogger, epoch_1000x
 from rald_torch.train.profiler import StageTimer, synced_ms
 from rald_torch.train.schedule import scale_base_lr, warmup_cosine_schedule
@@ -268,6 +278,8 @@ class GenerationEngine:
             s_noise=float(inf.get("s_noise", 1.0)),
         )
         self.fscore_tau = float(ev.get("fscore_tau", 0.1))
+        # the ranks of a process group decode one batch's queries together
+        self.shard_queries = bool(inf.get("shard_queries", False))
 
         self.latent_std = float(cfg.lidar_ae.get("latent_std", 1.0))
         t = cfg.get("train", {})  # eval-only YAMLs may have none
@@ -617,8 +629,32 @@ class GenerationEngine:
     @torch.no_grad()
     def sample_tokens(self, radar_cube, seeds_or_prior):
         """Cube -> (B, n_latents, channels) f32 latent tokens. ``seeds_or_prior``
-        is a list of integer seeds or an injected (B, M, C) prior draw."""
-        return self.sample_from_cond(self.condition(radar_cube), seeds_or_prior)
+        is a list of integer seeds or an injected (B, M, C) prior draw.
+        Under ``shard_queries`` in a group, rank 0's tokens
+        (:meth:`_tokens_from_rank0`)."""
+        return self._tokens_from_rank0(
+            lambda: self.sample_from_cond(self.condition(radar_cube), seeds_or_prior),
+            len(seeds_or_prior))
+
+    def query_shards(self) -> tuple:
+        """``(world, rank)`` of the ranks that split each decode's queries:
+        the process group's with ``eval.inference.shard_queries``, else
+        ``(1, 0)`` (one process, or each rank its own frames)."""
+        return world_rank() if self.shard_queries else (1, 0)
+
+    def _tokens_from_rank0(self, sample, bsz: int) -> torch.Tensor:
+        """``sample()``, the (B, M, C) f32 tokens; under ``shard_queries`` in a
+        group rank 0 alone samples and :func:`broadcast_` sends its tokens to
+        every rank. So the ranks decode the one-process tokens bytewise, with
+        no reliance on the 35-NFE sampler computing the same bits in two
+        processes, and the other ranks skip the sampler."""
+        world, rank = self.query_shards()
+        if world == 1:
+            return sample()
+        m = self.model
+        tokens = sample().float() if rank == 0 else torch.empty(
+            (bsz, m.n_latents, m.channels), dtype=torch.float32, device=self.device)
+        return broadcast_(tokens)
 
     @torch.no_grad()
     def calibrate_act_scales(self, batches, num_batches: int = 2, margin: float = 1.0,
@@ -680,9 +716,40 @@ class GenerationEngine:
 
     @torch.no_grad()
     def decode_queries(self, tokens, queries):
-        """(B, M, C) tokens + (B, Q, 3) normalized queries -> (B, Q) f32 logits."""
-        out = self.vae.decode(self._to_dev(tokens), self._to_dev(queries))
-        return out.squeeze(-1).float()
+        """(B, M, C) tokens + (B, Q, 3) normalized queries -> (B, Q) f32
+        logits (JAX ``decode_queries``; query-sharded under
+        ``shard_queries``, :meth:`decode_logits`)."""
+        h = self.vae.decode_latents(self._to_dev(tokens))
+        return self.decode_logits(h, self._to_dev(queries)).float()
+
+    @torch.no_grad()
+    def decode_logits(self, h, queries) -> torch.Tensor:
+        """(B, Q) logits of (B, Q, 3) queries on the card from the decoder
+        state ``h`` (:meth:`VecSetVAE.decode_latents`): the VAE's decode,
+        which streams the queries in blocks of ``vae._chunk(B)``.
+
+        With ``eval.inference.shard_queries`` under a process group (JAX's
+        ``shard_map`` of the decode over the query axis, :637-650) the
+        ranks split the queries: rank ``r`` decodes the ``r``-th run of
+        ``ceil(blocks / world)`` whole blocks (the last ranks' runs are
+        shorter, or empty when there are fewer blocks than ranks), the runs
+        are gathered (:func:`all_gather_rows`) and trimmed to Q. Each rank
+        then runs every block at the shape one process runs it at, so the
+        logits are bitwise the one-process logits. JAX instead pads the
+        queries by duplication to a multiple of the devices and splits them
+        evenly (:524-531); on the card that would change the blocks' shapes,
+        and a GEMM's summation order may follow its shape. Any Q works: the
+        caller pads nothing. At world 1, or with the flag off, the plain
+        decode."""
+        world, rank = self.query_shards()
+        if world == 1:
+            return self.vae.decode_queries(h, queries).squeeze(-1)
+        n = queries.shape[1]
+        block = self.vae._chunk(queries.shape[0])
+        blocks = -(-n // block)
+        run = -(-blocks // world) * block
+        part = self.vae.decode_queries(h, queries[:, rank * run:(rank + 1) * run]).squeeze(-1)
+        return all_gather_rows(part, run, dim=1)[:, :n]
 
     def eval_metrics(self, logits, labels, mask, has_mask=True):
         m = mask if has_mask else None
@@ -729,11 +796,15 @@ class GenerationEngine:
         num_query = int(inference.get("num_query_points", 500000))
         g = generator if generator is not None else torch.Generator(self.device).manual_seed(self.seed)
         dev = self.device
+        # under shard_queries every rank holds the whole batch and draws what
+        # one process draws; rank 0 alone conditions and samples
+        first = self.query_shards()[1] == 0
 
         with self._stage(timings, "cond"):
-            cond = self.condition(radar_cube)
+            cond = self.condition(radar_cube) if first else None
         with self._stage(timings, "sample"):
-            tokens = self.sample_from_cond(cond, seeds_or_prior)
+            tokens = self._tokens_from_rank0(lambda: self.sample_from_cond(cond, seeds_or_prior),
+                                             len(seeds_or_prior))
 
         with self._stage(timings, "decode"):
             if use_device_grid:
@@ -750,6 +821,7 @@ class GenerationEngine:
                         helper, self._to_dev(helper_mask, torch.bool),
                         int(float(cfg.dataset.get("query_aug_num", 0))), g, lidar.pc_range,
                         lidar.voxel_size, int(cfg.dataset.get("query_aug_scale", 2)), aniso, iso,
+                        global_rows=not self.shard_queries,
                     )
             q_eval = self._to_dev(q_eval)
             bsz = q_eval.shape[0]
@@ -758,7 +830,7 @@ class GenerationEngine:
             q_grid = grid[None].expand(bsz, *grid.shape)
             if helper is not None:
                 q_grid = torch.cat([q_grid, helper], dim=1)
-            hits = self.vae.decode_queries(h, q_grid).squeeze(-1) > 0
+            hits = self.decode_logits(h, q_grid) > 0
             loss, iou, acc = self.eval_metrics(
                 logits_eval, self._to_dev(labels), self._to_dev(qmask), has_mask
             )
@@ -768,8 +840,9 @@ class GenerationEngine:
                 refined, valid, _ = densify_queries(
                     q_grid, hits, int(float(inference.refine_query_aug_num)), g, lidar.pc_range,
                     lidar.voxel_size, int(inference.refine_query_scale), aniso, iso,
+                    global_rows=not self.shard_queries,
                 )
-                hits2 = self.vae.decode_queries(h, refined).squeeze(-1) > 0
+                hits2 = self.decode_logits(h, refined) > 0
                 pred_pts, pred_mask = refined, hits2 & valid
             else:
                 pred_pts, pred_mask = q_grid, hits
@@ -797,7 +870,7 @@ class GenerationEngine:
         device. ``h``: the tokens' decoder state, if already computed."""
         if h is None:
             h = self.vae.decode_latents(self._to_dev(tokens))
-        return self.vae.decode_queries(h, self._to_dev(queries)).squeeze(-1) > 0
+        return self.decode_logits(h, self._to_dev(queries)) > 0
 
     @torch.no_grad()
     def _sample_and_decode(self, radar_cube, seeds_or_prior, q_eval, grid, helper):
@@ -858,7 +931,13 @@ class GenerationEngine:
         fused step are the rank's rows of the global draw; the meters are
         averaged over every rank's batches (JAX keeps every meter of this
         loop rank-local and gives every rank the seeds ``it*B ..``: ROADMAP
-        C10).
+        C10). With ``eval.inference.shard_queries`` every rank instead
+        evaluates the whole loader (built unsharded, as
+        ``main_generation.build_eval_loader`` builds it then) as one process
+        would, seeds ``it*B ..`` and one-process device draws, while the
+        decodes split their queries over the ranks (:meth:`decode_logits`);
+        every rank ends with the one-process meters, and rank 0 alone writes
+        the PLY and latent dumps.
         The host draws (grid, helper densify, refine jitter) come from each
         rank's own ``rng_np``. The one-step fused path
         (:meth:`fused_eval_step`) runs unless ``eval.store_pc`` /
@@ -906,7 +985,9 @@ class GenerationEngine:
         use_cart_query = bool(ev.get("use_cart_query", False))
         rng_np = np.random.default_rng(self.seed)
         logger = MetricLogger(print_fn=print_fn)
-        world, rank = world_rank()
+        # shard_queries: every rank evaluates the one-process batches
+        world, rank = (1, 0) if self.shard_queries else world_rank()
+        writes = not self.shard_queries or is_main_process()
 
         def make_grid():
             return build_query_grid(lidar, num_query, use_cart_query, rng_np)
@@ -993,7 +1074,7 @@ class GenerationEngine:
             else:
                 tokens = self.sample_tokens(radar_cube, seeds)
 
-            if store_latent and "lidar_path" in batch:
+            if store_latent and writes and "lidar_path" in batch:
                 base = Path(ev.store_base_dir) / ev.exp_name
                 for i in range(bsz):
                     seq = Path(batch["lidar_path"][i]).parent.parent.name
@@ -1086,7 +1167,7 @@ class GenerationEngine:
                 preds_xyz.append(pred)
                 gts_xyz.append(gt)
 
-                if store_pc and "radar_path" in batch:
+                if store_pc and writes and "radar_path" in batch:
                     with st("store_pc"):
                         seq = Path(batch["radar_path"][i]).parent.parent.parent.name
                         d = Path(ev.store_base_dir) / ev.exp_name / seq / ev.get(
@@ -1100,7 +1181,8 @@ class GenerationEngine:
                         preds_xyz, gts_xyz, self.fscore_tau, device=self.device)
             logger.update(cd=float(np.mean(cds)), fscore=float(np.mean(fscores)))
 
-        logger.synchronize_between_processes()
+        if not self.shard_queries:  # shard_queries: every rank holds the same meters
+            logger.synchronize_between_processes()
         stats = logger.averages()
         print_fn(
             "* iou {iou:.3f} loss {loss:.3f} cd {cd:.3f} fscore {f:.3f}".format(

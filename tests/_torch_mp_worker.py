@@ -1,6 +1,6 @@
 """One rank of a two-process gloo group for ``tests/test_torch_parallel.py``.
 
-    python tests/_torch_mp_worker.py steps|cli <dir>
+    python tests/_torch_mp_worker.py steps|cli|shard <dir>
 
 with ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE=2`` / ``RANK`` set, as
 ``torchrun`` sets them. It imports torch and ``rald_torch`` only; the test
@@ -16,6 +16,10 @@ one-process port and against ``rald_tpu``. Each check prints one marker line.
 - ``cli``: ``main_generation`` in train mode (one epoch, then a resumed
   second), recording which files each rank writes; ``infer.run`` over the
   test's cubes; ``main_cache``.
+- ``shard`` (``tests/test_torch_shard_queries.py``): with
+  ``eval.inference.shard_queries`` the two ranks decode one batch together:
+  ``decode_queries``, ``fused_eval_step``, ``evaluate`` and ``infer.run``
+  (:func:`shard_runs`, which the test runs in one process too).
 
 The step loops (:func:`stage2_runs`, :func:`stage1_runs`) are the ones the
 test runs in one process on the whole batch.
@@ -192,12 +196,55 @@ def job_cli(d: Path, rank: int) -> None:
     print(f"MP_CACHE_OK rank={rank}", flush=True)
 
 
+def shard_runs(payload: dict, out_dir: Path) -> dict:
+    """The ``shard_queries`` paths on the payload's inputs: each query set
+    through ``decode_queries`` (the payload's weights), one
+    ``fused_eval_step``, ``evaluate`` over the payload's split on the fused
+    path and on the modular one (its PLY dumps under ``out_dir/dumps``) and
+    ``infer.run`` (seeded random weights) into ``out_dir``; the outputs on
+    the host."""
+    from rald_torch.cli import infer
+    from rald_torch.cli import main_generation as mg
+    from rald_torch.config import Config
+    from rald_torch.train.gen_engine import GenerationEngine
+
+    eng = GenerationEngine(Config(payload["cfg"]), device="cpu")
+    eng.load_state_dicts(*payload["weights"])
+    out = {"query_shards": eng.query_shards(),
+           "decode": {n: eng.decode_queries(payload["tokens"], q)
+                      for n, q in payload["queries"].items()}}
+    step = dict(payload["step"], generator=torch.Generator().manual_seed(payload["step_seed"]))
+    out["step"] = [t.clone() for t in eng.fused_eval_step(**step)]
+    out["evaluate"] = {}
+    for path, store_pc in (("fused", False), ("modular", True)):  # modular: PLY dumps
+        ecfg = Config(payload["eval_cfg"])
+        ecfg.eval.update(store_pc=store_pc, store_base_dir=str(out_dir / "dumps"))
+        out["evaluate"][path] = GenerationEngine(ecfg, device="cpu").evaluate(
+            mg.build_eval_loader(ecfg, "eval", print_fn=lambda *_: None),
+            print_fn=lambda *_: None)
+    spec = payload["infer"]
+    out["infer"] = infer.run(Config(payload["infer_cfg"]), spec["input"], str(out_dir),
+                             batch=spec["batch"], threshold=spec["threshold"], device="cpu",
+                             print_fn=lambda *_: None)
+    return out
+
+
+def job_shard(d: Path, rank: int) -> None:
+    from rald_torch.parallel import init_distributed
+
+    info = init_distributed("cpu")
+    assert info["world_size"] == 2 and info["rank"] == rank, info
+    out = shard_runs(torch.load(d / "shard.pt", weights_only=False), d / f"ply_rank{rank}")
+    torch.save(out, d / f"shard_rank{rank}.pt")
+    print(f"MP_SHARD_OK rank={rank}", flush=True)
+
+
 def main() -> None:
     torch.set_num_threads(1)
     torch.set_float32_matmul_precision("highest")
     job, d = sys.argv[1], Path(sys.argv[2])
     rank = int(os.environ["RANK"])
-    {"steps": job_steps, "cli": job_cli}[job](d, rank)
+    {"steps": job_steps, "cli": job_cli, "shard": job_shard}[job](d, rank)
     from rald_torch.parallel import destroy
 
     destroy()

@@ -182,7 +182,12 @@ def test_gate_cli_rows_partial_rerun_and_static(tree, tmp_path):
     out = tmp_path / "out" / "exp" / "int8_gate_checkpoint-7.json"
     assert json.loads(out.read_text()) == art
     assert sorted(art["modes"]) == ["bf16", "int8_ff"]  # static skipped: no npz
-    assert art["device"] == "cpu" and art["matmul_precision"] == "default"
+    # the torch settings in force during the runs (the fixture's "highest"),
+    # not a label; the YAML sets no matmul_precision
+    assert art["device"] == "cpu" and art["system_matmul_precision"] is None
+    assert art["matmul_precision"]["float32_matmul_precision"] == "highest"
+    assert set(art["matmul_precision"]) == {"float32_matmul_precision", "cuda_matmul_allow_tf32",
+                                            "cudnn_allow_tf32"}
     # the bf16 row is main_generation.run's stats on the same eval config
     cfg = load_config(cfg_path)
     cfg.system.mode, cfg.eval.ckpt, cfg.eval.store_pc = "eval", str(ckpt), False
@@ -197,8 +202,16 @@ def test_gate_cli_rows_partial_rerun_and_static(tree, tmp_path):
     calibrate_int8.run(load_config(cfg_path), ckpt, num_batches=1, device="cpu",
                        print_fn=lambda *_: None)
     lines.clear()
-    art2 = int8_gate.run(finalize_dirs(load_config(cfg_path)), ckpt, modes=["int8_ff_static+attn_vout"],
-                         device="cpu", print_fn=lines.append)
+    cfg2 = finalize_dirs(load_config(cfg_path))
+    cfg2.system.matmul_precision = "default"  # applied by main_generation.run: torch "medium"
+    try:
+        art2 = int8_gate.run(cfg2, ckpt, modes=["int8_ff_static+attn_vout"], device="cpu",
+                             print_fn=lines.append)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = True
+    assert art2["system_matmul_precision"] == "default"
+    assert art2["matmul_precision"]["float32_matmul_precision"] == "medium"
     assert "=== mode int8_ff_static+attn_vout ===" in lines
     assert sorted(art2["modes"]) == ["bf16", "int8_ff", "int8_ff_static+attn_vout"]
     assert art2["modes"]["bf16"] == art["modes"]["bf16"]

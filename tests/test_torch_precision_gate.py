@@ -17,9 +17,12 @@ batch, 512 densified CFAR helper points a frame), seeds ``b*B ..`` and one
 - ``precision_gate.run`` (both runs, the mask phase and ``evaluate`` with
   refine, on ``.pth`` files) writes an artifact with every key of JAX's
   (``docs/artifacts/precision_gate_checkpoint-479.json``) and the torch
-  settings of each run. Started at torch's process defaults, the two runs
-  differ in ``cudnn_allow_tf32`` only, which the CPU ignores: agreement 1.0
-  and zero deltas."""
+  settings of each run. Started at torch's process defaults, the first two
+  runs differ in ``cudnn_allow_tf32`` only, which the CPU ignores: agreement
+  1.0 and zero deltas. The third, ``medium`` (``apply_matmul_precision(
+  "default")``), records its settings, its mask agreement with ``highest``
+  (at least 0.99) and its deltas (|ΔIoU| within the gate's 0.005 bar), and
+  the process's settings are restored after the run."""
 import copy
 import json
 from pathlib import Path
@@ -189,3 +192,14 @@ def test_run_writes_jaxs_keys_and_each_runs_settings(tree, weights, tmp_path):
     assert art["mask"]["agreement"] == 1.0
     assert art["deltas_default_minus_highest"] == {"iou": 0.0, "cd_m": 0.0, "fscore": 0.0}
     assert all(np.isfinite(d[k]) and d[k] >= 0 for k in ("iou", "cd_m", "fscore"))
+    # the third run, apply_matmul_precision("default"): torch's "medium"
+    m = art["precisions"]["medium"]
+    assert m["settings"]["float32_matmul_precision"] == "medium" and m["settings"]["cudnn_allow_tf32"]
+    assert list(art["precisions"]) == ["default", "highest", "medium"]
+    assert art["mask_medium_vs_highest"]["queries_compared"] == 2 * (GRID + 512)
+    # the CPU may compute "medium" f32 matmuls in bf16 (measured here: agreement
+    # 0.9957, delta IoU -0.00049); the gate's bar holds either way
+    assert art["mask_medium_vs_highest"]["agreement"] >= 0.99
+    assert abs(art["deltas_medium_minus_highest"]["iou"]) <= 0.005
+    # the process's settings are restored
+    assert torch.get_float32_matmul_precision() == "highest" and torch.backends.cudnn.allow_tf32
