@@ -1,0 +1,10 @@
+"""``idle_share.eval``: the share of the traced window of the profiled eval
+steps in which no kernel ran on the device (one minus the union of the
+kernels' intervals over the window)."""
+
+
+def read(ctx):
+    s = ctx["summary"]
+    if ctx["kind"] != "eval" or not s["window_s"] or not s["kernels"]:
+        return None
+    return 100.0 * (1.0 - s["busy_s"] / s["window_s"])
