@@ -1,0 +1,11 @@
+"""``sample_host_ms``: the engine's ``sample`` stage of the eval step, in host
+milliseconds a step: from the stage's start until its Python returns,
+before the closing synchronise (``fused_eval_step(timings=)``, key
+``sample.host``), over the traced run's steps after the profiled ones. Near
+``sample_ms`` (the same stage synchronised) the host paces the stage."""
+
+
+def read(ctx):
+    if ctx["kind"] != "eval" or not ctx["stage_steps"]:
+        return None
+    return ctx["stage_ms"].get("sample.host")

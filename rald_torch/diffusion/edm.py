@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from rald_torch.parallel.dist import draw_rows
+from rald_torch.train.profiler import span
 
 
 def karras_sigmas(num_steps: int = 18, sigma_min: float = 0.002, sigma_max: float = 80.0,
@@ -130,6 +131,10 @@ def edm_sampler(
     x = latents.float() * t_steps[0]
     gamma_cap = min(s_churn / num_steps, math.sqrt(2.0) - 1.0)
 
+    def nfe(x_in, t, i):
+        with span("nfe"):
+            return denoise_indexed(x_in, t, i)
+
     def perturb(x_cur, t_cur, i):
         if not churn:
             return x_cur, t_cur
@@ -142,14 +147,14 @@ def edm_sampler(
     for i in range(num_steps - 1):
         t_next = t_steps[i + 1]
         x_hat, t_hat = perturb(x, t_steps[i], i)
-        d_cur = (x_hat - denoise_indexed(x_hat, t_hat, i)) / t_hat
+        d_cur = (x_hat - nfe(x_hat, t_hat, i)) / t_hat
         x_next = x_hat + (t_next - t_hat) * d_cur
-        d_prime = (x_next - denoise_indexed(x_next, t_next, i + 1)) / t_next
+        d_prime = (x_next - nfe(x_next, t_next, i + 1)) / t_next
         if capture_states:
             seen += [(i, x_hat), (i + 1, x_next)]
         x = x_hat + (t_next - t_hat) * (0.5 * d_cur + 0.5 * d_prime)
     x_hat, t_hat = perturb(x, t_steps[num_steps - 1], num_steps - 1)
-    denoised = denoise_indexed(x_hat, t_hat, num_steps - 1)
+    denoised = nfe(x_hat, t_hat, num_steps - 1)
     x_final = x_hat + (t_steps[num_steps] - t_hat) * (x_hat - denoised) / t_hat
     if not capture_states:
         return x_final

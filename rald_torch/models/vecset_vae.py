@@ -42,6 +42,7 @@ from rald_torch.ops.fps import fps_points
 from rald_torch.ops.geglu_kernel import fused_ln_geglu_residual
 from rald_torch.ops.query_attention import map_query_chunks
 from rald_torch.parallel.dist import draw_rows
+from rald_torch.train.profiler import span
 
 
 class PreNorm(nn.Module):
@@ -229,7 +230,8 @@ class VecSetVAE(nn.Module):
             return self._decode_queries_folded(ctx, queries)
 
         def tail(q_blk):
-            return self.to_outputs(dca.fn(dca.norm(self.point_embed(q_blk)), context=ctx))
+            with span("decode_block"):
+                return self.to_outputs(dca.fn(dca.norm(self.point_embed(q_blk)), context=ctx))
 
         return map_query_chunks(tail, queries, self._chunk(queries.shape[0]))
 
@@ -260,13 +262,14 @@ class VecSetVAE(nn.Module):
         v2 = torch.cat([v_fold, torch.ones_like(v_fold)], dim=-1)  # (B, M, 2)
 
         def tail(q_blk):
-            q_emb = dca.norm(self.point_embed(q_blk))
-            sim = torch.matmul(q_emb, w_score).float()
-            # constant-shift exp: the ratio is invariant to the shift, and
-            # the clip keeps exp inside the normal f32 range
-            e = torch.exp(torch.clamp(sim, -45.0, 80.0) - 40.0)
-            nd = torch.matmul(e, v2)
-            return nd[..., :1] / nd[..., 1:] + bias
+            with span("decode_block"):
+                q_emb = dca.norm(self.point_embed(q_blk))
+                sim = torch.matmul(q_emb, w_score).float()
+                # constant-shift exp: the ratio is invariant to the shift, and
+                # the clip keeps exp inside the normal f32 range
+                e = torch.exp(torch.clamp(sim, -45.0, 80.0) - 40.0)
+                nd = torch.matmul(e, v2)
+                return nd[..., :1] / nd[..., 1:] + bias
 
         return map_query_chunks(tail, queries, self._chunk(queries.shape[0]))
 

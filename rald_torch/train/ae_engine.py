@@ -52,7 +52,7 @@ from rald_torch.train.gen_engine import (
     torch_dtype,
 )
 from rald_torch.train.metrics import MetricLogger, epoch_1000x
-from rald_torch.train.profiler import synced_ms
+from rald_torch.train.profiler import span, synced_ms
 from rald_torch.train.schedule import scale_base_lr, warmup_cosine_schedule
 from rald_torch.train.state import TrainState, global_norm, masters_of
 
@@ -182,11 +182,13 @@ class AEEngine:
         and the posterior noise are this rank's rows of the global draw."""
         model = self.train_model
         with synced_ms(timings, "forward_backward", self.device):
-            loss, metrics = self.loss_and_metrics(model, batch, generator, eps, drop_masks)
-            names, params = zip(*model.named_parameters())
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            grads = {k: torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
-                     for k, p, g in zip(names, params, grads)}
+            with span("forward"):
+                loss, metrics = self.loss_and_metrics(model, batch, generator, eps, drop_masks)
+            with span("backward"):
+                names, params = zip(*model.named_parameters())
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                grads = {k: torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+                         for k, p, g in zip(names, params, grads)}
         metrics = {k: v.detach().clone() for k, v in metrics.items()}
         with synced_ms(timings, "all_reduce", self.device):
             all_reduce_mean_([*metrics.values(), *grads.values()])
@@ -198,11 +200,14 @@ class AEEngine:
         ``state.apply_gradients``. Returns ``(state, metrics)`` with
         ``grad_norm``, taken before the clip. ``timings``, when a dict, gets
         the synchronised ms of ``forward_backward`` and ``optimizer`` (clip
-        + AdamW + EMA + working-copy refresh)."""
-        metrics, grads = self.loss_and_grads(batch, generator, eps, drop_masks, timings)
-        with synced_ms(timings, "optimizer", self.device):
-            metrics["grad_norm"] = global_norm(grads.values())
-            state.apply_gradients(grads)
+        + AdamW + EMA + working-copy refresh), and each one's host ms under
+        ``<stage>.host`` (:func:`synced_ms`)."""
+        with span("train_step"):
+            metrics, grads = self.loss_and_grads(batch, generator, eps, drop_masks, timings)
+            with synced_ms(timings, "optimizer", self.device):
+                with span("grad_norm"):
+                    metrics["grad_norm"] = global_norm(grads.values())
+                state.apply_gradients(grads)
         return state, metrics
 
     # ------------------------------------------------------------ epoch loops

@@ -104,7 +104,7 @@ from rald_torch.parallel.dist import (
     world_rank,
 )
 from rald_torch.train.metrics import MetricLogger, epoch_1000x
-from rald_torch.train.profiler import StageTimer, synced_ms
+from rald_torch.train.profiler import StageTimer, span, synced_ms
 from rald_torch.train.schedule import scale_base_lr, warmup_cosine_schedule
 from rald_torch.train.state import TrainState, global_norm, masters_of
 
@@ -452,12 +452,14 @@ class GenerationEngine:
             with self._stage(timings, "upsample"):
                 radar_cube = self._maybe_upsample(radar_cube)
         with self._stage(timings, "forward_backward"):
-            loss = edm_loss(lambda x, sigma: model(x, sigma, radar_cube), self._to_dev(latents),
-                            generator, rnd, noise)
-            names, params = zip(*model.named_parameters())
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            grads = {k: torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
-                     for k, p, g in zip(names, params, grads)}
+            with span("forward"):
+                loss = edm_loss(lambda x, sigma: model(x, sigma, radar_cube),
+                                self._to_dev(latents), generator, rnd, noise)
+            with span("backward"):
+                names, params = zip(*model.named_parameters())
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                grads = {k: torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+                         for k, p, g in zip(names, params, grads)}
         loss = loss.detach()
         with self._stage(timings, "all_reduce"):
             all_reduce_mean_([loss, *grads.values()])
@@ -471,11 +473,14 @@ class GenerationEngine:
         the norm taken before the clip (of the gradients averaged over the
         ranks). ``timings``, when a dict, gets the synchronised ms of
         ``upsample``, ``forward_backward``, ``all_reduce`` and ``optimizer``
-        (clip + AdamW + EMA + working-copy refresh)."""
-        loss, grads = self.loss_and_grads(latents, radar_cube, generator, rnd, noise, timings)
-        with self._stage(timings, "optimizer"):
-            g_norm = global_norm(grads.values())
-            state.apply_gradients(grads)
+        (clip + AdamW + EMA + working-copy refresh), and each one's host ms
+        under ``<stage>.host`` (:func:`synced_ms`)."""
+        with span("train_step"):
+            loss, grads = self.loss_and_grads(latents, radar_cube, generator, rnd, noise, timings)
+            with self._stage(timings, "optimizer"):
+                with span("grad_norm"):
+                    g_norm = global_norm(grads.values())
+                state.apply_gradients(grads)
         return state, {"loss": loss, "grad_norm": g_norm}
 
     def train_one_epoch(self, state: TrainState, loader, epoch: int, log_writer=None,
@@ -787,81 +792,85 @@ class GenerationEngine:
         is drawn on the device from ``generator`` when ``use_device_grid``;
         ``helper_aug`` densifies raw CFAR helper points on the device.
         ``timings``, when a dict, receives per-stage milliseconds (each
-        stage then ends in a synchronize, so only pass it to measure).
+        stage then ends in a synchronize, so only pass it to measure) and
+        each stage's host milliseconds under ``<stage>.host``
+        (:func:`synced_ms`).
         """
-        cfg = self.cfg
-        inference = cfg.get("eval", {}).get("inference", {})
-        lidar = cfg.dataset.lidar
-        aniso, iso = bool(lidar.norm_anisotropy), bool(lidar.norm_isotropy)
-        num_query = int(inference.get("num_query_points", 500000))
-        g = generator if generator is not None else torch.Generator(self.device).manual_seed(self.seed)
-        dev = self.device
-        # under shard_queries every rank holds the whole batch and draws what
-        # one process draws; rank 0 alone conditions and samples
-        first = self.query_shards()[1] == 0
+        with span("eval_step"):
+            cfg = self.cfg
+            inference = cfg.get("eval", {}).get("inference", {})
+            lidar = cfg.dataset.lidar
+            aniso, iso = bool(lidar.norm_anisotropy), bool(lidar.norm_isotropy)
+            num_query = int(inference.get("num_query_points", 500000))
+            g = (generator if generator is not None
+                 else torch.Generator(self.device).manual_seed(self.seed))
+            dev = self.device
+            # under shard_queries every rank holds the whole batch and draws what
+            # one process draws; rank 0 alone conditions and samples
+            first = self.query_shards()[1] == 0
 
-        with self._stage(timings, "cond"):
-            cond = self.condition(radar_cube) if first else None
-        with self._stage(timings, "sample"):
-            tokens = self._tokens_from_rank0(lambda: self.sample_from_cond(cond, seeds_or_prior),
-                                             len(seeds_or_prior))
+            with self._stage(timings, "cond"):
+                cond = self.condition(radar_cube) if first else None
+            with self._stage(timings, "sample"):
+                tokens = self._tokens_from_rank0(
+                    lambda: self.sample_from_cond(cond, seeds_or_prior), len(seeds_or_prior))
 
-        with self._stage(timings, "decode"):
-            if use_device_grid:
-                _, scale = geo.norm_scale_offset(lidar.pc_range)
-                hi = scale / scale.max() if iso else np.ones(3, np.float32)
-                lo, hi = torch.as_tensor(-hi, device=dev), torch.as_tensor(hi, device=dev)
-                grid = torch.rand((num_query, 3), generator=g, device=dev) * (hi - lo) + lo
-            else:
-                grid = self._to_dev(grid)
-            if helper is not None:
-                helper = self._to_dev(helper)
-                if helper_aug:
-                    helper, _, _ = densify_queries(
-                        helper, self._to_dev(helper_mask, torch.bool),
-                        int(float(cfg.dataset.get("query_aug_num", 0))), g, lidar.pc_range,
-                        lidar.voxel_size, int(cfg.dataset.get("query_aug_scale", 2)), aniso, iso,
+            with self._stage(timings, "decode"):
+                if use_device_grid:
+                    _, scale = geo.norm_scale_offset(lidar.pc_range)
+                    hi = scale / scale.max() if iso else np.ones(3, np.float32)
+                    lo, hi = torch.as_tensor(-hi, device=dev), torch.as_tensor(hi, device=dev)
+                    grid = torch.rand((num_query, 3), generator=g, device=dev) * (hi - lo) + lo
+                else:
+                    grid = self._to_dev(grid)
+                if helper is not None:
+                    helper = self._to_dev(helper)
+                    if helper_aug:
+                        helper, _, _ = densify_queries(
+                            helper, self._to_dev(helper_mask, torch.bool),
+                            int(float(cfg.dataset.get("query_aug_num", 0))), g, lidar.pc_range,
+                            lidar.voxel_size, int(cfg.dataset.get("query_aug_scale", 2)), aniso,
+                            iso, global_rows=not self.shard_queries,
+                        )
+                q_eval = self._to_dev(q_eval)
+                bsz = q_eval.shape[0]
+                h = self.vae.decode_latents(tokens)
+                logits_eval = self.vae.decode_queries(h, q_eval).squeeze(-1).float()
+                q_grid = grid[None].expand(bsz, *grid.shape)
+                if helper is not None:
+                    q_grid = torch.cat([q_grid, helper], dim=1)
+                hits = self.decode_logits(h, q_grid) > 0
+                loss, iou, acc = self.eval_metrics(
+                    logits_eval, self._to_dev(labels), self._to_dev(qmask), has_mask
+                )
+
+            with self._stage(timings, "refine"):
+                if refine:
+                    refined, valid, _ = densify_queries(
+                        q_grid, hits, int(float(inference.refine_query_aug_num)), g, lidar.pc_range,
+                        lidar.voxel_size, int(inference.refine_query_scale), aniso, iso,
                         global_rows=not self.shard_queries,
                     )
-            q_eval = self._to_dev(q_eval)
-            bsz = q_eval.shape[0]
-            h = self.vae.decode_latents(tokens)
-            logits_eval = self.vae.decode_queries(h, q_eval).squeeze(-1).float()
-            q_grid = grid[None].expand(bsz, *grid.shape)
-            if helper is not None:
-                q_grid = torch.cat([q_grid, helper], dim=1)
-            hits = self.decode_logits(h, q_grid) > 0
-            loss, iou, acc = self.eval_metrics(
-                logits_eval, self._to_dev(labels), self._to_dev(qmask), has_mask
-            )
+                    hits2 = self.decode_logits(h, refined) > 0
+                    pred_pts, pred_mask = refined, hits2 & valid
+                else:
+                    pred_pts, pred_mask = q_grid, hits
+                n_pred = pred_mask.int().sum(1)
 
-        with self._stage(timings, "refine"):
-            if refine:
-                refined, valid, _ = densify_queries(
-                    q_grid, hits, int(float(inference.refine_query_aug_num)), g, lidar.pc_range,
-                    lidar.voxel_size, int(inference.refine_query_scale), aniso, iso,
-                    global_rows=not self.shard_queries,
-                )
-                hits2 = self.decode_logits(h, refined) > 0
-                pred_pts, pred_mask = refined, hits2 & valid
-            else:
-                pred_pts, pred_mask = q_grid, hits
-            n_pred = pred_mask.int().sum(1)
+            if not compute_cd:
+                neg = torch.full((bsz,), -1.0, device=dev)
+                return loss, iou, acc, neg, neg, n_pred
 
-        if not compute_cd:
-            neg = torch.full((bsz,), -1.0, device=dev)
-            return loss, iou, acc, neg, neg, n_pred
-
-        with self._stage(timings, "chamfer"):
-            pred_un = geo.inverse_norm_points(pred_pts, lidar.pc_range, aniso, iso)
-            gt_un = geo.inverse_norm_points(self._to_dev(surface), lidar.pc_range, aniso, iso)
-            if lidar.get("view_cone_mode", False):
-                pred_un = geo.polar2cartesian(pred_un)
-                gt_un = geo.polar2cartesian(gt_un)
-            cd, f = batched_cd_fscore_graph(
-                pred_un, pred_mask, gt_un, self._to_dev(surface_mask, torch.bool), self.fscore_tau
-            )
-        return loss, iou, acc, cd, f, n_pred
+            with self._stage(timings, "chamfer"):
+                pred_un = geo.inverse_norm_points(pred_pts, lidar.pc_range, aniso, iso)
+                gt_un = geo.inverse_norm_points(self._to_dev(surface), lidar.pc_range, aniso, iso)
+                if lidar.get("view_cone_mode", False):
+                    pred_un = geo.polar2cartesian(pred_un)
+                    gt_un = geo.polar2cartesian(gt_un)
+                cd, f = batched_cd_fscore_graph(pred_un, pred_mask, gt_un,
+                                                self._to_dev(surface_mask, torch.bool),
+                                                self.fscore_tau)
+            return loss, iou, acc, cd, f, n_pred
 
     # ------------------------------------------------------- dataset eval
     @torch.no_grad()
@@ -1043,7 +1052,7 @@ class GenerationEngine:
                         refine=refine_query, helper_aug=helper_mask is not None,
                         use_device_grid=not use_cart_query,
                     ))
-                with st("metrics_readback"):
+                with st("metrics_readback"), span("readback"):
                     logger.update(loss=float(loss), iou=float(iou), accuracy=float(acc))
                     if not skip_metric:
                         logger.update(cd=float(cds.float().mean()), fscore=float(fs.float().mean()))
@@ -1065,7 +1074,7 @@ class GenerationEngine:
                 with st("sample_decode"):
                     tokens, logits, grid_hits, h = st.block(self._sample_and_decode(
                         radar_cube, seeds, batch["query_points"], grid, helper))
-                with st("hits_readback"):
+                with st("hits_readback"), span("readback"):
                     grid_hits = grid_hits.cpu().numpy()
             elif use_pred_latent:
                 tokens = self._to_dev(np.asarray(batch["pred_latent"], np.float32))

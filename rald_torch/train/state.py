@@ -33,6 +33,8 @@ from typing import Callable, Optional
 
 import torch
 
+from rald_torch.train.profiler import span
+
 MAX_CONSECUTIVE_ERRORS = 100
 
 
@@ -96,9 +98,10 @@ class TrainState:
                 torch._foreach_mul_(self.acc_grads, 0.0)
             self.mini_step = (n + 1) % self.accum_iter
         self.step += 1
-        torch._foreach_mul_(list(self.ema_params.values()), self.ema_rate)
-        torch._foreach_add_(list(self.ema_params.values()), list(self.params.values()),
-                            alpha=1.0 - self.ema_rate)
+        with span("ema"):
+            torch._foreach_mul_(list(self.ema_params.values()), self.ema_rate)
+            torch._foreach_add_(list(self.ema_params.values()), list(self.params.values()),
+                                alpha=1.0 - self.ema_rate)
         return applied
 
     def _update(self, g: list) -> bool:
@@ -110,18 +113,21 @@ class TrainState:
             if not finite and self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
                 return False
         if self.clip_grad is not None:
-            g_norm = float(global_norm(g))
-            if not g_norm < self.clip_grad:
-                torch._foreach_div_(g, g_norm)
-                torch._foreach_mul_(g, self.clip_grad)
-        for p, t in zip(self.params.values(), g):
-            p.grad = t
-        self.optimizer.param_groups[0]["lr"] = self.lr()
-        self.optimizer.step()
-        for p in self.params.values():
-            p.grad = None
+            with span("clip"):
+                g_norm = float(global_norm(g))
+                if not g_norm < self.clip_grad:
+                    torch._foreach_div_(g, g_norm)
+                    torch._foreach_mul_(g, self.clip_grad)
+        with span("adamw"):
+            for p, t in zip(self.params.values(), g):
+                p.grad = t
+            self.optimizer.param_groups[0]["lr"] = self.lr()
+            self.optimizer.step()
+            for p in self.params.values():
+                p.grad = None
         self.count += 1
-        self.refresh_working()
+        with span("refresh"):
+            self.refresh_working()
         return True
 
     @torch.no_grad()

@@ -131,7 +131,11 @@ def test_full_recipe_runs_with_refine_and_device_grid(engines):
             gen, b["helper"], hmask, b["surface"], b["surface_mask"], compute_cd=True,
             refine=True, helper_aug=True, use_device_grid=True, timings=timings,
         )
-        assert set(timings) == {"cond", "sample", "decode", "refine", "chamfer"}
+        stages = {"cond", "sample", "decode", "refine", "chamfer"}
+        # each stage's host ms beside its synced ms, and those of the spans
+        # nested in the stages (the NFEs, the densify calls, the decode blocks)
+        assert set(timings) == stages | {s + ".host" for s in stages
+                                         | {"nfe", "densify", "decode_block"}}
         assert n.shape == (2,) and (n > 0).all() and (n <= 512).all()  # refine_query_aug_num
         assert np.isfinite(cd.numpy()).all() and ((f >= 0) & (f <= 1)).all()
         assert np.isfinite(float(loss)) and 0 <= float(iou) <= 1 and 0 <= float(acc) <= 1
