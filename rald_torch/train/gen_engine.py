@@ -86,6 +86,7 @@ from rald_torch.diffusion.edm import (
     stack_mod_table,
     unstack_mods,
 )
+from rald_torch.diffusion.sampler_graph import SamplerGraphs
 from rald_torch.dsp.cfar_points import resize_linear_align_corners
 from rald_torch.eval.chamfer import batched_cd_fscore_graph, chamfer_and_fscore_batch
 from rald_torch.eval.densify import densify_queries
@@ -95,7 +96,7 @@ from rald_torch.eval.queries import build_query_grid
 from rald_torch.models.registry import get_ae_model, get_generation_model, get_radar_encoder_model
 from rald_torch.ops.attn_kernel import merge_int8_trees, quantize_attn_tree
 from rald_torch.ops.geglu_kernel import quantize_ff_tree
-from rald_torch.models.latent_dit import LatentArrayTransformer
+from rald_torch.models.latent_dit import FLAGS, LatentArrayTransformer
 from rald_torch.parallel.dist import (
     all_gather_rows,
     all_reduce_mean_,
@@ -211,6 +212,8 @@ class GenerationEngine:
         )
         self.draw_prior = sample_prior_latents
         self.draw_churn = sample_churn_noise
+        # the no-churn sampler's CUDA graphs (:meth:`sample_from_cond`)
+        self._sampler_graphs = SamplerGraphs()
         ev = cfg.get("eval", {})
         inf = ev.get("inference", {})
 
@@ -305,7 +308,9 @@ class GenerationEngine:
         values are cast to the engine's dtype and device. In int8 mode the
         side-tree is rebuilt from the values as given (f32), not from the
         cast copy. ``radar_enc_state_dict``: the frozen encoder's
-        ``encoder.*`` entries (:func:`rald_torch.train.checkpoint.split_radar_autoencoder`)."""
+        ``encoder.*`` entries (:func:`rald_torch.train.checkpoint.split_radar_autoencoder`).
+        Drops the sampler's CUDA graphs."""
+        self._sampler_graphs.clear()
         if radar_enc_state_dict is not None and self.radar_enc is None:
             raise ValueError("radar_enc_state_dict given, but this engine has no frozen radar encoder")
         for m, sd in ((self.model, edm_state_dict), (self.vae, vae_state_dict),
@@ -322,9 +327,11 @@ class GenerationEngine:
     def _quantize(self, state_dict) -> None:
         """Build the int8 side-tree of the DiT from its weights, once per
         weight set (the JAX engine rebuilds the same numbers in every
-        sampling call), and hand it to the model."""
+        sampling call), and hand it to the model. Drops the sampler's CUDA
+        graphs: the side-tree's tensors are new."""
         if not (self.use_int8_ff or self.use_int8_attn):
             return
+        self._sampler_graphs.clear()
         tree = quantize_ff_tree(state_dict) if self.use_int8_ff else {}
         if self.use_int8_attn:
             tree = merge_int8_trees(tree, quantize_attn_tree(state_dict))
@@ -609,16 +616,37 @@ class GenerationEngine:
         the AdaLN rows from its own sigma, one row per frame, and takes no
         activation-scale rows, so a static int8 FF runs the dynamic kernel
         (``fused_ln_geglu_residual_int8``). Step ``i``'s churn draws come from
-        :attr:`draw_churn` (per-sample streams keyed by (seed, step))."""
+        :attr:`draw_churn` (per-sample streams keyed by (seed, step)).
+
+        On a CUDA device the no-churn path without ``capture_states`` runs
+        as a CUDA graph per :meth:`_graph_key`
+        (:class:`rald_torch.diffusion.sampler_graph.SamplerGraphs`): eager
+        on a key's first call, captured on its second, replayed after, and
+        captured anew when a tensor it reads has moved (:meth:`_graph_guard`).
+        The prior is drawn outside the graph; the tokens are a fresh tensor
+        either way. Everything else runs eagerly, as on the CPU."""
         m = self.model
         latents = self.draw_prior(seeds_or_prior, m.n_latents, m.channels, self.device)
         kw = self.sampler_kwargs
+        graphs = self._sampler_graphs
         if kw["s_churn"] > 0:
             def noise(step):
                 return self.draw_churn(seeds_or_prior, step, m.n_latents, m.channels, self.device)
 
-            return edm_sampler(lambda x, sigma, idx: m.denoise(x, sigma, cond), latents,
-                               churn_noise=noise, capture_states=capture_states, **kw)
+            return graphs.eager(edm_sampler, lambda x, sigma, idx: m.denoise(x, sigma, cond),
+                                latents, churn_noise=noise, capture_states=capture_states, **kw)
+        if capture_states or not graphs.applies(latents):
+            return graphs.eager(self._sample_table, latents, cond, capture_states)
+        if graphs.revision != m.revision:  # set_flags / set_int8 since the capture
+            graphs.clear()
+            graphs.revision = m.revision
+        return graphs(self._sample_table, self._graph_key(latents, cond), self._graph_guard(),
+                      latents, cond)
+
+    def _sample_table(self, latents, cond, capture_states: bool = False):
+        """The no-churn sampler from the prior ``latents``: the mod table of
+        the schedule, then :func:`edm_sampler` over it."""
+        m = self.model
         _, table = self._schedule()
         acts = self._act_scales if self.use_int8_ff == "static" else None
 
@@ -629,7 +657,36 @@ class GenerationEngine:
                 sc = tuple((row[i, 0], row[i, 1]) for i in range(row.shape[0]))
             return m.denoise_with_mods(x, sigma, unstack_mods(table[idx]), cond, act_scales=sc)
 
-        return edm_sampler(denoise_indexed, latents, capture_states=capture_states, **kw)
+        return edm_sampler(denoise_indexed, latents, capture_states=capture_states,
+                           **self.sampler_kwargs)
+
+    def _graph_key(self, latents, cond) -> tuple:
+        """What a captured sampler is specific to: the prior's shape, the
+        condition's shape, strides and dtype (or None), the int8 and fused
+        modes, and the sampler's settings."""
+        m = self.model
+        c = None if cond is None else (tuple(cond.shape), cond.stride(), cond.dtype)
+        modes = tuple(getattr(m, f) for f in FLAGS + ("use_int8_ff", "use_int8_attn"))
+        return tuple(latents.shape), c, modes, tuple(sorted(self.sampler_kwargs.items()))
+
+    def _graph_guard(self) -> tuple:
+        """The storage addresses of the tensors a captured sampler reads in
+        place: the DiT's parameters and buffers, its int8 side-tree and the
+        activation scales. An in-place update keeps them; a new tensor
+        moves one, and the graph is captured anew."""
+        m = self.model
+        ts = [*m.parameters(), *m.buffers()]
+        for block in m.model.transformer_blocks:
+            for node in block.int8.values():
+                ts += node.values()
+        if self._act_scales is not None:
+            ts.append(self._act_scales)
+        return tuple(t.data_ptr() for t in ts)
+
+    def sampler_graph_counts(self) -> dict:
+        """How :meth:`sample_from_cond` calls were served: ``captures``
+        (captured, then replayed once), ``replays`` and ``eager``."""
+        return dict(self._sampler_graphs.counts)
 
     @torch.no_grad()
     def sample_tokens(self, radar_cube, seeds_or_prior):
