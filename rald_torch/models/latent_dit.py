@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rald_torch.diffusion.edm import edm_sampler, karras_sigmas, stack_mod_table, unstack_mods
 from rald_torch.models.radar_encoder3d import RadarEncoder3D
 from rald_torch.nn.layers import (
     AdaLayerNorm,
@@ -323,6 +324,55 @@ class EDMPrecond(nn.Module):
             if isinstance(mod, LatentDiTBlock):
                 mod.use_int8_ff, mod.use_int8_attn = use_int8_ff, use_int8_attn
                 mod.int8 = {k: tree[f"{name}.{k}"] for k in ("ff", "attn1") if f"{name}.{k}" in tree}
+
+    def set_fast(self) -> None:
+        """JAX's ``model_eval``: the fused FF kernel."""
+        self.set_flags(use_fused_ff=True)
+
+    # the sampler's settings (eval.inference) and their defaults
+    SAMPLER = dict(num_steps=18, sigma_min=0.002, sigma_max=80.0, rho=7.0, s_churn=0.0,
+                   s_min=0.0, s_max=float("inf"), s_noise=1.0)
+
+    def schedule(self, device, num_steps, sigma_min, sigma_max, rho, **_):
+        """The Karras sigmas of the sampler and the stacked mod table of
+        their first ``num_steps`` (:func:`rald_torch.diffusion.edm.stack_mod_table`)."""
+        t_steps = karras_sigmas(num_steps, sigma_min, sigma_max, rho, device=device)
+        return t_steps, stack_mod_table(self.compute_mod_table(t_steps[:-1]))
+
+    def sample(self, latents, cond, act_scales=None, capture_states: bool = False, **kw):
+        """The no-churn Heun sampler from the prior ``latents``: the mod
+        table of the schedule, then :func:`~rald_torch.diffusion.edm.edm_sampler`
+        over it; ``act_scales`` the (num_steps, depth, 2) static int8 FF
+        table or None."""
+        _, table = self.schedule(latents.device, **kw)
+
+        def denoise_indexed(x, sigma, idx):
+            sc = None
+            if act_scales is not None:
+                row = act_scales[idx]  # (depth, 2)
+                sc = tuple((row[i, 0], row[i, 1]) for i in range(row.shape[0]))
+            return self.denoise_with_mods(x, sigma, unstack_mods(table[idx]), cond, act_scales=sc)
+
+        return edm_sampler(denoise_indexed, latents, capture_states=capture_states, **kw)
+
+    def sampler_calls(self, batch: int, num_steps: int, **_) -> tuple:
+        """(denoiser calls, their batch rows) of one sampling of ``batch``
+        samples: Heun's two a step, the last step's one."""
+        calls = 2 * num_steps - 1
+        return calls, calls * batch
+
+    def graph_modes(self) -> tuple:
+        """The fused and int8 modes a captured sampler is specific to."""
+        return tuple(getattr(self, f) for f in FLAGS + ("use_int8_ff", "use_int8_attn"))
+
+    def graph_tensors(self) -> list:
+        """The tensors a captured sampler reads in place: the parameters,
+        the buffers and the int8 side-tree."""
+        ts = [*self.parameters(), *self.buffers()]
+        for block in self.model.transformer_blocks:
+            for node in block.int8.values():
+                ts += node.values()
+        return ts
 
     def forward(self, x, sigma, radar_cube=None):
         """D(x; sigma) from a raw cube (or pre-encoded tokens): JAX's

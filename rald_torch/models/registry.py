@@ -4,11 +4,21 @@ Same variant names as the reference, so configs are interchangeable. The
 inference flags are arguments, as in JAX (:54-97); ``overrides`` replaces
 any constructor argument, as the YAML's ``ar_model.overrides`` /
 ``lidar_ae.overrides`` blocks do through JAX's ``model.copy(**overrides)``.
+
+Beside RaLD's family, which the JAX package shares, the port builds
+Hunyuan3D-2.0's shape generator (arXiv:2501.12202) at its published v2-0
+widths: the flow DiT ``hunyuan3d_dit_v2_0`` (:mod:`rald_torch.models.mmdit`)
+and the ShapeVAE decoder ``hunyuan3d_vae_v2_0``
+(:mod:`rald_torch.models.shape_vae`). Neither has a fused, folded or int8
+path: the kernel-flag arguments do not apply to them, and the generation
+engine refuses the configuration keys that ask for one.
 """
 from __future__ import annotations
 
 from rald_torch.models.latent_dit import EDMPrecond
+from rald_torch.models.mmdit import Hunyuan3DDiT
 from rald_torch.models.radar_encoder3d import RadarAutoencoder
+from rald_torch.models.shape_vae import ShapeVAE
 from rald_torch.models.vecset_vae import VecSetVAE
 
 
@@ -38,6 +48,20 @@ GENERATION_VARIANTS = {
     "kl_d512_m512_l32_d12_edm": dict(channels=32, depth=12),
 }
 
+# Hunyuan3D-2.0, hunyuan3d-dit-v2-0/config.yaml (n_latents: the ShapeVAE's num_latents)
+FLOW_VARIANTS = {
+    "hunyuan3d_dit_v2_0": dict(in_channels=64, context_in_dim=1536, hidden_size=1024,
+                               mlp_ratio=4.0, num_heads=16, depth=16, depth_single_blocks=32,
+                               qkv_bias=True, time_factor=1000.0, n_latents=3072),
+}
+
+# Hunyuan3D-2.0, hunyuan3d-vae-v2-0/config.yaml (the decoder half)
+SHAPE_VAE_VARIANTS = {
+    "hunyuan3d_vae_v2_0": dict(num_latents=3072, embed_dim=64, width=1024, heads=16,
+                               num_decoder_layers=16, num_freqs=8, include_pi=False,
+                               qkv_bias=False, scale_factor=0.9990943042622529),
+}
+
 
 # reference models_radar_encoder.py:423-446
 RADAR_ENCODER_VARIANTS = {
@@ -48,7 +72,9 @@ RADAR_ENCODER_VARIANTS = {
 
 
 def get_ae_model(name: str, N: int = 2048, overrides=None, use_fused_ff: bool = False,
-                 fold_decode_tail: bool = False) -> VecSetVAE:
+                 fold_decode_tail: bool = False):
+    if name in SHAPE_VAE_VARIANTS:
+        return ShapeVAE(**{**SHAPE_VAE_VARIANTS[name], **dict(overrides or {})})
     kw = dict(AE_VARIANTS[name])
     args = dict(
         depth=24, dim=kw["dim"], queries_dim=kw["dim"], output_dim=1, num_inputs=N,
@@ -62,8 +88,10 @@ def get_ae_model(name: str, N: int = 2048, overrides=None, use_fused_ff: bool = 
 
 
 def get_generation_model(name: str, configs, overrides=None, use_fused_ff: bool = False,
-                         use_fused_attn: bool = False) -> EDMPrecond:
-    """Build an EDM model from an ``ar_model.configs`` block."""
+                         use_fused_attn: bool = False):
+    """Build an EDM model from an ``ar_model.configs`` block, or a flow DiT."""
+    if name in FLOW_VARIANTS:
+        return Hunyuan3DDiT(**{**FLOW_VARIANTS[name], **dict(overrides or {})})
     kw = GENERATION_VARIANTS[name]
     args = dict(
         n_latents=512,

@@ -153,6 +153,14 @@ class VecSetVAE(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.to_outputs.weight.dtype
 
+    def set_fast(self) -> None:
+        """JAX's ``vae_eval``: the folded decode tail and the fused FF."""
+        self.set_flags(fold_decode_tail=True, use_fused_ff=True)
+
+    def from_sampler(self, z):
+        """The sampler's output as it is: RaLD samples in the decoder's scale."""
+        return z
+
     def set_flags(self, **flags) -> None:
         """Set ``use_fused_ff`` / ``fold_decode_tail``, in the blocks and
         their FF modules too, as JAX's ``vae.copy(**flags)`` does."""

@@ -60,6 +60,22 @@ meters over the ranks. With ``eval.inference.shard_queries`` (JAX
 instead: rank 0 samples the tokens and broadcasts them, and every decode of
 the grid, helper and refine queries is split over the ranks by query
 (:meth:`GenerationEngine.decode_logits`), bitwise the one-process result.
+
+The engine also runs Hunyuan3D-2.0's shape generator (arXiv:2501.12202),
+which the JAX package does not have: ``ar_model.name: hunyuan3d_dit_v2_0``
+(:mod:`rald_torch.models.mmdit`) and ``lidar_ae.name: hunyuan3d_vae_v2_0``
+(:mod:`rald_torch.models.shape_vae`). Each DiT brings its sampler, its
+settings and what its captured graphs depend on (``SAMPLER``, ``sample``,
+``sampler_calls``, ``graph_modes``, ``graph_tensors``), and each model its
+``set_fast``, so one path serves both: :meth:`condition` hands an image
+encoder's tokens to a DiT that projects them itself (``process_cond``),
+:meth:`sample_from_cond` runs the guided flow sampler
+(:mod:`rald_torch.diffusion.flow`; ``eval.inference.num_steps``, default
+50, and ``guidance_scale``, default 5.0) through the same sampler graphs,
+and the rest of :meth:`fused_eval_step` is unchanged; :meth:`flow_counts`
+counts the DiT's calls, their rows and the decoded queries. The flow DiT
+has no int8, fused-kernel or training path: those flags raise
+``ValueError``, :meth:`init_state` ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -80,10 +96,8 @@ from rald_torch.data.query import aug_query_helper
 from rald_torch.diffusion.edm import (
     edm_loss,
     edm_sampler,
-    karras_sigmas,
     sample_churn_noise,
     sample_prior_latents,
-    stack_mod_table,
     unstack_mods,
 )
 from rald_torch.diffusion.sampler_graph import SamplerGraphs
@@ -93,7 +107,12 @@ from rald_torch.eval.densify import densify_queries
 from rald_torch.eval.occupancy import occupancy_metrics
 from rald_torch.eval.ply import write_ply
 from rald_torch.eval.queries import build_query_grid
-from rald_torch.models.registry import get_ae_model, get_generation_model, get_radar_encoder_model
+from rald_torch.models.registry import (
+    FLOW_VARIANTS,
+    get_ae_model,
+    get_generation_model,
+    get_radar_encoder_model,
+)
 from rald_torch.ops.attn_kernel import merge_int8_trees, quantize_attn_tree
 from rald_torch.ops.geglu_kernel import quantize_ff_tree
 from rald_torch.models.latent_dit import FLAGS, LatentArrayTransformer
@@ -207,21 +226,27 @@ class GenerationEngine:
 
         mc = cfg.ar_model.configs
         self.use_radar_cond = bool(mc.get("use_radar_cond", True))
-        self.frozen_radar_enc = bool(mc.get("use_radar_enc", True)) and not bool(
-            mc.get("unfreeze_radar_enc", False)
-        )
         self.draw_prior = sample_prior_latents
         self.draw_churn = sample_churn_noise
         # the no-churn sampler's CUDA graphs (:meth:`sample_from_cond`)
         self._sampler_graphs = SamplerGraphs()
         ev = cfg.get("eval", {})
         inf = ev.get("inference", {})
+        # Hunyuan3D-2.0's flow DiT has no int8, fused-kernel or training path
+        self.eval_only = cfg.ar_model.name in FLOW_VARIANTS
+        if self.eval_only:
+            self._refuse_kernel_flags(inf)
 
         lidar = cfg.dataset.lidar
         self.model = get_generation_model(cfg.ar_model.name, mc, cfg.ar_model.get("overrides"))
         self.vae = get_ae_model(
             cfg.lidar_ae.name, N=int(lidar.num_samples), overrides=cfg.lidar_ae.get("overrides"),
         )
+        # a DiT that projects an image encoder's tokens itself takes them as
+        # its condition, and has no radar encoder
+        self.token_cond = hasattr(self.model, "process_cond")
+        self.frozen_radar_enc = (not self.token_cond and bool(mc.get("use_radar_enc", True))
+                                 and not bool(mc.get("unfreeze_radar_enc", False)))
         self.fast_inference = bool(cfg.system.get("fast_inference", True))
         # inference-only weights rounded to bf16 (JAX casts the f32 params
         # before sampling, so its int8 codes come from the rounded weights)
@@ -241,8 +266,8 @@ class GenerationEngine:
                 f"eval.inference.int8_attn must be bool, 'full' or 'vout', got {int8_attn!r}"
             )
         if self.fast_inference:
-            self.model.set_flags(use_fused_ff=True)
-            self.vae.set_flags(fold_decode_tail=True, use_fused_ff=True)
+            self.model.set_fast()
+            self.vae.set_fast()
         else:  # JAX's model_eval is then the model as built, int8 flags included
             int8_ff, int8_attn = self.model.use_int8_ff, self.model.use_int8_attn
         self.use_int8_ff, self.use_int8_attn = int8_ff, int8_attn
@@ -270,16 +295,10 @@ class GenerationEngine:
             radar.get("upsample_on_device", False)
         )
         self._upsample_tgt = (int(radar.get("tgt_a_dim", 0) or 0), int(radar.get("tgt_e_dim", 0) or 0))
-        self.sampler_kwargs = dict(
-            num_steps=int(inf.get("num_steps", 18)),
-            sigma_min=float(inf.get("sigma_min", 0.002)),
-            sigma_max=float(inf.get("sigma_max", 80.0)),
-            rho=float(inf.get("rho", 7.0)),
-            s_churn=float(inf.get("s_churn", 0.0)),
-            s_min=float(inf.get("s_min", 0.0)),
-            s_max=float(inf.get("s_max", float("inf"))),
-            s_noise=float(inf.get("s_noise", 1.0)),
-        )
+        # the DiT's calls and batch rows in the sampler (flow_counts)
+        self._flow_counts = {"evaluations": 0, "rows": 0}
+        # the DiT's sampler settings, each of its type, defaults the DiT's
+        self.sampler_kwargs = {k: type(v)(inf.get(k, v)) for k, v in self.model.SAMPLER.items()}
         self.fscore_tau = float(ev.get("fscore_tau", 0.1))
         # the ranks of a process group decode one batch's queries together
         self.shard_queries = bool(inf.get("shard_queries", False))
@@ -296,6 +315,18 @@ class GenerationEngine:
         self.min_lr = float(t.get("min_lr", 0.0))
         self.train_model = None  # built by init_state
         self.lr_schedule = None
+
+    def _refuse_kernel_flags(self, inf) -> None:
+        """The flow DiT has no int8 or fused-kernel path: the flags that ask
+        for one raise here, by name, instead of failing inside a block."""
+        cfg = self.cfg
+        over = dict(cfg.ar_model.get("overrides") or {})
+        asked = [f"eval.inference.{k}" for k in ("int8_ff", "int8_attn") if inf.get(k)]
+        asked += [f"ar_model.overrides.{k}" for k in FLAGS + ("use_int8_ff", "use_int8_attn")
+                  if over.get(k)]
+        if asked:
+            raise ValueError(f"ar_model {cfg.ar_model.name!r} has no int8 or fused-kernel path: "
+                             f"{', '.join(asked)} cannot apply to it")
 
     def modules(self) -> list:
         """The engine's models: the DiT, the VAE and the frozen radar encoder
@@ -387,6 +418,9 @@ class GenerationEngine:
         ``blr`` scaled by the world batch (the batch of every rank together,
         as JAX's CLI passes it), under the warmup-cosine schedule;
         clip, ``skip_nonfinite_updates`` and ``accum_iter`` from ``train``."""
+        if self.eval_only:
+            raise NotImplementedError(f"training {self.cfg.ar_model.name!r} is not ported: the "
+                                      "port samples and decodes it only")
         cfg, t = self.cfg, self.cfg.train
         lr = t.get("lr")
         if lr is None:
@@ -591,19 +625,20 @@ class GenerationEngine:
     def condition(self, radar_cube):
         """(B, T, C) condition tokens (or None) from a raw (B, R, A, E, C)
         cube, or, with the frozen encoder, from its :meth:`encode_radar`
-        output, as JAX's ``_sample_impl`` takes them."""
+        output, as JAX's ``_sample_impl`` takes them. With ``cond_type:
+        tokens`` the argument holds an encoder's (B, T, C) tokens, which the
+        DiT projects (``process_cond``)."""
         if radar_cube is None or not self.use_radar_cond:
             return None
         x = self._to_dev(radar_cube, None)
+        if self.token_cond:
+            return self.model.process_cond(x)
         if not self.frozen_radar_enc:
             x = self._maybe_upsample(x)
         return self.model.process_radar_cond(x)
 
     def _schedule(self):
-        kw = self.sampler_kwargs
-        t_steps = karras_sigmas(kw["num_steps"], kw["sigma_min"], kw["sigma_max"], kw["rho"],
-                                device=self.device)
-        return t_steps, stack_mod_table(self.model.compute_mod_table(t_steps[:-1]))
+        return self.model.schedule(self.device, **self.sampler_kwargs)
 
     @torch.no_grad()
     def sample_from_cond(self, cond, seeds_or_prior, capture_states: bool = False):
@@ -624,12 +659,18 @@ class GenerationEngine:
         on a key's first call, captured on its second, replayed after, and
         captured anew when a tensor it reads has moved (:meth:`_graph_guard`).
         The prior is drawn outside the graph; the tokens are a fresh tensor
-        either way. Everything else runs eagerly, as on the CPU."""
+        either way. Everything else runs eagerly, as on the CPU.
+
+        The flow DiT's sampler runs the same way (:meth:`_sample_table`).
+        Each call counts its DiT calls (:meth:`flow_counts`)."""
         m = self.model
         latents = self.draw_prior(seeds_or_prior, m.n_latents, m.channels, self.device)
         kw = self.sampler_kwargs
+        calls, rows = m.sampler_calls(latents.shape[0], **kw)
+        self._flow_counts["evaluations"] += calls
+        self._flow_counts["rows"] += rows
         graphs = self._sampler_graphs
-        if kw["s_churn"] > 0:
+        if kw.get("s_churn", 0) > 0:
             def noise(step):
                 return self.draw_churn(seeds_or_prior, step, m.n_latents, m.channels, self.device)
 
@@ -644,44 +685,39 @@ class GenerationEngine:
                       latents, cond)
 
     def _sample_table(self, latents, cond, capture_states: bool = False):
-        """The no-churn sampler from the prior ``latents``: the mod table of
-        the schedule, then :func:`edm_sampler` over it."""
-        m = self.model
-        _, table = self._schedule()
+        """The DiT's sampler without churn from the prior ``latents``
+        (``sample``: the AdaLN rows of every step at once, then the steps),
+        in the VAE's latent scale (``from_sampler``)."""
         acts = self._act_scales if self.use_int8_ff == "static" else None
-
-        def denoise_indexed(x, sigma, idx):
-            sc = None
-            if acts is not None:
-                row = acts[idx]  # (depth, 2)
-                sc = tuple((row[i, 0], row[i, 1]) for i in range(row.shape[0]))
-            return m.denoise_with_mods(x, sigma, unstack_mods(table[idx]), cond, act_scales=sc)
-
-        return edm_sampler(denoise_indexed, latents, capture_states=capture_states,
-                           **self.sampler_kwargs)
+        out = self.model.sample(latents, cond, act_scales=acts, capture_states=capture_states,
+                                **self.sampler_kwargs)
+        return self.vae.from_sampler(out)
 
     def _graph_key(self, latents, cond) -> tuple:
         """What a captured sampler is specific to: the prior's shape, the
-        condition's shape, strides and dtype (or None), the int8 and fused
-        modes, and the sampler's settings."""
-        m = self.model
+        condition's shape, strides and dtype (or None), the DiT's int8 and
+        fused modes, and the sampler's settings."""
         c = None if cond is None else (tuple(cond.shape), cond.stride(), cond.dtype)
-        modes = tuple(getattr(m, f) for f in FLAGS + ("use_int8_ff", "use_int8_attn"))
-        return tuple(latents.shape), c, modes, tuple(sorted(self.sampler_kwargs.items()))
+        return (tuple(latents.shape), c, self.model.graph_modes(),
+                tuple(sorted(self.sampler_kwargs.items())))
 
     def _graph_guard(self) -> tuple:
         """The storage addresses of the tensors a captured sampler reads in
-        place: the DiT's parameters and buffers, its int8 side-tree and the
-        activation scales. An in-place update keeps them; a new tensor
-        moves one, and the graph is captured anew."""
-        m = self.model
-        ts = [*m.parameters(), *m.buffers()]
-        for block in m.model.transformer_blocks:
-            for node in block.int8.values():
-                ts += node.values()
+        place: the DiT's (its parameters, buffers and any int8 side-tree)
+        and the activation scales. An in-place update keeps them; a new
+        tensor moves one, and the graph is captured anew."""
+        ts = self.model.graph_tensors()
         if self._act_scales is not None:
             ts.append(self._act_scales)
         return tuple(t.data_ptr() for t in ts)
+
+    def flow_counts(self) -> dict:
+        """What the DiT and the VAE did: ``evaluations`` (DiT calls of the
+        sampler: one an Euler step of the flow DiT), ``rows`` (their batch
+        rows, 2B a call under guidance) and ``queries_decoded`` (query
+        points the ShapeVAE scored), counted on the host from shapes, per
+        call whether it ran eagerly or as a graph replay."""
+        return {**self._flow_counts, "queries_decoded": getattr(self.vae, "queries_decoded", 0)}
 
     def sampler_graph_counts(self) -> dict:
         """How :meth:`sample_from_cond` calls were served: ``captures``

@@ -213,7 +213,8 @@ def test_host_readers_report_in_their_cells():
     tiny = {"eval_live_b1": "tiny_eval_b2", "eval_offline_b8": "tiny_eval_b2",
             "train_stage2_b8": "tiny_train_b2"}
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    entries = [dict(m, workloads=sorted({tiny[w] for w in m["workloads"]}))
+    # the Hunyuan3D cell's readers run at a tiny size in test_torch_hunyuan3d.py
+    entries = [dict(m, workloads=sorted({tiny[w] for w in m["workloads"] if w in tiny}))
                for m in bench["per_layer"] if m["name"] in HOST_READERS]
     assert len(entries) == len(HOST_READERS)
     assert all(m["source"] == "program_span" and m["unit"] == "ms" for m in entries)
