@@ -3771,7 +3771,8 @@ def _dist_pair(backend: str, devices: tuple, batch_path: Path, ref: dict, infer_
             "world1_step_ms": [s["ms"] for s in ref["steps"]], "world1_peak_gib": ref["peak_gib"],
             "rank_all_reduce_ms": [[s["split_ms"]["all_reduce"] for s in o["steps"]["steps"]]
                                    for o in outs],
-            "world1_all_reduce_ms": [s["split_ms"]["all_reduce"] for s in ref["steps"]],
+            # one process has no all-reduce stage (its steps may replay as graphs)
+            "world1_all_reduce_ms": [s["split_ms"].get("all_reduce", 0.0) for s in ref["steps"]],
             "loss": [s["loss"] for s in r0], "world1_loss": [s["loss"] for s in ref["steps"]],
             "grad_norm": [s["grad_norm"] for s in r0],
             "world1_grad_norm": [s["grad_norm"] for s in ref["steps"]], **worst,

@@ -163,6 +163,22 @@ def edm_sampler(
     return x_final, (idxs, torch.stack([s for _, s in seen]))
 
 
+def edm_draws(y: torch.Tensor, generator: Optional[torch.Generator] = None,
+              rnd: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None) -> tuple:
+    """:func:`edm_loss`'s two unit-normal draws for ``y``: ``rnd`` of shape
+    (B, 1, 1), then ``noise`` of ``y``'s shape, each from ``generator`` (on
+    ``y``'s device) unless given; under a process group each is drawn at the
+    global batch and this rank keeps its rows
+    (:func:`rald_torch.parallel.draw_rows`), as JAX draws at the sharded
+    batch's global shape."""
+    dev = y.device
+    if rnd is None:
+        rnd = draw_rows(torch.randn, (y.shape[0], 1, 1), generator=generator, device=dev)
+    if noise is None:
+        noise = draw_rows(torch.randn, y.shape, generator=generator, device=dev)
+    return rnd, noise
+
+
 def edm_loss(
     denoise_fn: Callable,
     y: torch.Tensor,
@@ -177,16 +193,9 @@ def edm_loss(
     shape (B, 1, 1), ``sigma = exp(rnd * p_std + p_mean)``, noise ``N(0, 1)
     * sigma`` of ``y``'s shape, loss ``mean(weight * (D(y + n, sigma) -
     y)^2)`` in float32 with ``weight = (sigma^2 + sigma_data^2) / (sigma *
-    sigma_data)^2``. The two unit-normal draws come from ``generator`` (on
-    ``y``'s device), in that order, unless given as ``rnd`` / ``noise``;
-    under a process group each is drawn at the global batch and this rank
-    keeps its rows (:func:`rald_torch.parallel.draw_rows`), as JAX draws at
-    the sharded batch's global shape."""
+    sigma_data)^2``. The two unit-normal draws are :func:`edm_draws`'."""
     dev = y.device
-    if rnd is None:
-        rnd = draw_rows(torch.randn, (y.shape[0], 1, 1), generator=generator, device=dev)
-    if noise is None:
-        noise = draw_rows(torch.randn, y.shape, generator=generator, device=dev)
+    rnd, noise = edm_draws(y, generator, rnd, noise)
     sigma = torch.exp(rnd.to(dev, torch.float32) * p_std + p_mean)
     weight = (sigma ** 2 + sigma_data ** 2) / (sigma * sigma_data) ** 2
     n = noise.to(dev, torch.float32) * sigma

@@ -127,9 +127,10 @@ class AEEngine:
         params, working = masters_of(model.to(self.device), self._dtype_of(model))
         model.train().requires_grad_(True)  # JAX's deterministic=False: drop-path draws
         self.train_model = model
+        # the stage-1 step always runs eagerly: AdamW keeps its host-side counters
         return TrainState(params, self.lr_schedule, clip_grad=self.clip_grad,
                           skip_nonfinite=self.skip_nonfinite, accum_iter=self.accum_iter,
-                          ema_rate=self.ema_rate, working=working)
+                          ema_rate=self.ema_rate, working=working, capturable=False)
 
     @staticmethod
     def param_count(state: TrainState) -> int:

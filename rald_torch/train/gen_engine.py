@@ -94,6 +94,7 @@ from rald_torch import geometry as geo
 from rald_torch import resolve_device
 from rald_torch.data.query import aug_query_helper
 from rald_torch.diffusion.edm import (
+    edm_draws,
     edm_loss,
     edm_sampler,
     sample_churn_noise,
@@ -127,6 +128,7 @@ from rald_torch.train.metrics import MetricLogger, epoch_1000x
 from rald_torch.train.profiler import StageTimer, span, synced_ms
 from rald_torch.train.schedule import scale_base_lr, warmup_cosine_schedule
 from rald_torch.train.state import TrainState, global_norm, masters_of
+from rald_torch.train.step_graph import TrainGraphs
 
 
 def bce_with_logits(logits, labels, mask=None):
@@ -230,6 +232,8 @@ class GenerationEngine:
         self.draw_churn = sample_churn_noise
         # the no-churn sampler's CUDA graphs (:meth:`sample_from_cond`)
         self._sampler_graphs = SamplerGraphs()
+        # the training step's CUDA graphs (:meth:`train_step`)
+        self._train_graphs = TrainGraphs()
         ev = cfg.get("eval", {})
         inf = ev.get("inference", {})
         # Hunyuan3D-2.0's flow DiT has no int8, fused-kernel or training path
@@ -488,23 +492,34 @@ class GenerationEngine:
         (this rank's rows). Under a process group the loss and the gradients
         are the means over the ranks (one all-reduce), as JAX's come out of a
         step on the sharded global batch; every rank then holds the same."""
-        model = self.train_model
-        if radar_cube is not None and not self.frozen_radar_enc:
-            with self._stage(timings, "upsample"):
-                radar_cube = self._maybe_upsample(radar_cube)
+        radar_cube = self._train_upsample(radar_cube, timings)
         with self._stage(timings, "forward_backward"):
-            with span("forward"):
-                loss = edm_loss(lambda x, sigma: model(x, sigma, radar_cube),
-                                self._to_dev(latents), generator, rnd, noise)
-            with span("backward"):
-                names, params = zip(*model.named_parameters())
-                grads = torch.autograd.grad(loss, params, allow_unused=True)
-                grads = {k: torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
-                         for k, p, g in zip(names, params, grads)}
-        loss = loss.detach()
+            loss, grads = self._forward_backward(self._to_dev(latents), radar_cube, rnd, noise,
+                                                 generator)
         with self._stage(timings, "all_reduce"):
             all_reduce_mean_([loss, *grads.values()])
         return loss, grads
+
+    def _train_upsample(self, radar_cube, timings):
+        """The in-graph encoder's cube, upsampled on the device."""
+        if radar_cube is not None and not self.frozen_radar_enc:
+            with self._stage(timings, "upsample"):
+                radar_cube = self._maybe_upsample(radar_cube)
+        return radar_cube
+
+    def _forward_backward(self, latents, radar_cube, rnd=None, noise=None, generator=None):
+        """The EDM loss of the training DiT on device latents and its float32
+        gradients by name, on this rank's rows."""
+        model = self.train_model
+        with span("forward"):
+            loss = edm_loss(lambda x, sigma: model(x, sigma, radar_cube), latents, generator,
+                            rnd, noise)
+        with span("backward"):
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = {k: torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+                     for k, p, g in zip(names, params, grads)}
+        return loss.detach(), grads
 
     def train_step(self, state: TrainState, latents, radar_cube,
                    generator: Optional[torch.Generator] = None, rnd=None, noise=None,
@@ -515,14 +530,76 @@ class GenerationEngine:
         ranks). ``timings``, when a dict, gets the synchronised ms of
         ``upsample``, ``forward_backward``, ``all_reduce`` and ``optimizer``
         (clip + AdamW + EMA + working-copy refresh), and each one's host ms
-        under ``<stage>.host`` (:func:`synced_ms`)."""
+        under ``<stage>.host`` (:func:`synced_ms`).
+
+        On a CUDA device, without a process group and with a
+        :attr:`TrainState.device_only` state, the step runs as two captured
+        CUDA graphs (:class:`rald_torch.train.step_graph.TrainGraphs`): eager
+        on a key's first step, captured on its second, replayed after, and
+        captured anew when a tensor they read has moved
+        (:meth:`_train_guard`). The EDM draws are then made eagerly first,
+        from ``generator`` unless given; the graphs replay inside the
+        ``forward_backward`` and ``optimizer`` stages, and there is no
+        ``all_reduce`` stage. :meth:`train_graph_counts` says how steps were
+        served."""
         with span("train_step"):
+            latents = self._to_dev(latents)
+            step = self._train_graphs.lookup(
+                state, latents, self._train_key(latents, radar_cube, rnd, noise),
+                lambda: self._train_guard(state), self._forward_backward, self._graph_update)
+            if step is not None:
+                loss, g_norm = self._replay_train_step(step, state, latents, radar_cube,
+                                                       generator, rnd, noise, timings)
+                return state, {"loss": loss, "grad_norm": g_norm}
             loss, grads = self.loss_and_grads(latents, radar_cube, generator, rnd, noise, timings)
             with self._stage(timings, "optimizer"):
                 with span("grad_norm"):
                     g_norm = global_norm(grads.values())
                 state.apply_gradients(grads)
         return state, {"loss": loss, "grad_norm": g_norm}
+
+    def _replay_train_step(self, step, state, latents, radar_cube, generator, rnd, noise,
+                           timings) -> tuple:
+        """:meth:`train_step` through a captured step: ``(loss, grad_norm)``."""
+        radar_cube = self._train_upsample(radar_cube, timings)
+        with self._stage(timings, "forward_backward"):
+            rnd, noise = edm_draws(latents, generator, rnd, noise)
+            loss = step.forward_backward((latents, radar_cube, rnd, noise), state)
+        with self._stage(timings, "optimizer"):
+            g_norm = state.replay_update(step.update)
+        return loss, g_norm
+
+    @staticmethod
+    def _graph_update(state: TrainState, grads: dict) -> torch.Tensor:
+        """The optimizer stage's device work, as the second graph captures it:
+        the global norm, taken once for the clip and the log, then
+        :meth:`TrainState.device_update`."""
+        with span("grad_norm"):
+            g_norm = global_norm(grads.values())
+        state.device_update(grads, g_norm)
+        return g_norm
+
+    @staticmethod
+    def _train_key(*tensors) -> tuple:
+        """What a captured step is specific to: the shape, strides and dtype of
+        the latents, the condition input and the injected draws (None where
+        absent)."""
+        return tuple(None if t is None else (tuple(t.shape), t.stride(), t.dtype)
+                     for t in tensors)
+
+    def _train_guard(self, state: TrainState) -> tuple:
+        """The storage addresses of the training model's parameters and
+        buffers, which a captured step reads in place, and the state's own
+        guard (:meth:`TrainState.graph_guard`). An in-place update keeps them;
+        a new tensor moves one, and the step is captured anew."""
+        m = self.train_model
+        return (tuple(t.data_ptr() for t in (*m.parameters(), *m.buffers()))
+                + state.graph_guard())
+
+    def train_graph_counts(self) -> dict:
+        """How :meth:`train_step` calls were served: ``captures`` (captured,
+        then replayed once), ``replays`` and ``eager``."""
+        return dict(self._train_graphs.counts)
 
     def train_one_epoch(self, state: TrainState, loader, epoch: int, log_writer=None,
                         print_fn=print):

@@ -10,10 +10,15 @@ the same semantics:
 
 - clip: scale by ``max_norm / g_norm`` only when ``g_norm >= max_norm``, as
   ``optax.clip_by_global_norm`` does (``torch.nn.utils.clip_grad_norm_``
-  adds 1e-6 and clips below the norm, so it is not used);
+  adds 1e-6 and clips below the norm, so it is not used), decided on the
+  device (:func:`clip_by_global_norm_`: no host read);
 - AdamW: ``torch.optim.AdamW`` with its ``lr`` set to ``schedule(count)``
   before each applied update, ``count`` the updates applied so far (from
-  0), which is optax's arithmetic in another order of roundings;
+  0), which is optax's arithmetic in another order of roundings. On a
+  CUDA device it is built ``capturable`` (unless the engine never replays
+  an update, as stage 1's), with its ``step`` counters on the device and
+  ``lr`` a device tensor filled before each update, so that a CUDA graph
+  can replay an update (:meth:`TrainState.replay_update`);
 - ``skip_nonfinite`` (``apply_if_finite(max_consecutive_errors=100)``): a
   non-finite gradient leaves params and Adam moments as they were, unless
   more than 100 came in a row; ``step`` and the EMA still move;
@@ -49,10 +54,14 @@ class TrainState:
         accum_iter: int = 1,
         ema_rate: float = 0.999,
         working: Optional[dict] = None,
+        capturable: bool = True,
     ):
         """``params``: name -> float32 tensor, updated in place. ``working``:
         name -> the model's parameter of the same name, where it is another
-        tensor (a bf16 copy); None where ``params`` are the model's own."""
+        tensor (a bf16 copy); None where ``params`` are the model's own.
+        ``capturable``: AdamW's capturable arithmetic where ``params`` are on
+        a CUDA device; False for an engine that never replays an update,
+        which then keeps the host-side step counters (fewer launches)."""
         self.params = params
         # real copies, not aliases
         self.ema_params = {k: v.detach().clone() for k, v in params.items()}
@@ -62,22 +71,43 @@ class TrainState:
         self.accum_iter = int(accum_iter)
         self.ema_rate = float(ema_rate)
         self.working = working
+        self.weight_decay = float(weight_decay)
         self.step = 0
         self.count = 0  # updates AdamW applied: the schedule's argument
         self.mini_step = 0
         self.notfinite_count = self.total_notfinite = 0
         tensors = list(params.values())
         self.acc_grads = [torch.zeros_like(p) for p in tensors] if self.accum_iter > 1 else None
-        self.optimizer = torch.optim.AdamW(tensors, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                                           weight_decay=weight_decay)
+        # on the card every update of such a state runs the capturable arithmetic,
+        # replayed or not
+        self.capturable = capturable and tensors[0].is_cuda
+        step_device = tensors[0].device if self.capturable else "cpu"
+        lr = torch.zeros((), device=step_device) if self.capturable else 0.0
+        self.optimizer = torch.optim.AdamW(tensors, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                           weight_decay=weight_decay,
+                                           capturable=self.capturable)
         for p in tensors:  # the moments exist from the start, as optax's do
-            self.optimizer.state[p] = {"step": torch.tensor(0.0),
+            self.optimizer.state[p] = {"step": torch.zeros((), device=step_device),
                                        "exp_avg": torch.zeros_like(p),
                                        "exp_avg_sq": torch.zeros_like(p)}
 
     def lr(self) -> float:
         """The learning rate of the next applied update."""
         return float(self.schedule(self.count))
+
+    def _set_lr(self) -> None:
+        """Hand :meth:`lr` to AdamW: into its device tensor when capturable."""
+        group = self.optimizer.param_groups[0]
+        if self.capturable:
+            group["lr"].fill_(self.lr())
+        else:
+            group["lr"] = self.lr()
+
+    @property
+    def device_only(self) -> bool:
+        """Whether every call applies an update that is device work alone:
+        no finiteness test (a host decision) and no accumulation."""
+        return not self.skip_nonfinite and self.acc_grads is None
 
     def apply_gradients(self, grads: dict) -> bool:
         """One optax ``apply_gradients`` with float32 ``grads`` (name ->
@@ -98,10 +128,7 @@ class TrainState:
                 torch._foreach_mul_(self.acc_grads, 0.0)
             self.mini_step = (n + 1) % self.accum_iter
         self.step += 1
-        with span("ema"):
-            torch._foreach_mul_(list(self.ema_params.values()), self.ema_rate)
-            torch._foreach_add_(list(self.ema_params.values()), list(self.params.values()),
-                                alpha=1.0 - self.ema_rate)
+        self._ema()
         return applied
 
     def _update(self, g: list) -> bool:
@@ -112,23 +139,65 @@ class TrainState:
             self.total_notfinite += 0 if finite else 1
             if not finite and self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
                 return False
+        self._set_lr()
+        self._apply(g)
+        self.count += 1
+        return True
+
+    def _apply(self, g: list, g_norm: Optional[torch.Tensor] = None) -> None:
+        """Clip by ``g_norm`` (the global norm of ``g``; taken here when
+        None), AdamW at the lr :meth:`_set_lr` handed it, the working-copy
+        refresh: device work only."""
         if self.clip_grad is not None:
             with span("clip"):
-                g_norm = float(global_norm(g))
-                if not g_norm < self.clip_grad:
-                    torch._foreach_div_(g, g_norm)
-                    torch._foreach_mul_(g, self.clip_grad)
+                clip_by_global_norm_(g, global_norm(g) if g_norm is None else g_norm,
+                                     self.clip_grad)
         with span("adamw"):
             for p, t in zip(self.params.values(), g):
                 p.grad = t
-            self.optimizer.param_groups[0]["lr"] = self.lr()
             self.optimizer.step()
             for p in self.params.values():
                 p.grad = None
-        self.count += 1
         with span("refresh"):
             self.refresh_working()
-        return True
+
+    def _ema(self) -> None:
+        with span("ema"):
+            torch._foreach_mul_(list(self.ema_params.values()), self.ema_rate)
+            torch._foreach_add_(list(self.ema_params.values()), list(self.params.values()),
+                                alpha=1.0 - self.ema_rate)
+
+    def device_update(self, grads: dict, g_norm: torch.Tensor) -> None:
+        """The device work of :meth:`apply_gradients` on a :attr:`device_only`
+        state, ``g_norm`` the global norm of ``grads``: clip, AdamW, refresh,
+        EMA. It reads the lr from AdamW's tensor and moves no host counter,
+        so a CUDA graph can capture it (:meth:`replay_update`)."""
+        self._apply([grads[k] for k in self.params], g_norm)
+        self._ema()
+
+    def replay_update(self, replay: Callable):
+        """One :meth:`apply_gradients` of a :attr:`device_only` state whose
+        device work is ``replay()``, a captured :meth:`device_update`: the lr
+        is handed over before it and the counters advance after it, on the
+        host. Returns what ``replay`` returns."""
+        self._set_lr()
+        out = replay()
+        self.count += 1
+        self.step += 1
+        return out
+
+    def graph_guard(self) -> tuple:
+        """What a captured :meth:`device_update` depends on: the storage
+        addresses of the tensors it reads and writes in place (masters, EMA,
+        working copy, Adam's moments and steps, the lr) and the constants it
+        holds (clip, EMA rate, weight decay)."""
+        st = self.optimizer.state
+        ts = [*self.params.values(), *self.ema_params.values(), *(self.working or {}).values(),
+              self.optimizer.param_groups[0]["lr"]]
+        for p in self.params.values():
+            ts += [st[p]["exp_avg"], st[p]["exp_avg_sq"], st[p]["step"]]
+        addrs = tuple(t.data_ptr() for t in ts if torch.is_tensor(t))
+        return addrs + (self.clip_grad, self.ema_rate, self.weight_decay)
 
     @torch.no_grad()
     def refresh_working(self) -> None:
@@ -192,3 +261,14 @@ def masters_of(model: torch.nn.Module, dtype: torch.dtype) -> tuple:
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over all tensors (``optax.global_norm``)."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+
+
+def clip_by_global_norm_(g: list, g_norm: torch.Tensor, max_norm: float) -> None:
+    """``optax.clip_by_global_norm`` in place, decided on the device: each
+    tensor divided by ``where(g_norm < max_norm, 1, g_norm)``, then multiplied
+    by ``where(g_norm < max_norm, 1, max_norm)``. A division or product by 1
+    is exact, so both branches give the bits of ``g`` or of ``g / g_norm *
+    max_norm``, as a host read of ``g_norm`` and a branch on it would."""
+    below = g_norm < max_norm
+    torch._foreach_div_(g, torch.where(below, 1.0, g_norm))
+    torch._foreach_mul_(g, torch.where(below, 1.0, max_norm))
