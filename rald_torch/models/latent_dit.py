@@ -189,6 +189,8 @@ class LatentArrayTransformer(nn.Module):
 class EDMPrecond(nn.Module):
     """EDM-preconditioned conditional denoiser over the latent token set."""
 
+    EVAL_ONLY = False  # it trains (the engine's init_state)
+
     def __init__(
         self,
         n_latents: int = 512,
@@ -231,9 +233,6 @@ class EDMPrecond(nn.Module):
         self.cond_type = cond_type
         self.use_radar_enc, self.unfreeze_radar_enc = use_radar_enc, unfreeze_radar_enc
         self.radar_token_channel = radar_token_channel
-        # counts set_flags / set_int8 calls: what was captured under an
-        # older revision (the engine's sampler graphs) is stale
-        self.revision = 0
         self.model = LatentArrayTransformer(
             channels, 256, n_heads, d_head, depth,
             context_dim=radar_token_channel if cond_type == "radar" else None,
@@ -306,7 +305,6 @@ class EDMPrecond(nn.Module):
         for k in flags:
             if k not in FLAGS:
                 raise TypeError(f"EDMPrecond.set_flags: unknown flag {k!r}")
-        self.revision += 1
         for mod in self.modules():
             if isinstance(mod, (EDMPrecond, LatentArrayTransformer, LatentDiTBlock)):
                 for k, v in flags.items():
@@ -319,7 +317,6 @@ class EDMPrecond(nn.Module):
         takes its nodes and routes its FF / self-attention by the flags
         (values as ``eval.inference.int8_ff`` / ``int8_attn``)."""
         self.use_int8_ff, self.use_int8_attn = use_int8_ff, use_int8_attn
-        self.revision += 1
         for name, mod in self.named_modules():
             if isinstance(mod, LatentDiTBlock):
                 mod.use_int8_ff, mod.use_int8_attn = use_int8_ff, use_int8_attn

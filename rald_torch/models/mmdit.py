@@ -225,9 +225,11 @@ class Hunyuan3DDiT(nn.Module):
     ``n_latents`` is the latent set's size (the ShapeVAE's ``num_latents``),
     which the engine draws the prior at; ``dtype`` as the other models'."""
 
-    # no int8 path (the engine reads the modes), and the sampler's settings
+    # no int8 path (the engine reads the modes), no fused-kernel or training
+    # path (the engine refuses them), and the sampler's settings
     # (eval.inference) with their defaults, the public pipeline's
     use_int8_ff = use_int8_attn = False
+    EVAL_ONLY = True
     SAMPLER = dict(num_steps=50, guidance_scale=5.0)
 
     def __init__(
@@ -250,8 +252,6 @@ class Hunyuan3DDiT(nn.Module):
         self.compute_dtype = dtype
         self.n_latents, self.channels = n_latents, in_channels
         self.context_in_dim, self.hidden_size, self.time_factor = context_in_dim, hidden_size, time_factor
-        # the engine's sampler graphs are keyed on it; this model has no flags to change it
-        self.revision = 0
         self.latent_in = nn.Linear(in_channels, hidden_size)
         self.time_in = MLPEmbedder(256, hidden_size)
         self.cond_in = nn.Linear(context_in_dim, hidden_size)

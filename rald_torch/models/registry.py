@@ -87,6 +87,11 @@ def get_ae_model(name: str, N: int = 2048, overrides=None, use_fused_ff: bool = 
     return VecSetVAE(**args)
 
 
+def generation_model_class(name: str) -> type:
+    """The class :func:`get_generation_model` builds for ``name``."""
+    return Hunyuan3DDiT if name in FLOW_VARIANTS else EDMPrecond
+
+
 def get_generation_model(name: str, configs, overrides=None, use_fused_ff: bool = False,
                          use_fused_attn: bool = False):
     """Build an EDM model from an ``ar_model.configs`` block, or a flow DiT."""

@@ -74,8 +74,13 @@ encoder's tokens to a DiT that projects them itself (``process_cond``),
 50, and ``guidance_scale``, default 5.0) through the same sampler graphs,
 and the rest of :meth:`fused_eval_step` is unchanged; :meth:`flow_counts`
 counts the DiT's calls, their rows and the decoded queries. The flow DiT
-has no int8, fused-kernel or training path: those flags raise
-``ValueError``, :meth:`init_state` ``NotImplementedError``.
+has no int8, fused-kernel or training path (its ``EVAL_ONLY``): those
+flags raise ``ValueError``, :meth:`init_state` ``NotImplementedError``.
+
+On the card the no-churn sampler and the training step replay as captured
+CUDA graphs, each through a :class:`~rald_torch.train.cuda_graphs.GraphCache`;
+a graph is stale when its key (:func:`tensors_key`, modes, settings) or its
+guard (:func:`addresses` of what it reads in place) changes.
 """
 from __future__ import annotations
 
@@ -101,7 +106,6 @@ from rald_torch.diffusion.edm import (
     sample_prior_latents,
     unstack_mods,
 )
-from rald_torch.diffusion.sampler_graph import SamplerGraphs
 from rald_torch.dsp.cfar_points import resize_linear_align_corners
 from rald_torch.eval.chamfer import batched_cd_fscore_graph, chamfer_and_fscore_batch
 from rald_torch.eval.densify import densify_queries
@@ -109,7 +113,7 @@ from rald_torch.eval.occupancy import occupancy_metrics
 from rald_torch.eval.ply import write_ply
 from rald_torch.eval.queries import build_query_grid
 from rald_torch.models.registry import (
-    FLOW_VARIANTS,
+    generation_model_class,
     get_ae_model,
     get_generation_model,
     get_radar_encoder_model,
@@ -120,15 +124,16 @@ from rald_torch.models.latent_dit import FLAGS, LatentArrayTransformer
 from rald_torch.parallel.dist import (
     all_gather_rows,
     all_reduce_mean_,
+    backend,
     broadcast_,
     is_main_process,
     world_rank,
 )
+from rald_torch.train.cuda_graphs import GraphCache
 from rald_torch.train.metrics import MetricLogger, epoch_1000x
 from rald_torch.train.profiler import StageTimer, span, synced_ms
 from rald_torch.train.schedule import scale_base_lr, warmup_cosine_schedule
 from rald_torch.train.state import TrainState, global_norm, masters_of
-from rald_torch.train.step_graph import TrainGraphs
 
 
 def bce_with_logits(logits, labels, mask=None):
@@ -201,6 +206,16 @@ def _round_to_bf16(module: nn.Module) -> None:
         t.copy_(_bf16_value(t))
 
 
+def tensors_key(*tensors) -> tuple:
+    """Each tensor's shape, strides and dtype (None where absent)."""
+    return tuple(None if t is None else (tuple(t.shape), t.stride(), t.dtype) for t in tensors)
+
+
+def addresses(tensors) -> tuple:
+    """The tensors' storage addresses."""
+    return tuple(t.data_ptr() for t in tensors)
+
+
 def torch_dtype(name):
     """A model's own ``dtype`` override (a torch dtype or its name) or None."""
     return getattr(torch, name) if isinstance(name, str) else name
@@ -230,14 +245,16 @@ class GenerationEngine:
         self.use_radar_cond = bool(mc.get("use_radar_cond", True))
         self.draw_prior = sample_prior_latents
         self.draw_churn = sample_churn_noise
-        # the no-churn sampler's CUDA graphs (:meth:`sample_from_cond`)
-        self._sampler_graphs = SamplerGraphs()
-        # the training step's CUDA graphs (:meth:`train_step`)
-        self._train_graphs = TrainGraphs()
+        # the no-churn sampler's CUDA graphs (:meth:`sample_from_cond`): the
+        # dataset loop's batch and its short last batch, with room to spare
+        self._sampler_graphs = GraphCache("sample_graph", 4)
+        # the training step's CUDA graphs (:meth:`train_step`): the training
+        # loader drops its short last batch
+        self._train_graphs = GraphCache("train_graph", 1)
         ev = cfg.get("eval", {})
         inf = ev.get("inference", {})
         # Hunyuan3D-2.0's flow DiT has no int8, fused-kernel or training path
-        self.eval_only = cfg.ar_model.name in FLOW_VARIANTS
+        self.eval_only = generation_model_class(cfg.ar_model.name).EVAL_ONLY
         if self.eval_only:
             self._refuse_kernel_flags(inf)
 
@@ -344,7 +361,7 @@ class GenerationEngine:
         side-tree is rebuilt from the values as given (f32), not from the
         cast copy. ``radar_enc_state_dict``: the frozen encoder's
         ``encoder.*`` entries (:func:`rald_torch.train.checkpoint.split_radar_autoencoder`).
-        Drops the sampler's CUDA graphs."""
+        Drops the sampler's CUDA graphs, and their memory pools with them."""
         self._sampler_graphs.clear()
         if radar_enc_state_dict is not None and self.radar_enc is None:
             raise ValueError("radar_enc_state_dict given, but this engine has no frozen radar encoder")
@@ -362,11 +379,10 @@ class GenerationEngine:
     def _quantize(self, state_dict) -> None:
         """Build the int8 side-tree of the DiT from its weights, once per
         weight set (the JAX engine rebuilds the same numbers in every
-        sampling call), and hand it to the model. Drops the sampler's CUDA
-        graphs: the side-tree's tensors are new."""
+        sampling call), and hand it to the model. Its tensors are new, so a
+        captured sampler's guard no longer holds (:meth:`_graph_guard`)."""
         if not (self.use_int8_ff or self.use_int8_attn):
             return
-        self._sampler_graphs.clear()
         tree = quantize_ff_tree(state_dict) if self.use_int8_ff else {}
         if self.use_int8_attn:
             tree = merge_int8_trees(tree, quantize_attn_tree(state_dict))
@@ -534,58 +550,59 @@ class GenerationEngine:
 
         On a CUDA device, without a process group and with a
         :attr:`TrainState.device_only` state, the step runs as two captured
-        CUDA graphs (:class:`rald_torch.train.step_graph.TrainGraphs`): eager
-        on a key's first step, captured on its second, replayed after, and
-        captured anew when a tensor they read has moved
-        (:meth:`_train_guard`). The EDM draws are then made eagerly first,
-        from ``generator`` unless given; the graphs replay inside the
-        ``forward_backward`` and ``optimizer`` stages, and there is no
-        ``all_reduce`` stage. :meth:`train_graph_counts` says how steps were
-        served."""
+        CUDA graphs (:meth:`_step_fns`): eager on a key's first step,
+        captured on its second, replayed after, and captured anew when a
+        tensor they read has moved (:meth:`_train_guard`). The EDM draws are
+        then made eagerly first, from ``generator`` unless given, so the
+        graphs hold no RNG; the graphs replay inside the ``forward_backward``
+        and ``optimizer`` stages, and there is no ``all_reduce`` stage.
+        :meth:`train_graph_counts` says how steps were served."""
         with span("train_step"):
             latents = self._to_dev(latents)
-            step = self._train_graphs.lookup(
-                state, latents, self._train_key(latents, radar_cube, rnd, noise),
-                lambda: self._train_guard(state), self._forward_backward, self._graph_update)
-            if step is not None:
-                loss, g_norm = self._replay_train_step(step, state, latents, radar_cube,
-                                                       generator, rnd, noise, timings)
-                return state, {"loss": loss, "grad_norm": g_norm}
-            loss, grads = self.loss_and_grads(latents, radar_cube, generator, rnd, noise, timings)
+            graphs, step = self._train_graphs, None
+            if graphs.applies(latents) and backend() is None and state.device_only:
+                step = graphs.lookup(tensors_key(latents, radar_cube, rnd, noise),
+                                     self._train_guard(state), self._step_fns(state))
+            if step is None:
+                return graphs.eager(self._eager_train_step, state, latents, radar_cube,
+                                    generator, rnd, noise, timings)
+            radar_cube = self._train_upsample(radar_cube, timings)
+            with self._stage(timings, "forward_backward"):
+                rnd, noise = edm_draws(latents, generator, rnd, noise)
+                loss = step.replay(0, latents, radar_cube, rnd, noise)
             with self._stage(timings, "optimizer"):
-                with span("grad_norm"):
-                    g_norm = global_norm(grads.values())
-                state.apply_gradients(grads)
+                g_norm = state.replay_update(lambda: step.replay(1))
         return state, {"loss": loss, "grad_norm": g_norm}
 
-    def _replay_train_step(self, step, state, latents, radar_cube, generator, rnd, noise,
-                           timings) -> tuple:
-        """:meth:`train_step` through a captured step: ``(loss, grad_norm)``."""
-        radar_cube = self._train_upsample(radar_cube, timings)
-        with self._stage(timings, "forward_backward"):
-            rnd, noise = edm_draws(latents, generator, rnd, noise)
-            loss = step.forward_backward((latents, radar_cube, rnd, noise), state)
+    def _eager_train_step(self, state, latents, radar_cube, generator, rnd, noise, timings):
+        """:meth:`train_step` as it runs without graphs."""
+        loss, grads = self.loss_and_grads(latents, radar_cube, generator, rnd, noise, timings)
         with self._stage(timings, "optimizer"):
-            g_norm = state.replay_update(step.update)
-        return loss, g_norm
+            with span("grad_norm"):
+                g_norm = global_norm(grads.values())
+            state.apply_gradients(grads)
+        return state, {"loss": loss, "grad_norm": g_norm}
 
-    @staticmethod
-    def _graph_update(state: TrainState, grads: dict) -> torch.Tensor:
-        """The optimizer stage's device work, as the second graph captures it:
-        the global norm, taken once for the clip and the log, then
-        :meth:`TrainState.device_update`."""
-        with span("grad_norm"):
-            g_norm = global_norm(grads.values())
-        state.device_update(grads, g_norm)
-        return g_norm
+    def _step_fns(self, state: TrainState) -> tuple:
+        """A captured step's two graphs: forward + backward (the loss; the
+        f32 gradients stay for the second), then the optimizer stage's device
+        work, the global norm (once, for the clip and the log) and
+        :meth:`TrainState.device_update`, with the lr and the counters
+        around it on the host (:meth:`TrainState.replay_update`)."""
+        grads = {}
 
-    @staticmethod
-    def _train_key(*tensors) -> tuple:
-        """What a captured step is specific to: the shape, strides and dtype of
-        the latents, the condition input and the injected draws (None where
-        absent)."""
-        return tuple(None if t is None else (tuple(t.shape), t.stride(), t.dtype)
-                     for t in tensors)
+        def forward_backward(latents, radar_cube, rnd, noise):
+            loss, g = self._forward_backward(latents, radar_cube, rnd, noise)
+            grads.update(g)
+            return loss
+
+        def update():
+            with span("grad_norm"):
+                g_norm = global_norm(grads.values())
+            state.device_update(grads, g_norm)
+            return g_norm
+
+        return forward_backward, update
 
     def _train_guard(self, state: TrainState) -> tuple:
         """The storage addresses of the training model's parameters and
@@ -593,8 +610,7 @@ class GenerationEngine:
         guard (:meth:`TrainState.graph_guard`). An in-place update keeps them;
         a new tensor moves one, and the step is captured anew."""
         m = self.train_model
-        return (tuple(t.data_ptr() for t in (*m.parameters(), *m.buffers()))
-                + state.graph_guard())
+        return addresses((*m.parameters(), *m.buffers())) + state.graph_guard()
 
     def train_graph_counts(self) -> dict:
         """How :meth:`train_step` calls were served: ``captures`` (captured,
@@ -702,9 +718,9 @@ class GenerationEngine:
     def condition(self, radar_cube):
         """(B, T, C) condition tokens (or None) from a raw (B, R, A, E, C)
         cube, or, with the frozen encoder, from its :meth:`encode_radar`
-        output, as JAX's ``_sample_impl`` takes them. With ``cond_type:
-        tokens`` the argument holds an encoder's (B, T, C) tokens, which the
-        DiT projects (``process_cond``)."""
+        output, as JAX's ``_sample_impl`` takes them. For a DiT that has
+        ``process_cond`` (Hunyuan3D-2.0's) the argument holds an image
+        encoder's (B, T, C) tokens, which the DiT projects."""
         if radar_cube is None or not self.use_radar_cond:
             return None
         x = self._to_dev(radar_cube, None)
@@ -731,10 +747,10 @@ class GenerationEngine:
         :attr:`draw_churn` (per-sample streams keyed by (seed, step)).
 
         On a CUDA device the no-churn path without ``capture_states`` runs
-        as a CUDA graph per :meth:`_graph_key`
-        (:class:`rald_torch.diffusion.sampler_graph.SamplerGraphs`): eager
-        on a key's first call, captured on its second, replayed after, and
-        captured anew when a tensor it reads has moved (:meth:`_graph_guard`).
+        as one CUDA graph per :meth:`_graph_key`, an entry of a
+        :class:`~rald_torch.train.cuda_graphs.GraphCache`: eager on a key's
+        first call, captured on its second, replayed after, and captured
+        anew when a tensor it reads has moved (:meth:`_graph_guard`).
         The prior is drawn outside the graph; the tokens are a fresh tensor
         either way. Everything else runs eagerly, as on the CPU.
 
@@ -753,13 +769,13 @@ class GenerationEngine:
 
             return graphs.eager(edm_sampler, lambda x, sigma, idx: m.denoise(x, sigma, cond),
                                 latents, churn_noise=noise, capture_states=capture_states, **kw)
-        if capture_states or not graphs.applies(latents):
+        g = None
+        if not capture_states and graphs.applies(latents):
+            g = graphs.lookup(self._graph_key(latents, cond), self._graph_guard(),
+                              (self._sample_table,))
+        if g is None:
             return graphs.eager(self._sample_table, latents, cond, capture_states)
-        if graphs.revision != m.revision:  # set_flags / set_int8 since the capture
-            graphs.clear()
-            graphs.revision = m.revision
-        return graphs(self._sample_table, self._graph_key(latents, cond), self._graph_guard(),
-                      latents, cond)
+        return g.replay(0, latents, cond)
 
     def _sample_table(self, latents, cond, capture_states: bool = False):
         """The DiT's sampler without churn from the prior ``latents``
@@ -774,8 +790,7 @@ class GenerationEngine:
         """What a captured sampler is specific to: the prior's shape, the
         condition's shape, strides and dtype (or None), the DiT's int8 and
         fused modes, and the sampler's settings."""
-        c = None if cond is None else (tuple(cond.shape), cond.stride(), cond.dtype)
-        return (tuple(latents.shape), c, self.model.graph_modes(),
+        return (tuple(latents.shape), *tensors_key(cond), self.model.graph_modes(),
                 tuple(sorted(self.sampler_kwargs.items())))
 
     def _graph_guard(self) -> tuple:
@@ -786,7 +801,7 @@ class GenerationEngine:
         ts = self.model.graph_tensors()
         if self._act_scales is not None:
             ts.append(self._act_scales)
-        return tuple(t.data_ptr() for t in ts)
+        return addresses(ts)
 
     def flow_counts(self) -> dict:
         """What the DiT and the VAE did: ``evaluations`` (DiT calls of the

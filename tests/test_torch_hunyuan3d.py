@@ -27,7 +27,7 @@ import pytest
 import torch
 
 import hunyuan3d_reference as R
-from test_torch_sampler_graph import _StandGraphs
+from graph_stand import StandCache
 from rald_torch.config import Config
 from rald_torch.models.mmdit import Hunyuan3DDiT
 from rald_torch.models.registry import get_ae_model, get_generation_model
@@ -292,7 +292,7 @@ def test_flow_sampler_takes_the_graph_path():
     warms, captures and replays through the engine's one graph cache, keyed
     by its shapes and settings, and a moved weight captures anew."""
     eng = _engine()
-    eng._sampler_graphs = _StandGraphs()
+    eng._sampler_graphs = StandCache("sample_graph", 4)
     cond = eng.condition(_tokens(1, 0))
     outs = [eng.sample_from_cond(cond, [k]) for k in range(3)]
     assert eng.sampler_graph_counts() == {"captures": 1, "replays": 1, "eager": 1}

@@ -1,8 +1,9 @@
 """The no-churn sampler as captured CUDA graphs
-(:mod:`rald_torch.diffusion.sampler_graph`, ``GenerationEngine.sample_from_cond``).
+(:mod:`rald_torch.train.cuda_graphs`, ``GenerationEngine.sample_from_cond``).
 
 On the CPU the sampler never captures; the cache's keys, guard and
-invalidation are checked there with a stand-in for the capture. The ``gpu``
+invalidation, for the sampler's configuration and the training step's, are
+checked there with a stand-in for the capture (``graph_stand``). The ``gpu``
 tests hold the graphs to the eager sampler, bitwise, on the card
 (``python -m pytest -m gpu tests/test_torch_sampler_graph.py``). This file
 imports no JAX: the eager sampler is the reference.
@@ -17,7 +18,7 @@ import torch
 
 from rald_torch.config import Config
 from rald_torch.diffusion.edm import edm_sampler, unstack_mods
-from rald_torch.diffusion.sampler_graph import SamplerGraphs
+from graph_stand import StandCache
 from rald_torch.ops import launch_counts, reset_launch_counts
 from rald_torch.train.gen_engine import GenerationEngine
 
@@ -84,29 +85,8 @@ def _reference(eng, prior, cond):
         prior.to(eng.device).float(), **eng.sampler_kwargs)
 
 
-class _Stand:
-    """A stand-in for a captured sampler: replays by calling ``fn``."""
-
-    def __init__(self, fn, guard):
-        self.fn, self.guard, self.replays = fn, guard, 0
-
-    def replay(self, latents, cond):
-        self.replays += 1
-        return self.fn(latents, cond)
-
-
-class _StandGraphs(SamplerGraphs):
-    """The cache as on the card, with :class:`_Stand` for the capture."""
-
-    def applies(self, latents):
-        return True
-
-    def capture(self, fn, latents, cond, guard):
-        return _Stand(fn, guard)
-
-
 def _as_if_on_card(eng):
-    eng._sampler_graphs = _StandGraphs()
+    eng._sampler_graphs = StandCache("sample_graph", 4)
     return eng
 
 
@@ -131,27 +111,36 @@ def test_cpu_churn_counts_eager():
     assert eng.sampler_graph_counts() == {"captures": 0, "replays": 0, "eager": 1}
 
 
-def test_cache_warms_captures_replays_and_evicts():
-    graphs = _StandGraphs()
+@pytest.mark.parametrize("name, max_keys", [("sample_graph", 4), ("train_graph", 1)])
+def test_cache_warms_captures_replays_and_evicts(name, max_keys):
+    """The sampler's configuration keeps four keys, least recently used
+    dropped first; the training step's one, dropped on a new key."""
+    graphs = StandCache(name, max_keys)
     fn = lambda x, c: x + 1  # noqa: E731
     x = torch.zeros(2)
-    assert torch.equal(graphs(fn, "a", (1,), x, None), x + 1)
+
+    def call(key, guard):  # as the engine calls the cache
+        g = graphs.lookup(key, guard, (fn,))
+        return graphs.eager(fn, x, None) if g is None else g.replay(0, x, None)
+
+    assert torch.equal(call("a", (1,)), x + 1)
     assert graphs.entries["a"] is None  # warmed: the first call runs eagerly
-    graphs(fn, "a", (1,), x, None)
+    call("a", (1,))
     first = graphs.entries["a"]
-    graphs(fn, "a", (1,), x, None)
+    call("a", (1,))
     assert graphs.entries["a"] is first and first.replays == 2
     assert graphs.counts == {"captures": 1, "replays": 1, "eager": 1}
-    graphs(fn, "a", (2,), x, None)  # a tensor moved: captured anew
+    call("a", (2,))  # a tensor moved: captured anew
     assert graphs.entries["a"] is not first and graphs.counts["captures"] == 2
-    for key in "bcde":  # the fifth key drops the least recently used, "a"
-        graphs(fn, key, (1,), x, None)
-    assert list(graphs.entries) == list("bcde") and graphs.counts["eager"] == 5
-    graphs(fn, "b", (1,), x, None)
+    keys = "bcde"[:max_keys]
+    for key in keys:  # the last key drops the least recently used, "a"
+        call(key, (1,))
+    assert list(graphs.entries) == list(keys) and graphs.counts["eager"] == 1 + max_keys
+    call(keys[0], (1,))
     graphs.clear()
-    assert list(graphs.entries) == list("cdeb") and graphs.entries["b"] is None
-    graphs(fn, "b", (1,), x, None)  # still warm: captures at once
-    assert graphs.counts == {"captures": 4, "replays": 1, "eager": 5}
+    assert list(graphs.entries) == list(keys[1:] + keys[0]) and graphs.entries[keys[0]] is None
+    call(keys[0], (1,))  # still warm: captures at once
+    assert graphs.counts == {"captures": 4, "replays": 1, "eager": 1 + max_keys}
 
 
 @torch.no_grad()
@@ -175,8 +164,9 @@ def test_engine_graph_path_keys_and_results():
 @pytest.mark.parametrize("change", ["load_state_dicts", "set_flags", "set_int8", "new_tensor"])
 @torch.no_grad()
 def test_engine_drops_stale_graphs(change):
-    """Loading weights, re-flagging or re-quantizing the DiT drops its
-    graphs; a parameter replaced by a new tensor fails the guard."""
+    """Loading weights drops the DiT's graphs; a flag the modes carry is a
+    new key; re-quantizing or a parameter replaced by a new tensor moves
+    the guard."""
     eng = _as_if_on_card(_engine(inference={"int8_ff": True}))
     prior, cond = _inputs(eng, 1, 0)
     for _ in range(2):
@@ -190,10 +180,14 @@ def test_engine_drops_stale_graphs(change):
         eng.load_state_dicts(edm_state_dict=new)
         assert graphs.entries[key] is None
     elif change == "set_flags":
-        m.set_flags(use_fused_attn=False)
+        m.set_flags(use_fused_ff=not m.use_fused_ff)
+        eng.sample_from_cond(cond, prior)  # a new key, warmed eagerly
+        *_, new = graphs.entries
+        assert new != key and graphs.entries[key] is first and graphs.counts["eager"] == 2
+        key = new
     elif change == "set_int8":
         eng._quantize(m.state_dict())
-        assert graphs.entries[key] is None
+        assert eng._graph_guard() != first.guard
     else:
         blk = m.model.transformer_blocks[0].ff.proj_in
         blk.weight = torch.nn.Parameter(blk.weight.detach().clone())

@@ -1,10 +1,11 @@
 """The stage-2 training step as captured CUDA graphs
-(:mod:`rald_torch.train.step_graph`, ``GenerationEngine.train_step``) and
+(:mod:`rald_torch.train.cuda_graphs`, ``GenerationEngine.train_step``) and
 the device-side clip it needs (``rald_torch.train.state.clip_by_global_norm_``).
 
 On the CPU the step never captures; the clip is held bitwise to a host read
 of the norm, and the step's keys, guard, draws and host counters are
-checked with a stand-in for the capture against the eager step. The
+checked with a stand-in for the capture (``graph_stand``) against the
+eager step. The
 ``gpu`` tests hold the graphs to the eager step, bitwise, on the card
 (``python -m pytest -m gpu tests/test_torch_train_graph.py``). This file
 imports no JAX: the eager step is the reference.
@@ -18,11 +19,12 @@ import weakref
 import pytest
 import torch
 
+from graph_stand import StandCache
 from rald_torch.config import Config
-from rald_torch.train import step_graph
+from rald_torch.train import gen_engine
+from rald_torch.train.cuda_graphs import GraphCache
 from rald_torch.train.gen_engine import GenerationEngine
 from rald_torch.train.state import clip_by_global_norm_, global_norm
-from rald_torch.train.step_graph import TrainGraphs
 
 B = 2
 CUBE = (32, 16, 16, 3)
@@ -153,34 +155,8 @@ def test_clip_on_device_is_the_host_read_clip(where):
     assert all(torch.equal(a, b) for a, b in zip(got, grads)) == (where == "below")
 
 
-class _StandStep:
-    """A stand-in for a captured step: replays by calling its functions."""
-
-    def __init__(self, forward_backward, update, guard):
-        self.fns, self.guard = (forward_backward, update), guard
-
-    def forward_backward(self, inputs, state):
-        self.loss, self.grads = self.fns[0](*inputs)
-        self.state = state
-        return self.loss.clone()
-
-    def update(self):
-        state, self.state = self.state, None
-        return self.fns[1](state, self.grads).clone()
-
-
-class _StandGraphs(TrainGraphs):
-    """The graphs as on the card, with :class:`_StandStep` for the capture."""
-
-    def on_device(self, latents):
-        return True
-
-    def capture(self, forward_backward, update, guard):
-        return _StandStep(forward_backward, update, guard)
-
-
 def _as_if_on_card(eng):
-    eng._train_graphs = _StandGraphs()
+    eng._train_graphs = StandCache("train_graph", 1)
     return eng
 
 
@@ -211,7 +187,7 @@ def test_steps_that_cannot_replay_run_eagerly(case, monkeypatch):
     train = {"skip_nonfinite_updates": True} if case == "skip_nonfinite" else (
         {"accum_iter": 2} if case == "accum_iter" else {})
     if case == "process_group":
-        monkeypatch.setattr(step_graph, "backend", lambda: "gloo")
+        monkeypatch.setattr(gen_engine, "backend", lambda: "gloo")
     batches = _batches(_engine(), 3)
     runs = []
     for eng in (_engine(**train) if case == "cpu" else _as_if_on_card(_engine(**train)),
@@ -230,14 +206,15 @@ def test_new_state_or_key_captures_anew():
     batches = _batches(eng, 3)
     state = eng.init_state(STEPS_PER_EPOCH, B)
     _run(eng, state, batches)
-    first = eng._train_graphs.step
+    (key, first), = eng._train_graphs.entries.items()
     state = eng.init_state(STEPS_PER_EPOCH, B)
     _run(eng, state, batches[:1])
-    assert eng._train_graphs.step is not first
+    assert eng._train_graphs.entries[key] is not first
     assert eng.train_graph_counts() == {"captures": 2, "replays": 1, "eager": 1}
     latents, cube, d = batches[0]
     eng.train_step(state, latents[:1], cube[:1], rnd=d["rnd"][:1], noise=d["noise"][:1])
-    assert eng._train_graphs.step is None and eng.train_graph_counts()["eager"] == 2
+    (new, step), = eng._train_graphs.entries.items()  # the old key's graphs dropped
+    assert new != key and step is None and eng.train_graph_counts()["eager"] == 2
 
 
 # ---------------------------------------------------------------- card
@@ -248,21 +225,15 @@ def cuda():
     return torch.device("cuda")
 
 
-class _EagerGraphs(TrainGraphs):
-    """The graphs of an engine held to the eager step on the card."""
-
-    def on_device(self, latents):
-        return False
-
-
 def _card_pair(dev, **train):
     """A graphed and an eager engine on the card, each with a fresh state
-    from the same weights."""
+    from the same weights; the eager one's cache keeps no key, so every
+    step is its key's first and runs eagerly."""
     out = []
     for graphed in (True, False):
         eng = _engine(dev, card=True, **train)
         if not graphed:
-            eng._train_graphs = _EagerGraphs()
+            eng._train_graphs = GraphCache("train_graph", 0)
         out.append((eng, eng.init_state(STEPS_PER_EPOCH, B)))
     return out
 
@@ -299,7 +270,7 @@ def test_cuda_new_state_captures_anew(cuda):
     old = weakref.ref(g_state)
     g_state, e_state = (e.init_state(STEPS_PER_EPOCH, B) for e in (g_eng, e_eng))
     gc.collect()
-    assert old() is None and g_eng._train_graphs.step is not None
+    assert old() is None and all(g_eng._train_graphs.entries.values())
     g_out, e_out = _run(g_eng, g_state, batches[:2]), _run(e_eng, e_state, batches[:2])
     assert g_eng.train_graph_counts() == {"captures": 2, "replays": 2, "eager": 1}
     _assert_same(g_eng, g_state, g_out, e_eng, e_state, e_out)
