@@ -10,7 +10,7 @@ Phases, each printed before the last line:
 2. build: compiles every hand-written kernel under ``rald_torch/csrc`` for
    ``sm_90a`` (one ``nvcc`` per source, all at once) and prints the ptxas
    register / shared-memory / spill report.
-3. kernels: each of the nine kernels against its plain PyTorch version at
+3. kernels: each of the ten kernels against its plain PyTorch version at
    main-path shapes, batch 1 and 8 (and a ragged batch; geglu_ff also at an
    out_dim of 768; fused_ln_geglu_residual and the three attention kernels
    also with one AdaLN row per frame), with checks that the bar catches a
@@ -28,7 +28,15 @@ Phases, each printed before the last line:
    one per DiT layer). Then the float32 instantiations of the seven FF and
    attention kernels (x in f32, ``matmul_precision: highest``) against
    their plain versions in f32 at the same shapes, with their drop checks,
-   timed against the f32 bound.
+   timed against the f32 bound. Last, split_qk_norm (Hunyuan3D's DiT, which
+   no later phase runs) at the ``eval_hy3d_live_b1`` cell's attention shapes
+   (``QK_CASES``) in bf16 and f32 against its plain version: q and k within
+   1 unit in the last place of bf16 (16 of f32), v bitwise, one launch a
+   stream; timed as CUDA graphs of its calls (the wrapper's host time would
+   otherwise set the pace) beside its plain version (the ``F.rms_norm`` /
+   ``torch.cat`` composite, so also its ``library_ms``) and its bytes bound,
+   on one input set (``ms``: warm, largely in L2) and rotating through
+   ``QK_COLD_SETS`` sets (``ms_cold``: from HBM).
 4. main path: the product eval chain of
    ``configs/generation/ge_indoor_unfreeze_enc_ints_only_eval.yml`` at full
    width (DiT dim 512 x 24 blocks, VAE dim 512 x 24 blocks, bf16) on seeded
@@ -275,7 +283,7 @@ SCRATCH = REPO / "build" / "chip_smoke"  # calibrated scales written by the run 
 KERNEL_NAMES = ("fused_ln_geglu_residual", "nn_min_sq_both", "nn_min_sq_batch",
                 "fused_ln_geglu_residual_int8", "fused_ln_geglu_residual_int8_static",
                 "geglu_ff", "fused_self_attention_block", "fused_self_attention_block_int8",
-                "fused_self_attention_block_int8_vout")
+                "fused_self_attention_block_int8_vout", "split_qk_norm")
 NN_N, NN_M = 500_000, 10_000  # refined predictions, GT surface points
 
 
@@ -1097,6 +1105,120 @@ def _f32_kernel_entries(gen: torch.Generator) -> dict:
     return out
 
 
+# split_qk_norm at Hunyuan3D's DiT attention in the eval_hy3d_live_b1 cell:
+# B 2 guidance rows, 16 heads of 64; name: (stream token counts, MLP width
+# after the qkv columns). The dual-stream blocks join 1370 condition and 3072
+# latent tokens (q, k and v written); the single-stream blocks read the qkv
+# slice of 4442 [qkv | 4096-wide MLP] rows in place (q and k written). Each
+# dual-stream stream also alone, as one part (q and k written; bf16 only).
+QK_B, QK_H = 2, 16
+QK_CASES = {"dual": ((1370, 3072), 0), "single": ((4442,), 4096),
+            "stream_1370": ((1370,), 0), "stream_3072": ((3072,), 0)}
+# input sets a cold graph rotates through, each call's outputs kept in a
+# buffer of their own: 0.9 / 1.3 GB a replay, far beyond the 50 MB L2
+QK_COLD_SETS = 8
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in units in the last place between two
+    same-dtype float tensors."""
+    def ordered(x):
+        bits = x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32).long()
+        mag = bits & (0x7FFF if x.dtype == torch.bfloat16 else 0x7FFFFFFF)
+        return torch.where(bits < 0, -mag, mag)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _qk_parts(lens, mlp: int, dtype, gen: torch.Generator) -> list:
+    """One ``(qkv, q scale, k scale)`` part a stream, qkv the first 3 * D
+    columns of (B, L, 3 * D + mlp) rows."""
+    d = QK_H * 64
+    parts = []
+    for n in lens:
+        rows = (torch.randn(QK_B, n, 3 * d + mlp, generator=gen, device="cuda") * 3).to(dtype)
+        scales = [(torch.rand(64, generator=gen, device="cuda") * 2).to(dtype) for _ in range(2)]
+        parts.append((rows[..., :3 * d], *scales))
+    return parts
+
+
+def _graph_ms(calls: list, keep: bool, replays: int = 20) -> float:
+    """Device ms a call of ``calls``, captured in order into one CUDA graph
+    and replayed, so no host work runs between launches. ``keep``: every
+    call's outputs stay alive, each in buffers of their own."""
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        calls[0]()
+        torch.cuda.synchronize()
+        outs = []
+        with torch.cuda.graph(graph, stream=stream):
+            for fn in calls:
+                out = fn()
+                if keep:
+                    outs.append(out)
+        del out
+    torch.cuda.synchronize()
+    ms = cuda_ms(graph.replay, replays) / len(calls)
+    del graph, outs
+    return ms
+
+
+@torch.no_grad()
+def _qk_norm_entry(gen: torch.Generator) -> dict:
+    """split_qk_norm in each of ``QK_CASES`` against its plain version
+    (bf16 and f32), then timed (see the docstring's phase 3)."""
+    from rald_torch.ops import qk_norm as qn
+
+    rows, f32 = {}, {}
+    for case, (lens, mlp) in QK_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32)[:1 if case.startswith("stream") else 2]:
+            sets = [_qk_parts(lens, mlp, dtype, gen)
+                    for _ in range(QK_COLD_SETS if dtype == torch.bfloat16 else 1)]
+            kern = lambda parts: qn.split_qk_norm(parts, QK_H)  # noqa: E731
+            plain = lambda parts: qn.split_qk_norm_plain(parts, QK_H)  # noqa: E731
+            before = qn.split_qk_norm.launches
+            got, want = kern(sets[0]), plain(sets[0])
+            torch.cuda.synchronize()
+            label = f"split_qk_norm {case} {dtype}"
+            check(qn.split_qk_norm.launches - before == len(lens), f"{label}: launches")
+            n_tot = sum(lens)
+            check(all(t.shape == (QK_B, QK_H, n_tot, 64) for t in got), f"{label}: shapes")
+            tol = 1 if dtype == torch.bfloat16 else 16
+            ulps = [_ulps(g, w) for g, w in zip(got[:2], want[:2])]
+            check(max(ulps) <= tol, f"{label}: q / k {ulps} ulps > {tol}")
+            check(torch.equal(got[2], want[2]), f"{label}: v not bitwise")
+            # bytes: q and k read and written, v too where the kernel writes it
+            moved = (6 if len(lens) > 1 else 4) * QK_B * n_tot * QK_H * 64 * got[0].element_size()
+            line = {"shape": [QK_B, QK_H, list(lens), 64], "case": case, "dtype": str(dtype),
+                    "mlp": mlp, "ulps_q": ulps[0], "ulps_k": ulps[1],
+                    "max_abs_err": max((g.float() - w.float()).abs().max().item()
+                                       for g, w in zip(got, want)),
+                    "ms": _graph_ms([lambda: kern(sets[0])] * 20, keep=False),
+                    "plain_ms": _graph_ms([lambda: plain(sets[0])] * 20, keep=False)}
+            line["bound_ms"], line["bound_by"] = bound_t(moved, 0.0)
+            if dtype == torch.bfloat16:
+                line["ms_cold"] = _graph_ms([lambda p=p: kern(p) for p in sets], keep=True)
+                line["plain_ms_cold"] = _graph_ms([lambda p=p: plain(p) for p in sets], keep=True)
+                line["bound_share_cold"] = line["bound_ms"] / line["ms_cold"]
+                rows[case] = line
+            else:
+                f32[case] = line
+            print("[kernels] split_qk_norm " + json.dumps(line))
+            del sets, got, want
+    d, s1 = rows["dual"], rows["single"]
+    return {
+        "name": "split_qk_norm", "route": "cuda", "source": "rald_torch/csrc/qk_norm.cu",
+        "replaces": "no TPU kernel: Hunyuan3D DiT's view / permute / F.rms_norm / torch.cat",
+        "shape": d["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "ms": d["ms"], "plain_ms": d["plain_ms"], "library_ms": d["plain_ms"],
+        "bound_ms": d["bound_ms"], "bound_by": d["bound_by"], "ms_cold": d["ms_cold"],
+        "library_ms_cold": d["plain_ms_cold"], "single": s1,
+        "streams": {c: rows[c] for c in rows if c.startswith("stream")},
+        "f32": {c: {k: r[k] for k in ("ulps_q", "ulps_k", "ms", "plain_ms", "bound_ms")}
+                for c, r in f32.items()},
+    }
+
+
 def phase_kernels() -> list:
     gen = torch.Generator("cuda").manual_seed(0)
     wsets = _ff_weight_sets(gen)
@@ -1109,11 +1231,12 @@ def phase_kernels() -> list:
     entries.append(nn_batch)
     f32 = _f32_kernel_entries(gen)
     entries.insert(1, nn_both)
+    entries.append(_qk_norm_entry(gen))
     for e in entries:
         e["max_err"] = e["max_abs_err"]
         # the nearest-neighbour kernels take f32 points only: their entries
         # above are f32
-        e["f32"] = f32.get(e["name"], "f32 only: the entries above")
+        e.setdefault("f32", f32.get(e["name"], "f32 only: the entries above"))
     return entries
 
 
@@ -4540,6 +4663,8 @@ def main() -> int:
                    "geglu_ff": "f32 GEGLUFeedForward(use_fused=True)",
                    "fused_self_attention_block": "f32 use_fused_attn"}
     for k in kernels:
+        if k["name"] not in mode_of:  # split_qk_norm: no RaLD chain runs it
+            continue
         mode = mode_of[k["name"]]
         k["launches_mode"] = mode
         k["launches"] = runs[(mode, 1)]["launches"][k["name"]]

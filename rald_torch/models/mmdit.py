@@ -26,12 +26,15 @@ and hoists ``cond_in`` out of its loop (:meth:`Hunyuan3DDiT.process_cond`):
 the same numbers as evaluating them in every call. The scale rows are
 stored as ``1 + scale``, the sum the public code forms at each use.
 
-No kernel of this package runs here: the GEMMs go to cuBLAS and the
-attention to ``F.scaled_dot_product_attention``. The model has no fused,
-int8 or training path; the engine refuses those flags for it. It brings
-the engine its sampler (:meth:`Hunyuan3DDiT.sample`, the guided Euler
-steps of :mod:`rald_torch.diffusion.flow`) and what a captured sampler
-depends on, under the names the RaLD DiT gives them.
+One kernel of this package runs here: on the card each block's q / k / v
+split and RMS QK-norm, with the dual-stream blocks' joint ``[c ; x]``
+layout, is :func:`rald_torch.ops.split_qk_norm` (``csrc/qk_norm.cu``; its
+plain version on the CPU). The GEMMs stay in cuBLAS and the attention in
+``F.scaled_dot_product_attention``. The model has no fused, int8 or
+training path; the engine refuses those flags for it. It brings the
+engine its sampler (:meth:`Hunyuan3DDiT.sample`, the guided Euler steps of
+:mod:`rald_torch.diffusion.flow`) and what a captured sampler depends on,
+under the names the RaLD DiT gives them.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rald_torch.diffusion.flow import flow_euler_cfg, flow_times
+from rald_torch.ops import split_qk_norm
 from rald_torch.train.profiler import span
 
 
@@ -57,24 +61,23 @@ def timestep_embedding(t: torch.Tensor, dim: int = 256, max_period: float = 1000
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+EPS = 1e-6  # of every LayerNorm and RMSNorm of the DiT
+
+
+def layer_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """LayerNorm without affine over the last axis."""
     return F.layer_norm(x, (x.shape[-1],), eps=eps)
 
 
 class RMSNorm(nn.Module):
-    """RMSNorm with a learned ``scale``, one ``F.rms_norm`` call: statistics
-    and the scale in float32, rounded to the input's dtype once (the public
-    code rounds the normed value, then multiplies by the scale in that
-    dtype)."""
+    """The learned ``scale`` of an RMSNorm at :data:`EPS`, applied by
+    :func:`split_qk_norm`: statistics and the scale in float32, rounded to
+    the input's dtype once (the public code rounds the normed value, then
+    multiplies by the scale in that dtype)."""
 
-    def __init__(self, dim: int, eps: float = 1e-6):
+    def __init__(self, dim: int):
         super().__init__()
-        self.eps = eps
         self.scale = nn.Parameter(torch.ones(dim))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.rms_norm(x, (x.shape[-1],), self.scale, self.eps)
 
 
 class QKNorm(nn.Module):
@@ -82,6 +85,10 @@ class QKNorm(nn.Module):
         super().__init__()
         self.query_norm = RMSNorm(dim)
         self.key_norm = RMSNorm(dim)
+
+    def part(self, qkv: torch.Tensor) -> tuple:
+        """One stream's ``(qkv, q scale, k scale)`` for :func:`split_qk_norm`."""
+        return qkv, self.query_norm.scale, self.key_norm.scale
 
 
 class SelfAttention(nn.Module):
@@ -95,16 +102,9 @@ class SelfAttention(nn.Module):
         self.norm = QKNorm(dim // num_heads)
         self.proj = nn.Linear(dim, dim)
 
-    def heads(self, m: torch.Tensor):
-        """(B, L, D) modulated input -> normed q, k and v, each (B, H, L, Dh)."""
-        return split_qkv(self.qkv(m), self.num_heads, self.norm)
-
-
-def split_qkv(qkv: torch.Tensor, heads: int, norm: QKNorm):
-    """(B, L, 3 * H * Dh) -> q, k, v (B, H, L, Dh), q and k RMS-normed."""
-    b, n, _ = qkv.shape
-    q, k, v = qkv.view(b, n, 3, heads, -1).permute(2, 0, 3, 1, 4).unbind(0)
-    return norm.query_norm(q), norm.key_norm(k), v
+    def part(self, m: torch.Tensor) -> tuple:
+        """(B, L, D) modulated input -> its ``(qkv, q scale, k scale)``."""
+        return self.norm.part(self.qkv(m))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -152,9 +152,9 @@ class DoubleStreamBlock(nn.Module):
         return torch.cat([self.img_mod.lin(s), self.txt_mod.lin(s)], dim=-1)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor, m: torch.Tensor):
-        xq, xk, xv = self.img_attn.heads(modulate(x, m[0], m[1]))
-        cq, ck, cv = self.txt_attn.heads(modulate(c, m[6], m[7]))
-        a = attention(torch.cat([cq, xq], 2), torch.cat([ck, xk], 2), torch.cat([cv, xv], 2))
+        a = attention(*split_qk_norm([self.txt_attn.part(modulate(c, m[6], m[7])),
+                                      self.img_attn.part(modulate(x, m[0], m[1]))],
+                                     self.img_attn.num_heads, EPS))
         n_c = c.shape[1]
         x = torch.addcmul(x, m[2], self.img_attn.proj(a[:, n_c:]))
         x = torch.addcmul(x, m[5], self.img_mlp(modulate(x, m[3], m[4])))
@@ -185,7 +185,7 @@ class SingleStreamBlock(nn.Module):
 
     def forward(self, h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         qkv, u = self.linear1(modulate(h, m[0], m[1])).split([3 * self.dim, self.mlp_hidden], -1)
-        a = attention(*split_qkv(qkv, self.num_heads, self.norm))
+        a = attention(*split_qk_norm([self.norm.part(qkv)], self.num_heads, EPS))
         out = self.linear2(torch.cat([a, F.gelu(u, approximate="tanh")], -1))
         return torch.addcmul(h, m[2], out)
 

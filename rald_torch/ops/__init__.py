@@ -19,6 +19,7 @@ from rald_torch.ops.geglu_kernel import (
     geglu_ff,
 )
 from rald_torch.ops.nn_dist_kernel import nn_min_sq_batch, nn_min_sq_both
+from rald_torch.ops.qk_norm import split_qk_norm
 from rald_torch.ops.query_attention import streaming_single_head_attention
 
 KERNELS = {
@@ -31,6 +32,7 @@ KERNELS = {
     "fused_self_attention_block": fused_self_attention_block,
     "fused_self_attention_block_int8": fused_self_attention_block_int8,
     "fused_self_attention_block_int8_vout": fused_self_attention_block_int8_vout,
+    "split_qk_norm": split_qk_norm,
 }
 
 

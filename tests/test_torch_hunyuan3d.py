@@ -439,3 +439,25 @@ def test_cuda_flow_graph_recaptures_on_moved_weights(cuda):
     moved = eng.sample_from_cond(cond, prior)
     assert eng.sampler_graph_counts()["captures"] == 3
     assert torch.equal(moved, eng._sample_table(prior.to(cuda), cond))
+
+
+@pytest.mark.gpu
+@torch.no_grad()
+def test_cuda_flow_sampler_counts_qk_norm_launches(cuda):
+    """Each DiT evaluation at the published depths launches the q/k/v split
+    kernel once a stream in each of the 16 dual-stream blocks and once in
+    each of the 32 single-stream blocks, 64 in all: 3200 a 50-step sample,
+    in the key's eager call, its capturing call and its replays."""
+    from rald_torch.ops import launch_counts, reset_launch_counts
+
+    eng = _engine(cuda, **{"system.compute_dtype": "bfloat16", "eval.inference.num_steps": 50,
+                           "ar_model.overrides": dict(CFG["ar_model"]["overrides"], hidden_size=256,
+                                                      context_in_dim=96, n_latents=64, depth=16,
+                                                      depth_single_blocks=32)})
+    prior, cond = _card_inputs(eng, 1, 0)
+    for _ in range(3):
+        reset_launch_counts()
+        eng.sample_from_cond(cond, prior)
+        torch.cuda.synchronize()
+        assert launch_counts()["split_qk_norm"] == (2 * 16 + 32) * 50 == 3200
+    assert eng.sampler_graph_counts() == {"captures": 1, "replays": 1, "eager": 1}
