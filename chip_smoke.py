@@ -10,7 +10,7 @@ Phases, each printed before the last line:
 2. build: compiles every hand-written kernel under ``rald_torch/csrc`` for
    ``sm_90a`` (one ``nvcc`` per source, all at once) and prints the ptxas
    register / shared-memory / spill report.
-3. kernels: each of the ten kernels against its plain PyTorch version at
+3. kernels: each of the eleven kernels against its plain PyTorch version at
    main-path shapes, batch 1 and 8 (and a ragged batch; geglu_ff also at an
    out_dim of 768; fused_ln_geglu_residual and the three attention kernels
    also with one AdaLN row per frame), with checks that the bar catches a
@@ -28,7 +28,7 @@ Phases, each printed before the last line:
    one per DiT layer). Then the float32 instantiations of the seven FF and
    attention kernels (x in f32, ``matmul_precision: highest``) against
    their plain versions in f32 at the same shapes, with their drop checks,
-   timed against the f32 bound. Last, split_qk_norm (Hunyuan3D's DiT, which
+   timed against the f32 bound. Then split_qk_norm (Hunyuan3D's DiT, which
    no later phase runs) at the ``eval_hy3d_live_b1`` cell's attention shapes
    (``QK_CASES``) in bf16 and f32 against its plain version: q and k within
    1 unit in the last place of bf16 (16 of f32), v bitwise, one launch a
@@ -36,7 +36,14 @@ Phases, each printed before the last line:
    otherwise set the pace) beside its plain version (the ``F.rms_norm`` /
    ``torch.cat`` composite, so also its ``library_ms``) and its bytes bound,
    on one input set (``ms``: warm, largely in L2) and rotating through
-   ``QK_COLD_SETS`` sets (``ms_cold``: from HBM).
+   ``QK_COLD_SETS`` sets (``ms_cold``: from HBM). Then moe_grouped_ffn
+   (Hunyuan3D-2.1's mixtures) at the ``eval_hy3d21_live_b1`` cell's
+   shapes, on the model's own routing and two extreme ones (every row to
+   one expert; one expert empty), against its plain version (the
+   per-expert cuBLAS loop) within ``MOE_TOL`` in relative norm, two
+   launches a call; timed as CUDA graphs, warm and rotating through
+   ``MOE_COLD_SETS`` input sets, beside the plain version, the library's
+   grouped GEMMs (``torch._grouped_mm``) and its operations bound.
 4. main path: the product eval chain of
    ``configs/generation/ge_indoor_unfreeze_enc_ints_only_eval.yml`` at full
    width (DiT dim 512 x 24 blocks, VAE dim 512 x 24 blocks, bf16) on seeded
@@ -283,7 +290,7 @@ SCRATCH = REPO / "build" / "chip_smoke"  # calibrated scales written by the run 
 KERNEL_NAMES = ("fused_ln_geglu_residual", "nn_min_sq_both", "nn_min_sq_batch",
                 "fused_ln_geglu_residual_int8", "fused_ln_geglu_residual_int8_static",
                 "geglu_ff", "fused_self_attention_block", "fused_self_attention_block_int8",
-                "fused_self_attention_block_int8_vout", "split_qk_norm")
+                "fused_self_attention_block_int8_vout", "split_qk_norm", "moe_grouped_ffn")
 NN_N, NN_M = 500_000, 10_000  # refined predictions, GT surface points
 
 
@@ -1219,6 +1226,103 @@ def _qk_norm_entry(gen: torch.Generator) -> dict:
     }
 
 
+# moe_grouped_ffn at Hunyuan3D-2.1's mixtures in the eval_hy3d21_live_b1
+# cell: B 2 guidance rows of 4097 tokens, top 2 of 8 experts, so 16388
+# routed rows of width 2048 through 2048 -> 8192 -> 2048 experts. The
+# routing is the model's own (MoEFFN.route on seeded normed rows); two
+# extreme ones besides: every row to one expert, and one expert empty.
+MOE_T, MOE_D, MOE_INNER, MOE_E, MOE_K = 2 * 4097, 2048, 8192, 8, 2
+MOE_COLD_SETS = 4  # input sets a cold graph rotates through (67 MB of rows each)
+# the kernel against its plain version, ||got - want|| / ||want||: both round
+# at the same four points in bf16 and sum in f32 in different orders, so a
+# hidden activation may land one bf16 ulp (2^-8 relative) apart
+MOE_TOL = 4e-3
+
+
+def _moe_rows(mix, gen: torch.Generator, counts=None):
+    """Seeded normed rows routed by ``mix`` (or forced to ``counts`` per
+    expert): the expert-sorted rows, gate weights and int32 offsets."""
+    if counts is None:
+        h = torch.nn.functional.layer_norm(
+            torch.randn(MOE_T, MOE_D, generator=gen, device="cuda"), (MOE_D,)).bfloat16()
+        rows, gate, off, _, _ = mix.route(h)
+        return rows.contiguous(), gate.contiguous(), off
+    n = sum(counts)
+    rows = torch.randn(n, MOE_D, generator=gen, device="cuda").bfloat16()
+    gate = torch.rand(n, generator=gen, device="cuda")
+    off = torch.tensor([0, *np.cumsum(counts).tolist()], dtype=torch.int32, device="cuda")
+    return rows, gate, off
+
+
+@torch.no_grad()
+def _moe_ffn_entry(gen: torch.Generator) -> dict:
+    """moe_grouped_ffn against its plain version (the per-expert loop of
+    cuBLAS calls) at the cell's shapes and two extreme routings, then timed
+    as a replayed graph: warm (one input set) and from HBM (rotating input
+    sets; the 537 MB of expert weights never fit the 50 MB L2), beside the
+    plain version and the library's grouped GEMMs (``torch._grouped_mm``,
+    the two products alone, without bias, GELU or gate)."""
+    from rald_torch.models.moe import MoEFFN
+    from rald_torch.ops import moe_ffn as mf
+    from rald_torch.train.gen_engine import init_random_weights
+
+    mix = MoEFFN(MOE_D, MOE_INNER, MOE_E, MOE_K)
+    init_random_weights(mix, torch.Generator().manual_seed(0))
+    mix = mix.to(device="cuda", dtype=torch.bfloat16).eval()
+    w = (mix.w1, mix.b1, mix.w2, mix.b2)
+    routings = {"model": None, "one_expert": [0, 0, 0, MOE_K * MOE_T, 0, 0, 0, 0],
+                "one_empty": [3000, 0, 2000, 2500, 2888, 1000, 2500, 2500]}
+    errs = {}
+    for name, counts in routings.items():
+        rows, gate, off = _moe_rows(mix, gen, counts)
+        before = mf.moe_grouped_ffn.launches
+        got = mf.moe_grouped_ffn(rows, off, *w, gate)
+        want = mf.moe_grouped_ffn_plain(rows, off, *w, gate)
+        torch.cuda.synchronize()
+        check(mf.moe_grouped_ffn.launches - before == 2, f"moe_grouped_ffn {name}: launches")
+        diff = (got.float() - want.float())
+        rel = float(diff.norm() / want.float().norm())
+        check(bool(torch.isfinite(got).all()), f"moe_grouped_ffn {name}: non-finite rows")
+        check(rel <= MOE_TOL, f"moe_grouped_ffn {name}: relative error {rel} > {MOE_TOL}")
+        errs[name] = {"rel": rel, "max_abs_err": float(diff.abs().max()),
+                      "max_ulps": _ulps(got, want), "offsets": off.tolist()}
+        print(f"[kernels] moe_grouped_ffn {name} " + json.dumps(errs[name]))
+    sets = [_moe_rows(mix, gen) for _ in range(MOE_COLD_SETS)]
+    rows, gate, off = sets[0]
+    n = rows.shape[0]
+    flops = 2 * 2 * n * MOE_D * MOE_INNER
+    moved = MOE_E * (2 * MOE_D * MOE_INNER + MOE_INNER + MOE_D) * 2 + n * ((2 * MOE_D + 2 * MOE_INNER) * 2 + 4)
+    kern = lambda s: mf.moe_grouped_ffn(s[0], s[2], *w, s[1])  # noqa: E731
+    line = {"shape": [n, MOE_D, MOE_INNER, MOE_E], "offsets": off.tolist(),
+            "ms": _graph_ms([lambda: kern(sets[0])] * 10, keep=False),
+            "ms_cold": _graph_ms([lambda s=s: kern(s) for s in sets] * 2, keep=True),
+            "plain_ms": cuda_ms(lambda: mf.moe_grouped_ffn_plain(rows, off, *w, gate), 5)}
+    line["bound_ms"], line["bound_by"] = bound(moved, flops, PEAK_BF16)
+    line["tflops"] = flops / line["ms"] * 1e-9
+    line["bound_share"], line["bound_share_cold"] = (line["bound_ms"] / line["ms"],
+                                                     line["bound_ms"] / line["ms_cold"])
+    try:
+        ends = off[1:].contiguous()
+        w1t, w2t = mix.w1.transpose(1, 2), mix.w2.transpose(1, 2)
+        lib = lambda: torch._grouped_mm(torch._grouped_mm(rows, w1t, offs=ends), w2t, offs=ends)  # noqa: E731
+        lib()
+        line["library_ms"] = _graph_ms([lib] * 10, keep=False)
+    except Exception as e:  # the library's grouped GEMM is private and may be missing
+        line["library_ms"] = None
+        line["library_error"] = f"{type(e).__name__}: {e}"[:300]
+    print("[kernels] moe_grouped_ffn " + json.dumps(line))
+    return {
+        "name": "moe_grouped_ffn", "route": "cuda", "source": "rald_torch/csrc/moe_ffn.cu",
+        "replaces": "no TPU kernel: the public MoEBlock's per-expert loop with host indexing",
+        "shape": line["shape"], "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+        "errors": errs, "ms": line["ms"], "ms_cold": line["ms_cold"],
+        "plain_ms": line["plain_ms"], "library_ms": line["library_ms"],
+        "bound_ms": line["bound_ms"], "bound_by": line["bound_by"], "tflops": line["tflops"],
+        "bound_share": line["bound_share"], "bound_share_cold": line["bound_share_cold"],
+        "f32": "bf16 only",
+    }
+
+
 def phase_kernels() -> list:
     gen = torch.Generator("cuda").manual_seed(0)
     wsets = _ff_weight_sets(gen)
@@ -1232,6 +1336,7 @@ def phase_kernels() -> list:
     f32 = _f32_kernel_entries(gen)
     entries.insert(1, nn_both)
     entries.append(_qk_norm_entry(gen))
+    entries.append(_moe_ffn_entry(gen))
     for e in entries:
         e["max_err"] = e["max_abs_err"]
         # the nearest-neighbour kernels take f32 points only: their entries
@@ -4663,7 +4768,7 @@ def main() -> int:
                    "geglu_ff": "f32 GEGLUFeedForward(use_fused=True)",
                    "fused_self_attention_block": "f32 use_fused_attn"}
     for k in kernels:
-        if k["name"] not in mode_of:  # split_qk_norm: no RaLD chain runs it
+        if k["name"] not in mode_of:  # split_qk_norm, moe_grouped_ffn: no RaLD chain runs them
             continue
         mode = mode_of[k["name"]]
         k["launches_mode"] = mode

@@ -6,15 +6,18 @@ any constructor argument, as the YAML's ``ar_model.overrides`` /
 ``lidar_ae.overrides`` blocks do through JAX's ``model.copy(**overrides)``.
 
 Beside RaLD's family, which the JAX package shares, the port builds
-Hunyuan3D-2.0's shape generator (arXiv:2501.12202) at its published v2-0
-widths: the flow DiT ``hunyuan3d_dit_v2_0`` (:mod:`rald_torch.models.mmdit`)
-and the ShapeVAE decoder ``hunyuan3d_vae_v2_0``
-(:mod:`rald_torch.models.shape_vae`). Neither has a fused, folded or int8
+Hunyuan3D's shape generators at their published widths: 2.0's
+(arXiv:2501.12202) flow DiT ``hunyuan3d_dit_v2_0``
+(:mod:`rald_torch.models.mmdit`), 2.1's (arXiv:2506.15442)
+``hunyuan3d_dit_v2_1`` (:mod:`rald_torch.models.hunyuan_dit`), and their
+ShapeVAE decoders ``hunyuan3d_vae_v2_0`` / ``hunyuan3d_vae_v2_1``
+(:mod:`rald_torch.models.shape_vae`). None has a fused, folded or int8
 path: the kernel-flag arguments do not apply to them, and the generation
 engine refuses the configuration keys that ask for one.
 """
 from __future__ import annotations
 
+from rald_torch.models.hunyuan_dit import Hunyuan3DDiTPlain
 from rald_torch.models.latent_dit import EDMPrecond
 from rald_torch.models.mmdit import Hunyuan3DDiT
 from rald_torch.models.radar_encoder3d import RadarAutoencoder
@@ -48,18 +51,28 @@ GENERATION_VARIANTS = {
     "kl_d512_m512_l32_d12_edm": dict(channels=32, depth=12),
 }
 
-# Hunyuan3D-2.0, hunyuan3d-dit-v2-0/config.yaml (n_latents: the ShapeVAE's num_latents)
+# the flow DiTs and their constructor arguments: Hunyuan3D-2.0,
+# hunyuan3d-dit-v2-0/config.yaml, and Hunyuan3D-2.1, hunyuan3d-dit-v2-1/
+# config.yaml (n_latents: the ShapeVAE's num_latents)
 FLOW_VARIANTS = {
-    "hunyuan3d_dit_v2_0": dict(in_channels=64, context_in_dim=1536, hidden_size=1024,
-                               mlp_ratio=4.0, num_heads=16, depth=16, depth_single_blocks=32,
-                               qkv_bias=True, time_factor=1000.0, n_latents=3072),
+    "hunyuan3d_dit_v2_0": (Hunyuan3DDiT, dict(
+        in_channels=64, context_in_dim=1536, hidden_size=1024, mlp_ratio=4.0, num_heads=16,
+        depth=16, depth_single_blocks=32, qkv_bias=True, time_factor=1000.0, n_latents=3072)),
+    "hunyuan3d_dit_v2_1": (Hunyuan3DDiTPlain, dict(
+        in_channels=64, hidden_size=2048, context_dim=1024, depth=21, num_heads=16,
+        num_moe_layers=6, num_experts=8, moe_top_k=2, n_latents=4096)),
 }
 
-# Hunyuan3D-2.0, hunyuan3d-vae-v2-0/config.yaml (the decoder half)
+# the decoder halves of hunyuan3d-vae-v2-0/config.yaml and
+# hunyuan3d-vae-v2-1/config.yaml (2.1's scale_factor is assumed: see
+# rald_bench/configs/hunyuan3d_dit_v2_1.json)
 SHAPE_VAE_VARIANTS = {
     "hunyuan3d_vae_v2_0": dict(num_latents=3072, embed_dim=64, width=1024, heads=16,
                                num_decoder_layers=16, num_freqs=8, include_pi=False,
                                qkv_bias=False, scale_factor=0.9990943042622529),
+    "hunyuan3d_vae_v2_1": dict(num_latents=4096, embed_dim=64, width=1024, heads=16,
+                               num_decoder_layers=16, num_freqs=8, include_pi=False,
+                               qkv_bias=False, scale_factor=1.0039506158752403),
 }
 
 
@@ -89,14 +102,15 @@ def get_ae_model(name: str, N: int = 2048, overrides=None, use_fused_ff: bool = 
 
 def generation_model_class(name: str) -> type:
     """The class :func:`get_generation_model` builds for ``name``."""
-    return Hunyuan3DDiT if name in FLOW_VARIANTS else EDMPrecond
+    return FLOW_VARIANTS[name][0] if name in FLOW_VARIANTS else EDMPrecond
 
 
 def get_generation_model(name: str, configs, overrides=None, use_fused_ff: bool = False,
                          use_fused_attn: bool = False):
     """Build an EDM model from an ``ar_model.configs`` block, or a flow DiT."""
     if name in FLOW_VARIANTS:
-        return Hunyuan3DDiT(**{**FLOW_VARIANTS[name], **dict(overrides or {})})
+        cls, kw = FLOW_VARIANTS[name]
+        return cls(**{**kw, **dict(overrides or {})})
     kw = GENERATION_VARIANTS[name]
     args = dict(
         n_latents=512,

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rald_torch_kernels"
-SOURCES = ("geglu", "nn_dist", "geglu_int8", "attn", "qk_norm")
+SOURCES = ("geglu", "nn_dist", "geglu_int8", "attn", "qk_norm", "moe_ffn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -61,10 +61,13 @@ instead: rank 0 samples the tokens and broadcasts them, and every decode of
 the grid, helper and refine queries is split over the ranks by query
 (:meth:`GenerationEngine.decode_logits`), bitwise the one-process result.
 
-The engine also runs Hunyuan3D-2.0's shape generator (arXiv:2501.12202),
-which the JAX package does not have: ``ar_model.name: hunyuan3d_dit_v2_0``
-(:mod:`rald_torch.models.mmdit`) and ``lidar_ae.name: hunyuan3d_vae_v2_0``
-(:mod:`rald_torch.models.shape_vae`). Each DiT brings its sampler, its
+The engine also runs Hunyuan3D's shape generators, which the JAX package
+does not have: 2.0's (arXiv:2501.12202), ``ar_model.name:
+hunyuan3d_dit_v2_0`` (:mod:`rald_torch.models.mmdit`) with ``lidar_ae.name:
+hunyuan3d_vae_v2_0``, and 2.1's (arXiv:2506.15442), ``hunyuan3d_dit_v2_1``
+(:mod:`rald_torch.models.hunyuan_dit`, with mixture-of-experts feed-forwards)
+with ``hunyuan3d_vae_v2_1`` (both decoders
+:mod:`rald_torch.models.shape_vae`). Each DiT brings its sampler, its
 settings and what its captured graphs depend on (``SAMPLER``, ``sample``,
 ``sampler_calls``, ``graph_modes``, ``graph_tensors``), and each model its
 ``set_fast``, so one path serves both: :meth:`condition` hands an image
@@ -73,9 +76,11 @@ encoder's tokens to a DiT that projects them itself (``process_cond``),
 (:mod:`rald_torch.diffusion.flow`; ``eval.inference.num_steps``, default
 50, and ``guidance_scale``, default 5.0) through the same sampler graphs,
 and the rest of :meth:`fused_eval_step` is unchanged; :meth:`flow_counts`
-counts the DiT's calls, their rows and the decoded queries. The flow DiT
-has no int8, fused-kernel or training path (its ``EVAL_ONLY``): those
-flags raise ``ValueError``, :meth:`init_state` ``NotImplementedError``.
+counts the DiT's calls, their rows and the decoded queries, and
+:meth:`moe_counts` the tokens each expert of each mixture received. The
+flow DiTs have no int8, fused-kernel or training path (their
+``EVAL_ONLY``): those flags raise ``ValueError``, :meth:`init_state`
+``NotImplementedError``.
 
 On the card the no-churn sampler and the training step replay as captured
 CUDA graphs, each through a :class:`~rald_torch.train.cuda_graphs.GraphCache`;
@@ -253,7 +258,7 @@ class GenerationEngine:
         self._train_graphs = GraphCache("train_graph", 1)
         ev = cfg.get("eval", {})
         inf = ev.get("inference", {})
-        # Hunyuan3D-2.0's flow DiT has no int8, fused-kernel or training path
+        # Hunyuan3D's flow DiTs have no int8, fused-kernel or training path
         self.eval_only = generation_model_class(cfg.ar_model.name).EVAL_ONLY
         if self.eval_only:
             self._refuse_kernel_flags(inf)
@@ -794,10 +799,11 @@ class GenerationEngine:
                 tuple(sorted(self.sampler_kwargs.items())))
 
     def _graph_guard(self) -> tuple:
-        """The storage addresses of the tensors a captured sampler reads in
-        place: the DiT's (its parameters, buffers and any int8 side-tree)
-        and the activation scales. An in-place update keeps them; a new
-        tensor moves one, and the graph is captured anew."""
+        """The storage addresses of the tensors a captured sampler reads or
+        updates in place: the DiT's (its parameters, buffers, among them
+        the mixtures' counters of :meth:`moe_counts`, and any int8
+        side-tree) and the activation scales. An in-place update keeps
+        them; a new tensor moves one, and the graph is captured anew."""
         ts = self.model.graph_tensors()
         if self._act_scales is not None:
             ts.append(self._act_scales)
@@ -810,6 +816,18 @@ class GenerationEngine:
         points the ShapeVAE scored), counted on the host from shapes, per
         call whether it ran eagerly or as a graph replay."""
         return {**self._flow_counts, "queries_decoded": getattr(self.vae, "queries_decoded", 0)}
+
+    def moe_counts(self) -> dict:
+        """What the DiT's mixtures of experts did (empty for a DiT without
+        them): ``tokens``, each mixture's list of the tokens each expert
+        received, and ``calls``, each mixture's evaluations, summed on the
+        device in every call, eager or replayed. Reading them synchronises
+        with the card: read them after the timed work."""
+        layers = self.model.moe_layers() if hasattr(self.model, "moe_layers") else []
+        if not layers:
+            return {}
+        return {"tokens": torch.stack([m.tokens for m in layers]).tolist(),
+                "calls": torch.stack([m.calls for m in layers]).tolist()}
 
     def sampler_graph_counts(self) -> dict:
         """How :meth:`sample_from_cond` calls were served: ``captures``
