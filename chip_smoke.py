@@ -10,7 +10,7 @@ Phases, each printed before the last line:
 2. build: compiles every hand-written kernel under ``rald_torch/csrc`` for
    ``sm_90a`` (one ``nvcc`` per source, all at once) and prints the ptxas
    register / shared-memory / spill report.
-3. kernels: each of the eleven kernels against its plain PyTorch version at
+3. kernels: each of the twelve kernels against its plain PyTorch version at
    main-path shapes, batch 1 and 8 (and a ragged batch; geglu_ff also at an
    out_dim of 768; fused_ln_geglu_residual and the three attention kernels
    also with one AdaLN row per frame), with checks that the bar catches a
@@ -43,7 +43,12 @@ Phases, each printed before the last line:
    per-expert cuBLAS loop) within ``MOE_TOL`` in relative norm, two
    launches a call; timed as CUDA graphs, warm and rotating through
    ``MOE_COLD_SETS`` input sets, beside the plain version, the library's
-   grouped GEMMs (``torch._grouped_mm``) and its operations bound.
+   grouped GEMMs (``torch._grouped_mm``) and its operations bound. Then
+   head_rms_norm (Hunyuan3D-2.1's QK-norm) at the same cell's self- and
+   cross-attention shapes (``HN_CASES``), in place, against its plain
+   version within 1 bf16 unit in the last place, one launch a call; timed
+   as CUDA graphs, warm and rotating through ``HN_COLD_SETS`` input sets,
+   beside the plain version and its bytes bound.
 4. main path: the product eval chain of
    ``configs/generation/ge_indoor_unfreeze_enc_ints_only_eval.yml`` at full
    width (DiT dim 512 x 24 blocks, VAE dim 512 x 24 blocks, bf16) on seeded
@@ -290,7 +295,8 @@ SCRATCH = REPO / "build" / "chip_smoke"  # calibrated scales written by the run 
 KERNEL_NAMES = ("fused_ln_geglu_residual", "nn_min_sq_both", "nn_min_sq_batch",
                 "fused_ln_geglu_residual_int8", "fused_ln_geglu_residual_int8_static",
                 "geglu_ff", "fused_self_attention_block", "fused_self_attention_block_int8",
-                "fused_self_attention_block_int8_vout", "split_qk_norm", "moe_grouped_ffn")
+                "fused_self_attention_block_int8_vout", "split_qk_norm", "moe_grouped_ffn",
+                "head_rms_norm")
 NN_N, NN_M = 500_000, 10_000  # refined predictions, GT surface points
 
 
@@ -1323,6 +1329,81 @@ def _moe_ffn_entry(gen: torch.Generator) -> dict:
     }
 
 
+# head_rms_norm at Hunyuan3D-2.1's attentions in the eval_hy3d21_live_b1
+# cell: B 2 guidance rows, 16 heads of 128, q over the 4097 tokens and k over
+# them (self) or over the 1370 condition tokens (cross), the unconditional
+# row's condition tokens zero
+HN_B, HN_H = 2, 16
+HN_CASES = {"self": (4097, 4097), "cross": (4097, 1370)}
+HN_COLD_SETS = 8  # input sets a cold graph rotates through: 537 / 358 MB a replay
+
+
+def _hn_rows(lq: int, lk: int, gen: torch.Generator, ones: bool = False) -> list:
+    """q rows, k rows (the last 300 tokens of k's second row zero), and two
+    128-value weights (ones: a norm that repeats itself, for timing in
+    place)."""
+    d = HN_H * 128
+    q = (torch.randn(HN_B, lq, d, generator=gen, device="cuda") * 3).bfloat16()
+    k = (torch.randn(HN_B, lk, d, generator=gen, device="cuda") * 3).bfloat16()
+    k[-1, -300:] = 0
+    ws = [torch.ones(128, device="cuda", dtype=torch.bfloat16) if ones else
+          (torch.rand(128, generator=gen, device="cuda") * 2).bfloat16() for _ in range(2)]
+    return [q, k, *ws]
+
+
+@torch.no_grad()
+def _head_norm_entry(gen: torch.Generator) -> dict:
+    """head_rms_norm at ``HN_CASES``, in place in the rows as the DiT calls
+    it, against its plain version: q and k within 1 unit in the last place
+    of bf16, zero tokens zero, one launch a call; timed as CUDA graphs of
+    its calls, warm (one input set) and from HBM (rotating through
+    ``HN_COLD_SETS``), beside the plain version (view, transpose,
+    ``F.rms_norm``: its copies and norm kernel, so also its ``library_ms``)
+    and the bytes bound (q and k read and written once)."""
+    from rald_torch.ops import head_norm as hn
+
+    rows = {}
+    for case, (lq, lk) in HN_CASES.items():
+        q, k, wq, wk = _hn_rows(lq, lk, gen)
+        want = [hn.head_rms_norm_plain(t, w, HN_H) for t, w in ((q, wq), (k, wk))]
+        line = {"shape": [HN_B, HN_H, [lq, lk], 128], "case": case}
+        before = hn.head_rms_norm.launches
+        got = hn.head_rms_norm(q, k, wq, wk, HN_H)
+        torch.cuda.synchronize()
+        label = f"head_rms_norm {case}"
+        check(hn.head_rms_norm.launches - before == 1, f"{label}: launches")
+        line["ulps"] = [_ulps(g, w) for g, w in zip(got, want)]
+        check(max(line["ulps"]) <= 1, f"{label}: q / k {line['ulps']} ulps > 1")
+        check(not got[1][-1, :, -300:].any(), f"{label}: zero tokens not zero")
+        line["max_abs_err"] = max((g.float() - w.float()).abs().max().item()
+                                  for g, w in zip(got, want))
+        del q, k, got, want
+        moved = 4 * HN_B * (lq + lk) * HN_H * 128  # bf16 q and k, read and written
+        line["bound_ms"], line["bound_by"] = bound_t(moved, 0.0)
+        sets = [_hn_rows(lq, lk, gen, ones=True) for _ in range(HN_COLD_SETS)]
+        kern = lambda s: hn.head_rms_norm(*s, HN_H)  # noqa: E731
+        plain = lambda s: (hn.head_rms_norm_plain(s[0], s[2], HN_H),  # noqa: E731
+                           hn.head_rms_norm_plain(s[1], s[3], HN_H))
+        line["ms"] = _graph_ms([lambda: kern(sets[0])] * 20, keep=False)
+        line["ms_cold"] = _graph_ms([lambda s=s: kern(s) for s in sets], keep=False)
+        line["plain_ms"] = _graph_ms([lambda: plain(sets[0])] * 20, keep=False)
+        line["plain_ms_cold"] = _graph_ms([lambda s=s: plain(s) for s in sets], keep=True)
+        line["bound_share"] = line["bound_ms"] / line["ms"]
+        line["bound_share_cold"] = line["bound_ms"] / line["ms_cold"]
+        rows[case] = line
+        print("[kernels] head_rms_norm " + json.dumps(line))
+        del sets
+    s, c = rows["self"], rows["cross"]
+    return {
+        "name": "head_rms_norm", "route": "cuda", "source": "rald_torch/csrc/head_norm.cu",
+        "replaces": "no TPU kernel: Hunyuan3D-2.1 DiT's head view / F.rms_norm of q and k",
+        "shape": s["shape"], "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "ms": s["ms"], "plain_ms": s["plain_ms"], "library_ms": s["plain_ms"],
+        "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "ms_cold": s["ms_cold"],
+        "library_ms_cold": s["plain_ms_cold"], "cross": c,
+    }
+
+
 def phase_kernels() -> list:
     gen = torch.Generator("cuda").manual_seed(0)
     wsets = _ff_weight_sets(gen)
@@ -1337,6 +1418,7 @@ def phase_kernels() -> list:
     entries.insert(1, nn_both)
     entries.append(_qk_norm_entry(gen))
     entries.append(_moe_ffn_entry(gen))
+    entries.append(_head_norm_entry(gen))
     for e in entries:
         e["max_err"] = e["max_abs_err"]
         # the nearest-neighbour kernels take f32 points only: their entries
@@ -4768,7 +4850,7 @@ def main() -> int:
                    "geglu_ff": "f32 GEGLUFeedForward(use_fused=True)",
                    "fused_self_attention_block": "f32 use_fused_attn"}
     for k in kernels:
-        if k["name"] not in mode_of:  # split_qk_norm, moe_grouped_ffn: no RaLD chain runs them
+        if k["name"] not in mode_of:  # the Hunyuan3D kernels: no RaLD chain runs them
             continue
         mode = mode_of[k["name"]]
         k["launches_mode"] = mode

@@ -21,11 +21,14 @@ x 1024, DINOv2-large) read by cross-attention. No modulation:
   ``in_channels``.
 
 The GEMMs run in cuBLAS (q, k and v as three, as published), both
-attentions in ``F.scaled_dot_product_attention``, the 128-wide QK-norm in
-``F.rms_norm``; the routed experts in the hand kernel
-:func:`rald_torch.ops.moe_grouped_ffn`. The time token depends on ``t``
-alone, so the sampler computes it for all its steps at once
-(:meth:`Hunyuan3DDiTPlain.sample`).
+attentions in ``F.scaled_dot_product_attention``; the 128-wide QK-norm in
+the hand kernel :func:`rald_torch.ops.head_rms_norm`, one launch an
+attention for its q and k, in place in the projections' (B, L, H * 128)
+rows, whose (B, H, L, 128) views the attention reads as they lie (the
+plain ``F.rms_norm`` of the heads on the CPU); the routed experts in the
+hand kernel :func:`rald_torch.ops.moe_grouped_ffn`. The time token
+depends on ``t`` alone, so the sampler computes it for all its steps at
+once (:meth:`Hunyuan3DDiTPlain.sample`).
 The model has no fused, int8 or training path; the engine refuses those
 flags for it. It brings the engine its sampler (:meth:`sample`, the guided
 Euler steps of :mod:`rald_torch.diffusion.flow`, as Hunyuan3D-2.0's DiT)
@@ -44,6 +47,8 @@ from torch import nn
 from rald_torch.diffusion.flow import flow_euler_cfg, flow_times
 from rald_torch.models.mmdit import timestep_embedding
 from rald_torch.models.moe import MoEFFN
+from rald_torch.ops import head_rms_norm
+from rald_torch.ops.head_norm import heads_view
 
 EPS = 1e-6  # of every LayerNorm and RMSNorm of the DiT
 TIME_FACTOR = 1000.0  # the time token's sinusoid takes 1000 t (assumed, as the 2.0 DiT's)
@@ -54,21 +59,13 @@ def _ln(dim: int) -> nn.LayerNorm:
 
 
 class RMSNorm(nn.Module):
-    """RMS norm over the last axis with a learned ``weight``, at :data:`EPS`
-    (``F.rms_norm``: statistics in float32)."""
+    """The learned ``weight`` of a per-head RMS norm at :data:`EPS`, applied
+    by :func:`head_rms_norm` (statistics and scale in float32, rounded to
+    the input's dtype once)."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.rms_norm(x, (x.shape[-1],), self.weight, EPS)
-
-
-def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
-    """(B, L, H * Dh) -> (B, H, L, Dh)."""
-    b, n, _ = t.shape
-    return t.view(b, n, heads, -1).transpose(1, 2)
 
 
 class Attention(nn.Module):
@@ -91,9 +88,9 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = x if c is None else c
         h = self.num_heads
-        q = self.q_norm(_heads(self.to_q(x), h))
-        k = self.k_norm(_heads(self.to_k(c), h))
-        out = F.scaled_dot_product_attention(q, k, _heads(self.to_v(c), h))
+        q, k = head_rms_norm(self.to_q(x), self.to_k(c), self.q_norm.weight, self.k_norm.weight,
+                             h, EPS)
+        out = F.scaled_dot_product_attention(q, k, heads_view(self.to_v(c), h))
         return self.out_proj(out.transpose(1, 2).flatten(2))
 
 

@@ -18,6 +18,7 @@ from rald_torch.ops.geglu_kernel import (
     fused_ln_geglu_residual_int8_static,
     geglu_ff,
 )
+from rald_torch.ops.head_norm import head_rms_norm
 from rald_torch.ops.moe_ffn import moe_grouped_ffn
 from rald_torch.ops.nn_dist_kernel import nn_min_sq_batch, nn_min_sq_both
 from rald_torch.ops.qk_norm import split_qk_norm
@@ -35,6 +36,7 @@ KERNELS = {
     "fused_self_attention_block_int8_vout": fused_self_attention_block_int8_vout,
     "split_qk_norm": split_qk_norm,
     "moe_grouped_ffn": moe_grouped_ffn,
+    "head_rms_norm": head_rms_norm,
 }
 
 
